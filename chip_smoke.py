@@ -7,15 +7,29 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
   1. device: CUDA must be present; prints the card's name and power limit
   2. build: compiles csrc/*.cu with nvcc (one process per source, all at
      once) and prints each kernel's registers, shared memory and spills
-  3. kernel vs plain torch version at the main path's shapes
-  4. main path: a seeded synthetic 600-frame 1920x1080 yuv420p clip through
-     models.avpvs.pump_ready onto a 3840x2160 canvas in 64-frame chunks,
-     then a 128-frame yuv420p10le clip; launch counts, sidecar rows and the
-     first chunk against the plain path are checked; frames/s end to end
-  5. timing of each kernel at the main path's shapes beside its bound, its
+  3. kernel vs plain torch version at the main paths' shapes (the fused
+     SI+TI kernels also against the separate SI and TI kernels)
+  4. the p03 device seam: a seeded synthetic 600-frame 1920x1080 yuv420p
+     clip through models.avpvs.pump_ready onto a 3840x2160 canvas in
+     64-frame chunks, then a 128-frame yuv420p10le clip; launch counts,
+     sidecar rows and the first chunk against the plain path are checked;
+     frames/s end to end
+  5. the flagship step: parallel.pipeline.avpvs_siti_step on seeded u8
+     [64, 1080, 1920] planes -> 2160x3840 lanczos, without and with
+     prev_last; launch counts, planes and SI/TI against the plain versions;
+     device ms per call
+  6. the wave render: parallel.p03_batch.run_bucket, 1920x1080 yuv420p ->
+     3840x2160 bicubic, chunk 64, on (a) the production mesh make_mesh()
+     (pvs=1) with lanes of 600 and 250 frames and (b) a 4-lane mesh on the
+     card with lanes of 200, 130, 100, 64 and 40 frames; launch counts,
+     the wave journal's slot accounting, each lane's frame count, first
+     block (against the plain resize) and SI/TI (against the lane rendered
+     alone through pump_ready) are checked; frames/s end to end
+  7. timing of each kernel at the main paths' shapes beside its bound, its
      plain version and, where one exists, a PyTorch library call
-The last two lines of standard output are one JSON object with every
-kernel's numbers and `{"ok": true, "device": {...}}`.
+Each path's launch counts are set to 0 just before it runs and read just
+after. The last two lines of standard output are one JSON object with
+every kernel's numbers and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ from __future__ import annotations
 import json
 import os
 import queue
+import shutil
 import subprocess
 import sys
 import threading
@@ -35,11 +50,18 @@ from processing_chain_tpu_torch.models import avpvs
 from processing_chain_tpu_torch.models import frames as fr
 from processing_chain_tpu_torch.ops import _build
 from processing_chain_tpu_torch.ops import cuda_kernels as ck
+from processing_chain_tpu_torch.parallel import mesh as pmesh
+from processing_chain_tpu_torch.parallel import meshobs, p03_batch, pipeline
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 SRC_H, SRC_W, DST_H, DST_W = 1080, 1920, 2160, 3840
 CLIP_FRAMES, CLIP_FRAMES_10BIT = 600, 128  # a 10 s 60 fps short test; 2 chunks
+FLAGSHIP_FRAMES = 64
+WAVE_CASES = (  # (label, lane lengths, 4-lane mesh on the card?)
+    ("production", (600, 250), False),
+    ("4lane", (200, 130, 100, 64, 40), True),
+)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
 # operations/s; int32 add and multiply-add run at half the fp32 rate
@@ -54,6 +76,8 @@ KERNELS = {
     "resize_frames_fused": ("csrc/resize.cu", "pallas_kernels.py:135"),
     "si_frames_fused": ("csrc/siti.cu", "pallas_kernels.py:293"),
     "ti_frames_fused": ("csrc/siti.cu", "pallas_kernels.py:443"),
+    "siti_frames_fused_batch": ("csrc/siti.cu", "pallas_kernels.py:398"),
+    "siti_frames_fused": ("csrc/siti.cu", "pallas_kernels.py:355"),
 }
 
 
@@ -138,7 +162,38 @@ def check_kernels(dev) -> dict:
             require(torch.allclose(a, b, rtol=1e-4, atol=atol),
                     f"{name} {dtype}: kernel vs plain off by {e}")
             err[name] = max(err[name], e)
-        del y, prev
+        # the fused SI+TI kernels: against their plain versions and against
+        # the separate SI and TI kernels on the same frames
+        si, ti = ck.siti_frames_fused(y)
+        psi, pti = ck.siti_frames_plain(y)
+        si1, ti1 = ck.siti_frames_fused(y[:1].clone())
+        require(ti1.tolist() == [0.0], f"1-frame clip: TI {ti1.tolist()} != [0]")
+        yb = random_frames(gen, (2, 8, DST_H, DST_W), hi, dtype, dev)
+        prevb = random_frames(gen, (2, DST_H, DST_W), hi, dtype, dev)
+        sib, tib = ck.siti_frames_fused_batch(yb, prevb)
+        psib, ptib = ck.siti_frames_batch_plain(yb, prevb)
+        halo = yb[:, 0].contiguous()
+        sih, tih = ck.siti_frames_fused_batch(yb, halo)
+        psih, ptih = ck.siti_frames_batch_plain(yb, halo)
+        require(tih[:, 0].tolist() == [0.0, 0.0], "self-halo: TI[:, 0] != 0")
+        sep_b = (torch.stack([ck.si_frames_fused(yb[k]) for k in range(2)]),
+                 torch.stack([ck.ti_frames_fused(yb[k], prevb[k]) for k in range(2)]))
+        cases = [
+            ("siti_frames_fused", "[16] vs plain", (si, ti), (psi, pti)),
+            ("siti_frames_fused", "[16] vs separate kernels", (si, ti),
+             (ck.si_frames_fused(y), ck.ti_frames_fused(y))),
+            ("siti_frames_fused", "[1] vs plain", (si1, ti1), ck.siti_frames_plain(y[:1])),
+            ("siti_frames_fused_batch", "[2,8] vs plain", (sib, tib), (psib, ptib)),
+            ("siti_frames_fused_batch", "[2,8] vs separate kernels", (sib, tib), sep_b),
+            ("siti_frames_fused_batch", "[2,8] self-halo vs plain", (sih, tih), (psih, ptih)),
+        ]
+        for name, what, got, want in cases:
+            e = max(max_abs(a, b) for a, b in zip(got, want))
+            log(f"{name} {str(dtype)[6:]} {what} at {DST_H}x{DST_W}: max|diff| = {e}")
+            require(all(torch.allclose(a, b, rtol=1e-4, atol=atol) for a, b in zip(got, want)),
+                    f"{name} {dtype} {what}: off by {e}")
+            err[name] = max(err[name], e)
+        del y, prev, yb, prevb, halo
     torch.cuda.synchronize()
     return err
 
@@ -318,8 +373,8 @@ def run_main_path(dev, frames: int, pix_fmt: str, workdir: str) -> dict:
     log(f"main path {pix_fmt}: {frames} frames in {n_chunks} chunks, "
         f"{seconds:.3f} s, launches {launches}")
     require(sink.frames == frames, f"sink saw {sink.frames} frames, not {frames}")
-    want = {"resize_frames_fused": 3 * n_chunks, "si_frames_fused": n_chunks,
-            "ti_frames_fused": n_chunks}
+    want = launches_want(resize_frames_fused=3 * n_chunks, si_frames_fused=n_chunks,
+                         ti_frames_fused=n_chunks)
     require(launches == want, f"launches {launches} != {want}")
 
     path = feat.write(out_path)
@@ -383,8 +438,179 @@ def run_main_path(dev, frames: int, pix_fmt: str, workdir: str) -> dict:
     return result
 
 
+def counted(fn):
+    """Run `fn` with every launch count set to 0 just before and read just
+    after: (its result, the launches it made, its wall seconds)."""
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ck.LAUNCHES), time.perf_counter() - t0
+
+
+def launches_want(**nonzero) -> dict:
+    return {name: nonzero.get(name, 0) for name in ck.LAUNCHES}
+
+
 # ---------------------------------------------------------------------------
-# phase 5: timing beside the bounds
+# phase 5: the flagship step
+# ---------------------------------------------------------------------------
+
+
+def run_flagship(dev) -> dict:
+    """avpvs_siti_step on seeded u8 planes, 1080p -> 2160p lanczos, once
+    without prev_last and once with the first call's last luma frame."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    planes = [random_frames(gen, s, 255, torch.uint8, dev) for s in plane_shapes(FLAGSHIP_FRAMES)]
+    dims = [(DST_H, DST_W), (DST_H // 2, DST_W // 2), (DST_H // 2, DST_W // 2)]
+    result = {}
+    prev = None
+    for name in ("flagship", "flagship_prev"):
+        out, launches, _ = counted(
+            lambda: pipeline.avpvs_siti_step(*planes, DST_H, DST_W, prev_last=prev))
+        up, (si, ti) = out[:3], out[3:]
+        fused = "siti_frames_fused" if prev is None else "siti_frames_fused_batch"
+        want = launches_want(resize_frames_fused=3, **{fused: 1})
+        log(f"{name}: launches {launches}")
+        require(launches == want, f"{name}: launches {launches} != {want}")
+        for p, u, (h, w) in zip(planes, up, dims):
+            require(torch.equal(u, ck.resize_frames_plain(p, h, w, "lanczos")),
+                    f"{name}: a {h}x{w} plane differs from the plain resize")
+        if prev is None:
+            psi, pti = ck.siti_frames_plain(up[0])
+        else:
+            psi, pti = ck.si_frames_plain(up[0]), ck.ti_frames_plain(up[0], prev)
+        e = max(max_abs(si, psi), max_abs(ti, pti))
+        require(torch.allclose(si, psi, rtol=1e-4, atol=1e-3)
+                and torch.allclose(ti, pti, rtol=1e-4, atol=1e-3),
+                f"{name}: SI/TI off the plain versions by {e}")
+        require((float(ti[0]) == 0.0) == (prev is None), f"{name}: TI[0] = {float(ti[0])}")
+        p_last = prev
+        ms = time_ms(lambda: pipeline.avpvs_siti_step(*planes, DST_H, DST_W, prev_last=p_last),
+                     reps=5)
+        result[name] = {"launches": launches, "siti_max_err": e, "device_ms_per_call": ms,
+                        "frames": FLAGSHIP_FRAMES}
+        log(f"{name}: {ms:.4f} ms per {FLAGSHIP_FRAMES}-frame call on the device, "
+            f"SI/TI max|kernel-plain| {e}")
+        prev = up[0][-1].clone()
+        del out, up
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the wave render
+# ---------------------------------------------------------------------------
+
+
+class LaneSink:
+    """A lane's emit end: counts frames, keeps the first block (the wave
+    loop never writes emitted memory again) and the features."""
+
+    def __init__(self) -> None:
+        self.frames = 0
+        self.first = None
+        self.feat = avpvs.SiTiAccumulator()
+
+    def emit(self, planes) -> None:
+        if self.first is None:
+            self.first = planes
+        self.frames += planes[0].shape[0]
+
+
+class DropSink:
+    def put(self, planes, recycle=None) -> None:
+        pass
+
+
+def single_features(dev, chunks) -> tuple:
+    """SI/TI of one clip rendered alone through pump_ready (u8)."""
+    feat = avpvs.SiTiAccumulator()
+    avpvs.pump_ready(iter(chunks), DropSink(), feat, DST_H, DST_W, "yuv420p", device=dev)
+    return torch.cat(feat.si).cpu().numpy(), torch.cat(feat.ti).cpu().numpy()
+
+
+def run_wave(dev, label: str, lengths, four_lanes: bool, workdir: str) -> dict:
+    chunk = avpvs.CHUNK
+    mesh = pmesh.make_mesh([dev] * 4) if four_lanes else pmesh.make_mesh()
+    n_pvs = mesh.shape["pvs"]
+    clips = [synthetic_clip(n, chunk, False, SEED + 31 * i + n) for i, n in enumerate(lengths)]
+    sinks = [LaneSink() for _ in lengths]
+    lanes = [p03_batch.Lane(chunks=iter(c), emit=s.emit, n_frames_hint=n,
+                            emit_features=s.feat.extend, name=f"{label}{i}")
+             for i, (c, s, n) in enumerate(zip(clips, sinks, lengths))]
+    journal = os.path.join(workdir, f"meshobs_{label}")
+    shutil.rmtree(journal, ignore_errors=True)
+    meshobs.attach_journal(journal)
+    bucket = p03_batch.bucket_label(DST_H, DST_W, False, SRC_H, SRC_W)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        _, launches, seconds = counted(lambda: p03_batch.run_bucket(
+            lanes, mesh, DST_H, DST_W, "bicubic", (2, 2), False, chunk=chunk, bucket=bucket))
+    finally:
+        meshobs.detach_journal()
+    frames = sum(lengths)
+    log(f"wave {label}: {frames} frames, lanes {list(lengths)} on pvs={n_pvs}, "
+        f"{seconds:.3f} s, launches {launches}")
+
+    order = sorted(lengths, reverse=True)
+    blocks = sum(-(-max(order[w:w + n_pvs]) // chunk) for w in range(0, len(order), n_pvs))
+    want = launches_want(resize_frames_fused=3 * blocks, siti_frames_fused_batch=blocks)
+    require(launches == want, f"wave {label}: launches {launches} != {want}")
+    agg = meshobs.aggregate(journal)
+    tot = agg["totals"]
+    pads = {k: tot[k] for k in meshobs.SLOT_KINDS[1:]}
+    require(agg["invariant_violations"] == 0 and tot["waves"] == blocks
+            and tot["valid"] == frames
+            and tot["valid"] + sum(pads.values()) == tot["dispatched"] == blocks * n_pvs * chunk,
+            f"wave {label}: slot accounting {tot}")
+    if four_lanes:
+        require(all(v > 0 for v in pads.values()), f"wave {label}: pads {pads}")
+
+    sidecar_rows = []
+    lane_err = {"si": 0.0, "ti": 0.0}
+    for i, (clip, sink, n) in enumerate(zip(clips, sinks, lengths)):
+        require(sink.frames == n, f"wave {label} lane {i}: {sink.frames} frames, not {n}")
+        first_dev = [torch.from_numpy(p).to(dev) for p in clip[0]]
+        dims = [(DST_H, DST_W), (DST_H // 2, DST_W // 2), (DST_H // 2, DST_W // 2)]
+        for got, p, (h, w) in zip(sink.first, first_dev, dims):
+            plain = ck.resize_frames_plain(p, h, w, "bicubic").cpu().numpy()
+            require(got.shape == plain.shape and np.array_equal(got, plain),
+                    f"wave {label} lane {i}: first block differs from the plain resize")
+        del first_dev
+        si = np.concatenate([np.asarray(x) for x in sink.feat.si])
+        ti = np.concatenate([np.asarray(x) for x in sink.feat.ti])
+        ssi, sti = single_features(dev, clip)
+        lane_err["si"] = max(lane_err["si"], float(np.abs(si - ssi).max()))
+        lane_err["ti"] = max(lane_err["ti"], float(np.abs(ti - sti).max()))
+        require(np.allclose(si, ssi, rtol=1e-4, atol=1e-3) and np.allclose(ti, sti, rtol=1e-4, atol=1e-3)
+                and ti[0] == 0.0,
+                f"wave {label} lane {i}: SI/TI off the lane rendered alone by {lane_err}")
+        path = sink.feat.write(os.path.join(workdir, f"wave_{label}{i}.avi"))
+        with open(path) as f:
+            rows = f.read().splitlines()
+        require(rows[0] == "frame,si,ti" and len(rows) == n + 1,
+                f"wave {label} lane {i}: sidecar has {len(rows) - 1} rows, not {n}")
+        sidecar_rows.append(len(rows) - 1)
+    result = {
+        "label": label, "lanes": list(lengths), "n_pvs": n_pvs, "blocks": blocks,
+        "frames": frames, "seconds": seconds, "frames_per_s": frames / seconds,
+        "launches": launches, "slots": {k: tot[k] for k in ("valid", "dispatched")} | pads,
+        "step_s_sum": tot["step_s"], "first_dispatch_s": tot["compile_s"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "lane_vs_single_max_err": lane_err, "sidecar_rows": sidecar_rows,
+    }
+    log(f"wave {label}: {result['frames_per_s']:.2f} frames/s end to end "
+        f"(host<->device copies included), slots {result['slots']}, "
+        f"steps {tot['step_s']} s, lane vs single max err {lane_err}")
+    del clips, sinks, lanes
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing beside the bounds
 # ---------------------------------------------------------------------------
 
 
@@ -453,10 +679,35 @@ def time_kernels(dev) -> dict:
         library_call=None,
         per="one 64-frame 2160x3840 u8 luma chunk with a predecessor frame",
     )
+    # the fused SI+TI kernels on the same chunk; the yardstick is the same
+    # F.conv2d call as SI's, and the separate SI + TI kernels are timed
+    # beside them in the same run
+    conv = dict(library_ms=out["si_frames_fused"]["library_ms"],
+                library_call=out["si_frames_fused"]["library_call"])
+    yb, prevb = y[None], prev[None]
+    out["siti_frames_fused_batch"] = dict(
+        zip(("bound_ms", "bound_by"), bound(
+            (t + 1) * hw, SI_OPS_PER_PX * interior + TI_OPS_PER_PX * t * hw, INT32_OPS_S)),
+        ms=time_ms(lambda: ck.siti_frames_fused_batch(yb, prevb), reps=10),
+        plain_ms=time_ms(lambda: ck.siti_frames_batch_plain(yb, prevb), reps=1),
+        separate_ms=time_ms(lambda: (ck.si_frames_fused(y), ck.ti_frames_fused(y, prev)), reps=10),
+        per="one [1, 64, 2160, 3840] u8 luma chunk with its predecessor frame",
+        **conv,
+    )
+    out["siti_frames_fused"] = dict(
+        zip(("bound_ms", "bound_by"), bound(
+            t * hw, SI_OPS_PER_PX * interior + TI_OPS_PER_PX * (t - 1) * hw, INT32_OPS_S)),
+        ms=time_ms(lambda: ck.siti_frames_fused(y), reps=10),
+        plain_ms=time_ms(lambda: ck.siti_frames_plain(y), reps=1),
+        separate_ms=time_ms(lambda: (ck.si_frames_fused(y), ck.ti_frames_fused(y)), reps=10),
+        per="one 64-frame 2160x3840 u8 luma chunk, TI[0] = 0",
+        **conv,
+    )
     for name, r in out.items():
+        sep = f", separate SI + TI kernels {r['separate_ms']:.4f} ms" if "separate_ms" in r else ""
         log(f"timing {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms']} ms — {r['per']}")
+            f"library {r['library_ms']} ms{sep} — {r['per']}")
     return out
 
 
@@ -484,22 +735,38 @@ def main() -> int:
     os.makedirs(workdir, exist_ok=True)
     main8 = run_main_path(dev, CLIP_FRAMES, "yuv420p", workdir)
     main10 = run_main_path(dev, CLIP_FRAMES_10BIT, "yuv420p10le", workdir)
+    flagship = run_flagship(dev)
+    waves = {label: run_wave(dev, label, lengths, four, workdir)
+             for label, lengths, four in WAVE_CASES}
+    log(f"wave render (production mesh): {waves['production']['frames_per_s']:.2f} frames/s "
+        f"beside pump_ready {main8['frames_per_s']:.2f} frames/s, same run")
     timing = time_kernels(dev)
 
-    per_chunk = {"resize_frames_fused": 3, "si_frames_fused": 1, "ti_frames_fused": 1}
+    paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
+             **{k: v["launches"] for k, v in flagship.items()},
+             **{f"wave_{k}": v["launches"] for k, v in waves.items()}}
+    # each kernel's `launches` is read from the path it was ported for
+    home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
+            "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
+            "siti_frames_fused_batch": "wave_production"}
+    per_chunk = {"resize_frames_fused": 3, "si_frames_fused": 1, "ti_frames_fused": 1,
+                 "siti_frames_fused": 1, "siti_frames_fused_batch": 1}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        require(paths[home[name]][name] > 0, f"{name}: no launch on {home[name]}")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"processing_chain_tpu_torch/{source}",
             "replaces": f"processing_chain_tpu/ops/{replaces}",
-            "launches": main8["launches"][name],
+            "launches": paths[home[name]][name],
+            "launches_path": home[name],
             "launches_per_chunk": per_chunk[name],
-            "launches_10bit": main10["launches"][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err[name], "matches_plain": True,
             **timing[name],
         })
-    log(json.dumps({"main_path": [main8, main10], "card": smi}))
+    log(json.dumps({"main_path": [main8, main10], "flagship": flagship,
+                    "waves": waves, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

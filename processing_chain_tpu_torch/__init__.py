@@ -6,7 +6,9 @@ imports `torch` and never `jax`, and shares no code with the reference
 package (what it needs of the jax-free host modules it carries as its own
 copy). Entry points run on `cuda:0` unless the caller passes a device.
 
-Ported so far: the p03 AVPVS device render — canvas resize of Y/U/V,
-container-depth quantize, per-frame SI/TI sidecar — with hand-written
-CUDA kernels for the three TPU kernels on that path (ops/cuda_kernels.py).
+Ported so far: the p03 AVPVS device render (canvas resize of Y/U/V,
+container-depth quantize, per-frame SI/TI sidecar), the batched wave
+render on one device (parallel/p03_batch.run_bucket) and the flagship
+step (parallel/pipeline.avpvs_siti_step), with a hand-written CUDA kernel
+for each of the five TPU kernels (ops/cuda_kernels.py).
 """

@@ -17,6 +17,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..ops import siti as siti_ops
 from ..parallel.pipeline import iter_device_ahead
@@ -54,6 +55,11 @@ def siti_sidecar_path(avpvs_path: str) -> str:
     return avpvs_path + ".siti.csv"
 
 
+def _host(x) -> np.ndarray:
+    """A feature array on the host: tensors are fetched, numpy passes."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 class SiTiAccumulator:
     """Per-frame SI/TI of the upscaled luma, computed on the device during
     the AVPVS render while the frames are already there, so downstream
@@ -74,12 +80,18 @@ class SiTiAccumulator:
         ti, self._prev = siti_ops.ti_frames_continued(y_quant, self._prev)
         self.ti.append(ti)
 
+    def extend(self, si, ti) -> None:
+        """Batch-path entry: features already computed by the wave step
+        (numpy arrays or tensors)."""
+        self.si.append(si)
+        self.ti.append(ti)
+
     def write(self, avpvs_path: str) -> Optional[str]:
         if not self.si:
             return None
         path = siti_sidecar_path(avpvs_path)
-        si = np.concatenate([s.cpu().numpy() for s in self.si])
-        ti = np.concatenate([t.cpu().numpy() for t in self.ti])
+        si = np.concatenate([_host(s) for s in self.si])
+        ti = np.concatenate([_host(t) for t in self.ti])
 
         # atomic: an interrupted write must never leave a truncated
         # sidecar next to a complete AVPVS

@@ -1,11 +1,16 @@
 """Hand-written CUDA kernels for the hot pixel ops (port of
 processing_chain_tpu/ops/pallas_kernels.py).
 
-Three wrappers, one per TPU kernel on the p03 render path:
+One wrapper per TPU kernel:
 
-  resize_frames_fused  csrc/resize.cu  (pallas_kernels.py:131-215)
-  si_frames_fused      csrc/siti.cu    (pallas_kernels.py:293-313)
-  ti_frames_fused      csrc/siti.cu    (pallas_kernels.py:443-465)
+  resize_frames_fused      csrc/resize.cu  (pallas_kernels.py:131-215)
+  si_frames_fused          csrc/siti.cu    (pallas_kernels.py:293-313)
+  ti_frames_fused          csrc/siti.cu    (pallas_kernels.py:443-465)
+  siti_frames_fused        csrc/siti.cu    (pallas_kernels.py:355-383)
+  siti_frames_fused_batch  csrc/siti.cu    (pallas_kernels.py:398-428)
+
+The last two are entry points of one fused SI+TI kernel (siti_partials)
+with separate launch counts.
 
 Each wrapper checks its input and, for a CUDA tensor, launches its kernel
 on the tensor's current stream (and adds one to `LAUNCHES[name]` there
@@ -25,7 +30,8 @@ import torch
 
 from . import _build, resize
 
-LAUNCHES = {"resize_frames_fused": 0, "si_frames_fused": 0, "ti_frames_fused": 0}
+LAUNCHES = {"resize_frames_fused": 0, "si_frames_fused": 0, "ti_frames_fused": 0,
+            "siti_frames_fused": 0, "siti_frames_fused_batch": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -36,6 +42,7 @@ _SIGNATURES = {
     "siti": {
         "pc_si_partials": [_P, _I, _I, _I, _I, _P, _P, _P],
         "pc_ti_partials": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P],
+        "pc_siti_partials": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
 }
 
@@ -44,6 +51,7 @@ _RESIZE_TILE_W = 128    # output columns per block (csrc/resize.cu TILE_W)
 _RESIZE_MAX_ROWS = 192  # source rows a block stages: 192*128*4 B = 96 KB
 _SI_TILE = (32, 128)    # gradient rows, cols per block (csrc/siti.cu)
 _TI_BLOCKS = 64         # blocks per frame pair
+_SITI_TILE = (32, 128)  # owned source rows, cols per block (csrc/siti.cu)
 
 
 def reset_launches() -> None:
@@ -51,17 +59,26 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_frames(x, name: str, dtypes) -> None:
+def _check_frames(x, name: str, dtypes, layout: str = "[T, H, W]") -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(x).__name__}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {x.dtype} not in {dtypes}")
-    if x.ndim != 3:
-        raise ValueError(f"{name}: expected [T, H, W], got shape {tuple(x.shape)}")
+    if x.ndim != layout.count(",") + 1:
+        raise ValueError(f"{name}: expected {layout}, got shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
+
+
+def _check_predecessor(prev, shape: tuple, y: torch.Tensor, name: str) -> None:
+    if not isinstance(prev, torch.Tensor) or tuple(prev.shape) != shape:
+        raise ValueError(f"{name}: prev must be a {list(shape)} tensor")
+    if prev.dtype != y.dtype or prev.device != y.device:
+        raise ValueError(f"{name}: prev must match y's dtype and device")
+    if not prev.is_contiguous():
+        raise ValueError(f"{name}: prev must be contiguous")
 
 
 def _launch(lib_name: str, symbol: str, kernel: str, device, *args) -> None:
@@ -246,16 +263,13 @@ def si_frames_fused(y: torch.Tensor) -> torch.Tensor:
         return torch.empty((0,), dtype=torch.float32, device=y.device)
     th, tw = _SI_TILE
     nb = -(-(h - 2) // th) * -(-(w - 2) // tw)
-    ps1 = torch.empty((t, nb), dtype=torch.float32, device=y.device)
+    ps1 = torch.empty((t, nb), dtype=torch.float64, device=y.device)
     ps2 = torch.empty((t, nb), dtype=torch.int64, device=y.device)
     _launch(
         "siti", "pc_si_partials", "si_frames_fused", y.device,
         y.data_ptr(), t, h, w, y.element_size(), ps1.data_ptr(), ps2.data_ptr(),
     )
-    return _std_from_sums(
-        ps1.to(torch.float64).sum(1), ps2.sum(1).to(torch.float64),
-        (h - 2) * (w - 2),
-    )
+    return _std_from_sums(ps1.sum(1), ps2.sum(1).to(torch.float64), (h - 2) * (w - 2))
 
 
 def ti_frames_plain(y: torch.Tensor, prev=None) -> torch.Tensor:
@@ -284,12 +298,7 @@ def ti_frames_fused(y: torch.Tensor, prev=None) -> torch.Tensor:
                   _INT_TYPES + ((torch.float32,) if on_cpu else ()))
     t, h, w = y.shape
     if prev is not None:
-        if not isinstance(prev, torch.Tensor) or prev.shape != (h, w):
-            raise ValueError(f"ti_frames_fused: prev must be a [{h}, {w}] tensor")
-        if prev.dtype != y.dtype or prev.device != y.device:
-            raise ValueError("ti_frames_fused: prev must match y's dtype and device")
-        if not prev.is_contiguous():
-            raise ValueError("ti_frames_fused: prev must be contiguous")
+        _check_predecessor(prev, (h, w), y, "ti_frames_fused")
     if on_cpu:
         return ti_frames_plain(y, prev)
     if t == 0 or (t == 1 and prev is None):
@@ -309,3 +318,87 @@ def ti_frames_fused(y: torch.Tensor, prev=None) -> torch.Tensor:
     return _std_from_sums(
         ps1.sum(1).to(torch.float64), ps2.sum(1).to(torch.float64), hw
     )
+
+
+# ---------------------------------------------------------------------------
+# Fused SI + TI
+# ---------------------------------------------------------------------------
+
+
+def siti_frames_plain(y: torch.Tensor):
+    """Plain torch version of `siti_frames_fused`: (SI[T], TI[T]) of
+    [T, H, W] luma, TI[0] = 0."""
+    return si_frames_plain(y), ti_frames_plain(y)
+
+
+def siti_frames_batch_plain(y: torch.Tensor, prev_last: torch.Tensor):
+    """Plain torch version of `siti_frames_fused_batch`: per lane b,
+    (SI[b], TI[b]) of y[b] with TI[b, 0] against prev_last[b]."""
+    b, t = y.shape[0], y.shape[1]
+    si = torch.zeros((b, t), dtype=torch.float32, device=y.device)
+    ti = torch.zeros((b, t), dtype=torch.float32, device=y.device)
+    for k in range(b):
+        si[k] = si_frames_plain(y[k])
+        ti[k] = ti_frames_plain(y[k], prev_last[k])
+    return si, ti
+
+
+def _siti_inputs(y, name: str, layout: str) -> bool:
+    """Check y for a fused SI+TI wrapper; True when it lies on the CPU."""
+    on_cpu = isinstance(y, torch.Tensor) and y.device.type == "cpu"
+    _check_frames(y, name, _INT_TYPES + ((torch.float32,) if on_cpu else ()), layout)
+    h, w = y.shape[-2], y.shape[-1]
+    if h < 3 or w < 3:
+        raise ValueError(f"{name}: frame {h}x{w} has no Sobel interior")
+    return on_cpu
+
+
+def _siti_launch(y: torch.Tensor, prev, name: str):
+    """One siti_partials launch over y [B, T, H, W] (prev [B, H, W] or
+    None), then the f64 reduction of the per-block partials →
+    (SI[B, T], TI[B, T])."""
+    b, t, h, w = y.shape
+    nz = b * t
+    if nz == 0:
+        empty = torch.zeros((b, t), dtype=torch.float32, device=y.device)
+        return empty, empty.clone()
+    th, tw = _SITI_TILE
+    nb = -(-h // th) * -(-w // tw)
+    size = y.element_size()
+    vec = (w * size) % 16 == 0 and y.data_ptr() % 16 == 0 and (
+        prev is None or prev.data_ptr() % 16 == 0)
+    ps1 = torch.empty((nz, nb), dtype=torch.float64, device=y.device)
+    pint = torch.empty((3, nz, nb), dtype=torch.int64, device=y.device)
+    _launch(
+        "siti", "pc_siti_partials", name, y.device,
+        y.data_ptr(), None if prev is None else prev.data_ptr(), t, nz, h, w,
+        size, int(vec), ps1.data_ptr(), pint[0].data_ptr(),
+        pint[1].data_ptr(), pint[2].data_ptr(),
+    )
+    sums = pint.sum(2).to(torch.float64)
+    si = _std_from_sums(ps1.sum(1), sums[0], (h - 2) * (w - 2))
+    ti = _std_from_sums(sums[1], sums[2], h * w)
+    return si.reshape(b, t), ti.reshape(b, t)
+
+
+def siti_frames_fused(y: torch.Tensor):
+    """(SI[T], TI[T]) (f32) of [T, H, W] luma at container depth in one
+    pass, TI[0] = 0 (csrc/siti.cu siti_partials with no predecessor for
+    frame 0). CPU tensors (u8, u16 or f32) take `siti_frames_plain`."""
+    if _siti_inputs(y, "siti_frames_fused", "[T, H, W]"):
+        return siti_frames_plain(y)
+    si, ti = _siti_launch(y[None], None, "siti_frames_fused")
+    return si[0], ti[0]
+
+
+def siti_frames_fused_batch(y: torch.Tensor, prev_last: torch.Tensor):
+    """(SI[B, T], TI[B, T]) (f32) of [B, T, H, W] luma lanes in one pass;
+    TI[b, 0] diffs against prev_last[b] ([B, H, W], same dtype and
+    device), which the kernel reads in place (csrc/siti.cu siti_partials).
+    CPU tensors take `siti_frames_batch_plain`."""
+    on_cpu = _siti_inputs(y, "siti_frames_fused_batch", "[B, T, H, W]")
+    b, _, h, w = y.shape
+    _check_predecessor(prev_last, (b, h, w), y, "siti_frames_fused_batch")
+    if on_cpu:
+        return siti_frames_batch_plain(y, prev_last)
+    return _siti_launch(y, prev_last, "siti_frames_fused_batch")

@@ -3,10 +3,10 @@ processing_chain_tpu/ops/siti.py.
 
 SI = population stddev over pixels of the Sobel gradient magnitude (border
 excluded); TI = population stddev over pixels of the inter-frame luma
-difference. `si_frames` and `ti_frames` go through the CUDA kernels for a
-CUDA tensor and through their plain torch versions for a CPU tensor
-(ops/cuda_kernels.py). `siti` and `siti_batch` are not ported yet: their
-TPU kernels (siti_frames_fused, siti_frames_fused_batch) are queued.
+difference. `si_frames`, `ti_frames`, `siti` and `siti_batch` go through
+the CUDA kernels for a CUDA tensor and through their plain torch versions
+for a CPU tensor (ops/cuda_kernels.py); `siti` and `siti_batch` take both
+features from one fused pass.
 """
 
 from __future__ import annotations
@@ -51,6 +51,19 @@ def ti_frames_continued(y: torch.Tensor, prev_last):
     are the same) and is a copy, so the chunk it came from can be freed."""
     ti = ti_frames(y, prev_last)
     return ti, y[-1].clone()
+
+
+def siti(y: torch.Tensor):
+    """(SI[T], TI[T]) for a [T, H, W] luma tensor in one fused pass,
+    TI[0] = 0 — the batched feature extractor of the flagship step."""
+    return cuda_kernels.siti_frames_fused(y.contiguous())
+
+
+def siti_batch(y: torch.Tensor, prev_last: torch.Tensor):
+    """(SI[B, T], TI[B, T]) for [B, T, H, W] luma lanes with a per-lane
+    predecessor frame prev_last [B, H, W] of the same dtype: TI[b, 0]
+    diffs against prev_last[b]. The wave step's feature pass."""
+    return cuda_kernels.siti_frames_fused_batch(y.contiguous(), prev_last.contiguous())
 
 
 #: reference util/complexity_classification.py:34 — "arbitrarily chosen in

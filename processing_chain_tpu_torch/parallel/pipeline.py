@@ -1,11 +1,17 @@
-"""Host→device transfer pipeline (port of
-processing_chain_tpu/parallel/pipeline.py:100-119, `iter_device_ahead`)."""
+"""Host→device transfer pipeline and the single-device flagship step
+(port of processing_chain_tpu/parallel/pipeline.py:100-153,
+`iter_device_ahead` and `avpvs_siti_step`). The sharded steps and the
+metrics step are not ported yet."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ops import resize as resize_ops
+from ..ops import siti as siti_ops
 from ..utils.device import resolve_device
 
 # pinned staging slots: one being filled by the host, one whose copy is in
@@ -88,3 +94,31 @@ def _hand_over(pending, compute, staging):
     released = torch.cuda.Event()
     released.record(compute)
     staging[slot] = (pinned, released)
+
+
+def avpvs_siti_step(
+    y: torch.Tensor,
+    u: torch.Tensor,
+    v: torch.Tensor,
+    dst_h: int,
+    dst_w: int,
+    prev_last: Optional[torch.Tensor] = None,
+    kernel: str = "lanczos",
+):
+    """One AVPVS+features step on a [T, H, W] clip on one device: resize
+    of luma and 4:2:0 chroma, SI and TI per frame of the resized luma
+    (TI[0] against prev_last, the previous step's last frame, when given;
+    else 0). Runs where the planes lie.
+
+    Returns (up_y, up_u, up_v, si[T], ti[T])."""
+    up_y = resize_ops.resize_plane(y, dst_h, dst_w, kernel)
+    up_u = resize_ops.resize_plane(u, dst_h // 2, dst_w // 2, kernel)
+    up_v = resize_ops.resize_plane(v, dst_h // 2, dst_w // 2, kernel)
+    if prev_last is None:
+        si, ti = siti_ops.siti(up_y)
+    else:
+        # a 1-lane batch with prev_last (at the luma's container depth) as
+        # the predecessor frame, the wave step's feature pass
+        si_b, ti_b = siti_ops.siti_batch(up_y[None], prev_last[None].to(up_y.dtype))
+        si, ti = si_b[0], ti_b[0]
+    return up_y, up_u, up_v, si, ti

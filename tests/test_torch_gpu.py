@@ -122,7 +122,8 @@ def test_pump_ready_cuda_equals_cpu(cuda, pix_fmt):
         out[str(device)] = (w.planes, torch.cat([s.cpu() for s in feat.si]),
                             torch.cat([t.cpu() for t in feat.ti]))
     assert ck.LAUNCHES == {"resize_frames_fused": 9, "si_frames_fused": 3,
-                           "ti_frames_fused": 3}
+                           "ti_frames_fused": 3, "siti_frames_fused": 0,
+                           "siti_frames_fused_batch": 0}
     (gp, gsi, gti), (cp, csi, cti) = out[str(cuda)], out["cpu"]
     for a, b in zip(gp, cp):
         for pa, pb in zip(a, b):
@@ -131,3 +132,108 @@ def test_pump_ready_cuda_equals_cpu(cuda, pix_fmt):
     torch.testing.assert_close(gsi, csi, rtol=1e-4, atol=atol)
     torch.testing.assert_close(gti, cti, rtol=1e-4, atol=atol)
     assert siti.ti_frames(torch.from_numpy(chunks[0][0]).to(cuda)).shape == (8,)
+
+
+@pytest.mark.parametrize("dtype,hi,atol", [(torch.uint8, 255, 1e-3), (torch.uint16, 1023, 1e-2)])
+@pytest.mark.parametrize("shape", [(2, 37, 61), (1, 3, 3), (5, 130, 257), (3, 48, 208)])
+def test_fused_siti_kernels_equal_plain(cuda, dtype, hi, atol, shape):
+    """Both fused entry points, ragged and 16-byte-aligned rows; the batch
+    kernel with B = 1 and 3, a random predecessor and the self-halo."""
+    y = _rand(shape, hi, dtype, cuda, shape[2] + 1)
+    si, ti = ck.siti_frames_fused(y)
+    psi, pti = ck.siti_frames_plain(y.cpu())
+    torch.testing.assert_close(si.cpu(), psi, rtol=1e-4, atol=atol)
+    torch.testing.assert_close(ti.cpu(), pti, rtol=1e-4, atol=atol)
+    assert float(ti[0]) == 0.0
+    # the fused kernel agrees with the separate kernels of the same frames
+    torch.testing.assert_close(si, ck.si_frames_fused(y), rtol=1e-4, atol=atol)
+    torch.testing.assert_close(ti, ck.ti_frames_fused(y), rtol=1e-4, atol=atol)
+    for b in (1, 3):
+        yb = _rand((b,) + shape, hi, dtype, cuda, b + shape[1])
+        prev = _rand((b,) + shape[1:], hi, dtype, cuda, b + shape[2])
+        for p in (prev, yb[:, 0].contiguous()):
+            sib, tib = ck.siti_frames_fused_batch(yb, p)
+            psib, ptib = ck.siti_frames_batch_plain(yb.cpu(), p.cpu())
+            torch.testing.assert_close(sib.cpu(), psib, rtol=1e-4, atol=atol)
+            torch.testing.assert_close(tib.cpu(), ptib, rtol=1e-4, atol=atol)
+        assert tib[:, 0].tolist() == [0.0] * b  # self-halo
+    assert ck.LAUNCHES["siti_frames_fused"] == 1
+    assert ck.LAUNCHES["siti_frames_fused_batch"] == 4
+
+
+def test_fused_siti_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((2, 3, 20, 30), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        ck.siti_frames_fused(x[0])
+    with pytest.raises(TypeError):
+        ck.siti_frames_fused_batch(x, x[:, 0].contiguous())
+    with pytest.raises(ValueError):
+        ck.siti_frames_fused_batch(x.to(torch.uint8), x[:, 0].to(torch.uint8).cpu())
+    assert ck.LAUNCHES == {name: 0 for name in ck.LAUNCHES}
+
+
+@pytest.mark.parametrize("ten_bit", [False, True])
+def test_run_bucket_cuda_equals_cpu_mesh(cuda, ten_bit):
+    from processing_chain_tpu_torch.parallel import mesh, p03_batch
+
+    hi, dtype = (1023, np.uint16) if ten_bit else (255, np.uint8)
+    rng = np.random.default_rng(9)
+    lengths = [11, 4, 2, 7, 5]
+    srcs = [[rng.integers(0, hi + 1, s).astype(dtype)
+             for s in ((n, 36, 64), (n, 18, 32), (n, 18, 32))] for n in lengths]
+    out = {}
+    for devices in ([cuda] * 4, ["cpu"] * 4):
+        planes = {i: [] for i in range(len(lengths))}
+        feats = {i: [] for i in range(len(lengths))}
+        lanes = [p03_batch.Lane(
+            chunks=iter([[p[:3] for p in yuv], [p[3:] for p in yuv]]),
+            emit=planes[i].append, n_frames_hint=yuv[0].shape[0],
+            emit_features=lambda s, t, i=i: feats[i].append((s, t)))
+            for i, yuv in enumerate(srcs)]
+        p03_batch.run_bucket(lanes, mesh.make_mesh(devices), 72, 128, "bicubic",
+                             (2, 2), ten_bit, chunk=4)
+        out[str(devices[0])] = (planes, feats)
+    # t_step 4: 3 blocks in wave 0 (the 11-frame lane), 1 in wave 1
+    assert ck.LAUNCHES == {"resize_frames_fused": 12, "si_frames_fused": 0,
+                           "ti_frames_fused": 0, "siti_frames_fused": 0,
+                           "siti_frames_fused_batch": 4}
+    (gp, gf), (cp, cf) = out[str(cuda)], out["cpu"]
+    atol = 1e-2 if ten_bit else 1e-3
+    for i in range(len(lengths)):
+        for p in range(3):
+            np.testing.assert_array_equal(np.concatenate([b[p] for b in gp[i]]),
+                                          np.concatenate([b[p] for b in cp[i]]))
+        for k in range(2):
+            np.testing.assert_allclose(np.concatenate([f[k] for f in gf[i]]),
+                                       np.concatenate([f[k] for f in cf[i]]),
+                                       rtol=1e-4, atol=atol)
+
+
+def test_avpvs_siti_step_cuda_equals_cpu(cuda):
+    from processing_chain_tpu_torch.parallel.pipeline import avpvs_siti_step
+
+    planes = [_rand(s, 255, torch.uint8, "cpu", k)
+              for k, s in enumerate(((6, 36, 64), (6, 18, 32), (6, 18, 32)))]
+    prev = _rand((72, 128), 255, torch.uint8, "cpu", 7)
+    for p in (None, prev):
+        ours = avpvs_siti_step(*[x.to(cuda) for x in planes], 72, 128,
+                               prev_last=None if p is None else p.to(cuda))
+        ref = avpvs_siti_step(*planes, 72, 128, prev_last=p)
+        for a, b in zip(ours[:3], ref[:3]):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(ours[3:], ref[3:]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-3)
+    assert ck.LAUNCHES["resize_frames_fused"] == 6
+    assert ck.LAUNCHES["siti_frames_fused"] == ck.LAUNCHES["siti_frames_fused_batch"] == 1
+
+
+@pytest.mark.parametrize("dtype,hi", [(torch.uint8, 255), (torch.uint16, 1023)])
+def test_one_gradient_frames_give_si_zero(cuda, dtype, hi):
+    """A 3x3 frame has one Sobel gradient, so SI is exactly 0: the Σ|∇|
+    partial must carry the square root to about double precision, or the
+    rounding shows as σ ~ 0.03."""
+    y = _rand((64, 3, 3), hi, dtype, cuda, 99)
+    zero = torch.zeros(64, dtype=torch.float32)
+    for si in (ck.si_frames_fused(y), ck.siti_frames_fused(y)[0],
+               ck.siti_frames_fused_batch(y[:, None], y.clone())[0][:, 0]):
+        torch.testing.assert_close(si.cpu(), zero, rtol=0, atol=1e-3)

@@ -9,6 +9,7 @@ import sys
 import pytest
 
 from processing_chain_tpu_torch.models import avpvs as ta
+from processing_chain_tpu_torch.parallel import mesh as tmesh
 from processing_chain_tpu_torch.utils import device as tdev
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,8 +49,13 @@ def test_fresh_interpreter_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     loaded = proc.stdout.split()
-    assert "processing_chain_tpu_torch.models.avpvs" in loaded
-    assert "chip_smoke" in loaded
+    for mod in ("processing_chain_tpu_torch.models.avpvs", "chip_smoke",
+                "processing_chain_tpu_torch.io.bufpool",
+                "processing_chain_tpu_torch.engine.prefetch",
+                "processing_chain_tpu_torch.parallel.mesh",
+                "processing_chain_tpu_torch.parallel.meshobs",
+                "processing_chain_tpu_torch.parallel.p03_batch"):
+        assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -77,6 +83,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         ta.pump_ready(iter([]), None, ta.SiTiAccumulator(), 8, 8, "yuv420p")
     with pytest.raises(tdev.DeviceError):
         ta.chunk_frames()
+    with pytest.raises(tdev.DeviceError):
+        tmesh.make_mesh()
     with pytest.raises(tdev.DeviceError, match="out of range"):
         tdev.select_device(0)
     assert tdev.device_count() == 0

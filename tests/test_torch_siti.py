@@ -116,3 +116,96 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tk.si_frames_fused(y.to(torch.int16))
     with pytest.raises(ValueError):
         tk.si_frames_fused(y[:, :, ::2])
+
+
+# ---------------------------------------------------------------------------
+# Fused SI+TI (pallas_kernels.py rows 4-5): siti_frames_fused and
+# siti_frames_fused_batch, and ops/siti.siti / siti_batch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", list(CASES))
+def test_fused_siti_plain_matches_jax_pallas(kind):
+    """Mirrors test_pallas_siti_combined_matches_separate: width 200 and
+    height 48, a 1-frame clip (TI = [0])."""
+    atol = CASES[kind][2]
+    y = _frames(kind, (5, 48, 200), 21)
+    si, ti = tk.siti_frames_plain(torch.from_numpy(y))
+    jsi, jti = jpk.siti_frames_fused(jnp.asarray(y), interpret=True)
+    np.testing.assert_allclose(si.numpy(), np.asarray(jsi), rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(jti), rtol=1e-4, atol=atol)
+    assert ti[0] == 0.0
+    si1, ti1 = tk.siti_frames_fused(torch.from_numpy(y[:1]))
+    jsi1, jti1 = jpk.siti_frames_fused(jnp.asarray(y[:1]), interpret=True)
+    np.testing.assert_allclose(si1.numpy(), np.asarray(jsi1), rtol=1e-4, atol=atol)
+    assert ti1.tolist() == [0.0] and np.asarray(jti1).tolist() == [0.0]
+
+
+@pytest.mark.parametrize("kind", list(CASES))
+def test_fused_siti_batch_plain_matches_jax_pallas(kind):
+    """Mirrors test_pallas_siti_batch_with_halo_matches_xla: TI[b, 0]
+    against prev_last[b], and the self-halo (prev_last = y[:, 0]) giving
+    TI[:, 0] == 0."""
+    atol = CASES[kind][2]
+    y = _frames(kind, (3, 4, 48, 200), 22)
+    prev = _frames(kind, (3, 48, 200), 23)
+    si, ti = tk.siti_frames_batch_plain(torch.from_numpy(y), torch.from_numpy(prev))
+    jsi, jti = jpk.siti_frames_fused_batch(jnp.asarray(y), jnp.asarray(prev), interpret=True)
+    assert si.shape == ti.shape == (3, 4)
+    np.testing.assert_allclose(si.numpy(), np.asarray(jsi), rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(jti), rtol=1e-4, atol=atol)
+    halo = np.ascontiguousarray(y[:, 0])
+    si0, ti0 = tk.siti_frames_fused_batch(torch.from_numpy(y), torch.from_numpy(halo))
+    jsi0, jti0 = jpk.siti_frames_fused_batch(jnp.asarray(y), jnp.asarray(halo), interpret=True)
+    assert ti0[:, 0].tolist() == [0.0, 0.0, 0.0]
+    np.testing.assert_allclose(ti0.numpy(), np.asarray(jti0), rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(si0.numpy(), np.asarray(jsi0), rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("kind", list(CASES))
+def test_siti_and_siti_batch_match_jax(kind):
+    atol = CASES[kind][2]
+    y = _frames(kind, (4, 40, 160), 24)
+    si, ti = ts.siti(torch.from_numpy(y))
+    jsi, jti = js.siti(jnp.asarray(y))
+    np.testing.assert_allclose(si.numpy(), np.asarray(jsi), rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(jti), rtol=1e-4, atol=atol)
+    yb = _frames(kind, (2, 3, 40, 160), 25)
+    prev = _frames(kind, (2, 40, 160), 26)
+    sib, tib = ts.siti_batch(torch.from_numpy(yb), torch.from_numpy(prev))
+    jsib, jtib = js.siti_batch(jnp.asarray(yb), jnp.asarray(prev))
+    np.testing.assert_allclose(sib.numpy(), np.asarray(jsib), rtol=1e-4, atol=atol)
+    np.testing.assert_allclose(tib.numpy(), np.asarray(jtib), rtol=1e-4, atol=atol)
+    # non-contiguous lane views go through (siti_batch makes them
+    # contiguous): frames 1.. against frame 0 are the tail of the whole
+    sv, tv = ts.siti_batch(torch.from_numpy(yb)[:, 1:], torch.from_numpy(yb)[:, 0])
+    assert torch.equal(sv, sib[:, 1:]) and torch.equal(tv, tib[:, 1:])
+
+
+def test_fused_siti_equals_separate_wrappers():
+    """The fused plain versions are the separate ones, side by side."""
+    y = torch.from_numpy(_frames("u8", (3, 37, 61), 27))
+    prev = torch.from_numpy(_frames("u8", (1, 37, 61), 28))
+    si, ti = tk.siti_frames_fused(y)
+    assert torch.equal(si, tk.si_frames_fused(y)) and torch.equal(ti, tk.ti_frames_fused(y))
+    sib, tib = tk.siti_frames_fused_batch(y[None], prev)
+    assert torch.equal(sib[0], si) and torch.equal(tib[0], tk.ti_frames_fused(y, prev[0]))
+    assert tk.LAUNCHES["siti_frames_fused"] == tk.LAUNCHES["siti_frames_fused_batch"] == 0
+
+
+def test_fused_wrappers_reject_what_the_kernel_does_not_take():
+    y = torch.zeros((2, 3, 20, 30), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tk.siti_frames_fused(y)  # 4-D where [T, H, W] is expected
+    with pytest.raises(ValueError):
+        tk.siti_frames_fused_batch(y[0], y[:, 0])  # 3-D where [B, T, H, W]
+    with pytest.raises(ValueError):
+        tk.siti_frames_fused_batch(y, torch.zeros((3, 20, 30), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        tk.siti_frames_fused_batch(y, torch.zeros((2, 20, 30), dtype=torch.uint16))
+    with pytest.raises(ValueError):
+        tk.siti_frames_fused_batch(y, y[:, 0])  # not contiguous
+    with pytest.raises(ValueError):
+        tk.siti_frames_fused(torch.zeros((2, 2, 30), dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        tk.siti_frames_fused(y[0].to(torch.int16))

@@ -71,6 +71,19 @@ FP32_OPS_S = 67e12
 INT32_OPS_S = FP32_OPS_S / 2
 SI_OPS_PER_PX = 14  # separable Sobel 8, m² 3, sqrt 1, two sums 2
 TI_OPS_PER_PX = 4   # difference, square, two sums
+# si_partials and ti_partials do this work on the int32 pipe; siti_partials
+# does its SI half in f32 (exact for these samples), its TI half in int32.
+
+# The redesigned kernels' previous design, for the reader: its phase-7 time
+# as PERF.md's kernel table records it (NVIDIA H100 80GB HBM3, 700.00 W).
+# Not measured by this run, so it goes to the log line only, never into the
+# kernels line.
+_PREV_SRC = "PERF.md kernel table, previous design"
+PREVIOUS = {
+    "resize_frames_fused": {"previous_ms": 3.6221, "previous_from": _PREV_SRC},
+    "siti_frames_fused_batch": {"previous_ms": 1.7771, "previous_from": _PREV_SRC},
+    "siti_frames_fused": {"previous_ms": 1.7725, "previous_from": _PREV_SRC},
+}
 
 KERNELS = {
     "resize_frames_fused": ("csrc/resize.cu", "pallas_kernels.py:135"),
@@ -614,9 +627,11 @@ def run_wave(dev, label: str, lengths, four_lanes: bool, workdir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def bound(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, str]:
+def bound(bytes_moved: float, *work: tuple[float, float]) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the sum over `work`'s (operations, operations/s)."""
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = ops / ops_rate * 1e3
+    t_ops = sum(ops / rate for ops, rate in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -628,28 +643,33 @@ def time_kernels(dev) -> dict:
     t = avpvs.CHUNK
     out = {}
 
-    # resize: the three plane calls of one 64-frame chunk
+    # resize: the three plane calls of one 64-frame chunk, bicubic (the
+    # seam's and the waves' method) and lanczos (the flagship step's)
     planes = [random_frames(gen, s, 255, torch.uint8, dev) for s in plane_shapes(t)]
     dims = [(DST_H, DST_W), (DST_H // 2, DST_W // 2), (DST_H // 2, DST_W // 2)]
-    bytes_moved = ops = 0
-    for p, (dh, dw) in zip(planes, dims):
-        _, h, w = p.shape
-        plan = ck._device_resize_plan(h, w, dh, dw, "bicubic", True, str(dev))
-        bytes_moved += t * (h * w + dh * dw)
-        ops += 2 * t * (h * dw * plan["kh"] + dh * dw * plan["kv"])
     floats = [p.to(torch.float32)[:, None] for p in planes]
-    out["resize_frames_fused"] = dict(
-        zip(("bound_ms", "bound_by"), bound(bytes_moved, ops, INT32_OPS_S)),
-        ms=time_ms(lambda: [ck.resize_frames_fused(p, h, w, "bicubic")
-                            for p, (h, w) in zip(planes, dims)], reps=10),
-        plain_ms=time_ms(lambda: [ck.resize_frames_plain(p, h, w, "bicubic")
-                                  for p, (h, w) in zip(planes, dims)], reps=2),
-        library_ms=time_ms(lambda: [F.interpolate(f, size=(h, w), mode="bicubic")
-                                    for f, (h, w) in zip(floats, dims)], reps=3),
-        library_call="torch.nn.functional.interpolate(bicubic, f32) per plane",
-        per="one 64-frame yuv420p chunk: Y 1080x1920->2160x3840, U and V "
-            "540x960->1080x1920, u8 bicubic",
-    )
+    rows = {}
+    for method in ("bicubic", "lanczos"):
+        bytes_moved = ops = 0
+        for p, (dh, dw) in zip(planes, dims):
+            _, h, w = p.shape
+            plan = ck._resize_plan(h, w, dh, dw, method, True, 1)
+            bytes_moved += t * (h * w + dh * dw)
+            ops += 2 * t * (h * dw * plan["kh"] + dh * dw * plan["kv"])
+        rows[method] = dict(
+            zip(("bound_ms", "bound_by"), bound(bytes_moved, (ops, INT32_OPS_S))),
+            ms=time_ms(lambda: [ck.resize_frames_fused(p, h, w, method)
+                                for p, (h, w) in zip(planes, dims)], reps=10),
+            plain_ms=time_ms(lambda: [ck.resize_frames_plain(p, h, w, method)
+                                      for p, (h, w) in zip(planes, dims)], reps=2),
+            # F.interpolate has no lanczos: its bicubic is the yardstick for both
+            library_ms=time_ms(lambda: [F.interpolate(f, size=(h, w), mode="bicubic")
+                                        for f, (h, w) in zip(floats, dims)], reps=3),
+            library_call="torch.nn.functional.interpolate(bicubic, f32) per plane",
+            per="one 64-frame yuv420p chunk: Y 1080x1920->2160x3840, U and V "
+                f"540x960->1080x1920, u8 {method}",
+        )
+    out["resize_frames_fused"] = dict(rows["bicubic"], lanczos=rows["lanczos"])
     del planes, floats
     torch.cuda.empty_cache()
 
@@ -663,7 +683,7 @@ def time_kernels(dev) -> dict:
     yf = y.to(torch.float32)[:, None]
     interior = t * (DST_H - 2) * (DST_W - 2)
     out["si_frames_fused"] = dict(
-        zip(("bound_ms", "bound_by"), bound(t * hw, SI_OPS_PER_PX * interior, INT32_OPS_S)),
+        zip(("bound_ms", "bound_by"), bound(t * hw, (SI_OPS_PER_PX * interior, INT32_OPS_S))),
         ms=time_ms(lambda: ck.si_frames_fused(y), reps=10),
         plain_ms=time_ms(lambda: ck.si_frames_plain(y), reps=2),
         library_ms=time_ms(lambda: F.conv2d(yf, sobel), reps=3),
@@ -672,7 +692,7 @@ def time_kernels(dev) -> dict:
     )
     del yf
     out["ti_frames_fused"] = dict(
-        zip(("bound_ms", "bound_by"), bound((t + 1) * hw, TI_OPS_PER_PX * t * hw, INT32_OPS_S)),
+        zip(("bound_ms", "bound_by"), bound((t + 1) * hw, (TI_OPS_PER_PX * t * hw, INT32_OPS_S))),
         ms=time_ms(lambda: ck.ti_frames_fused(y, prev), reps=10),
         plain_ms=time_ms(lambda: ck.ti_frames_plain(y, prev), reps=2),
         library_ms=None,
@@ -687,7 +707,8 @@ def time_kernels(dev) -> dict:
     yb, prevb = y[None], prev[None]
     out["siti_frames_fused_batch"] = dict(
         zip(("bound_ms", "bound_by"), bound(
-            (t + 1) * hw, SI_OPS_PER_PX * interior + TI_OPS_PER_PX * t * hw, INT32_OPS_S)),
+            (t + 1) * hw, (SI_OPS_PER_PX * interior, FP32_OPS_S),
+            (TI_OPS_PER_PX * t * hw, INT32_OPS_S))),
         ms=time_ms(lambda: ck.siti_frames_fused_batch(yb, prevb), reps=10),
         plain_ms=time_ms(lambda: ck.siti_frames_batch_plain(yb, prevb), reps=1),
         separate_ms=time_ms(lambda: (ck.si_frames_fused(y), ck.ti_frames_fused(y, prev)), reps=10),
@@ -696,18 +717,22 @@ def time_kernels(dev) -> dict:
     )
     out["siti_frames_fused"] = dict(
         zip(("bound_ms", "bound_by"), bound(
-            t * hw, SI_OPS_PER_PX * interior + TI_OPS_PER_PX * (t - 1) * hw, INT32_OPS_S)),
+            t * hw, (SI_OPS_PER_PX * interior, FP32_OPS_S),
+            (TI_OPS_PER_PX * (t - 1) * hw, INT32_OPS_S))),
         ms=time_ms(lambda: ck.siti_frames_fused(y), reps=10),
         plain_ms=time_ms(lambda: ck.siti_frames_plain(y), reps=1),
         separate_ms=time_ms(lambda: (ck.si_frames_fused(y), ck.ti_frames_fused(y)), reps=10),
         per="one 64-frame 2160x3840 u8 luma chunk, TI[0] = 0",
         **conv,
     )
-    for name, r in out.items():
+    for name, r in list(out.items()) + [("resize_frames_fused lanczos",
+                                         out["resize_frames_fused"]["lanczos"])]:
         sep = f", separate SI + TI kernels {r['separate_ms']:.4f} ms" if "separate_ms" in r else ""
+        prev_design = (f", previous design {PREVIOUS[name]['previous_ms']} ms "
+                       f"({PREVIOUS[name]['previous_from']})" if name in PREVIOUS else "")
         log(f"timing {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms']} ms{sep} — {r['per']}")
+            f"library {r['library_ms']} ms{sep}{prev_design} — {r['per']}")
     return out
 
 

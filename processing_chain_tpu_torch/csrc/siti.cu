@@ -10,15 +10,38 @@
 // a per-frame predecessor (frame (b, t-1), or prev_last[b] for t = 0, or
 // none: TI = 0). What bounds it on an H100: a 64-frame 2160x3840 u8 chunk
 // plus its predecessor is 539 MB read once (0.161 ms at 3.35 TB/s) and
-// ~18 int32 operations per pixel (14 SI, 4 TI: 9.55 G, 0.285 ms at
-// 33.5 T int32 ops/s), so operations bind. The design reads the frame
-// once: each block owns a 32x128 rectangle of source pixels and stages it
-// with a one-pixel halo in shared memory (16-byte loads where the rows
-// are aligned), takes SI at the owned pixels that have a Sobel interior,
-// and diffs the owned pixels against the predecessor as they arrive,
-// loading the predecessor straight from device memory in the same 16-byte
-// vectors. The per-pixel sums stay in 32-bit integers for u8 and widen
-// only per thread. Ownership is a partition of the source pixels (rows 0
+// ~18 operations per pixel: 14 SI, which this design runs in f32 (7.42 G,
+// 0.111 ms at 67 T fp32 ops/s), and 4 TI in int32 (2.12 G, 0.063 ms at
+// 33.5 T int32 ops/s), 0.174 ms in all, so operations bind, just above
+// the bytes. The first design staged each block's 32x128 pixels into a
+// shared int tile (sixteen 4-byte stores per
+// 16-byte vector), read 8 shared words per gradient, did the 3x3 Sobel
+// unseparated and took a TwoSum per term: about 45 instructions and 9
+// shared accesses per pixel, 1.78 ms per chunk on an H100 80GB HBM3 at
+// 700 W. This design walks columns instead:
+//  * a thread owns 16 bytes of columns (16 u8 or 8 u16 samples) of a
+//    64-row strip and walks down it, one coalesced 16-byte load per row
+//    (issued a row ahead), rows r - 1, r, r + 1 held in registers; nothing
+//    goes through shared memory but the block's final sums;
+//  * the Sobel is separable: per column s = up + 2 md + dn and d = dn - up,
+//    then gx = s[c+1] - s[c-1] and gy = d[c-1] + 2 d[c] + d[c+1], the
+//    neighbours across a thread's edge from the next lanes (__shfl) and
+//    across the warp's edge loaded directly by lanes 0 and 31. u8 samples
+//    convert to f32 by a byte permute and one add, and every gradient
+//    value, square and 4-term sum is an exact integer in f32, so the
+//    arithmetic runs on the fp32 pipe at twice the int32 rate;
+//  * Σ|∇| takes RowMag: the root as x * rsqrt(x) plus its exact-residual
+//    correction, split so that a row's 16 terms sum exactly in f32 and go
+//    to f64 once per row (~10 instructions a term against MagSum's ~15);
+//  * TI's Σd and Σd² come from the same row vectors against the
+//    predecessor's row by byte dot products (dp4a), about 1.25 int32
+//    instructions per pixel;
+//  * the warp stays converged around the shuffles: one masked path for
+//    every lane, predicated edge and row loads, __syncwarp before the
+//    shuffles (the first version, with a per-lane branch there, ran 1.5x
+//    slower).
+// The per-thread sums stay exact in 32 bits for a row (u8) and widen to 64
+// bits once per row. Ownership is a partition of the source pixels (rows 0
 // and H-1 and columns 0 and W-1 included), so every pixel's difference is
 // counted exactly once, and no [B, T+1] copy of the chunk is built.
 //
@@ -35,7 +58,7 @@
 // sigma = sqrt(E[x^2] - E[x]^2) over 8.3 M samples is where f32
 // cancellation bites. Here Σ(gx²+gy²), Σd and Σd² are exact int64 sums
 // of exact integer terms, and Σ|∇| is an f64 sum of square roots good to
-// ~1e-14 (MagSum). The caller reduces the per-block partials in
+// ~1e-14 (MagSum; RowMag in the fused pass). The caller reduces the per-block partials in
 // f64. The right and bottom edges (gradient columns >= W-1, rows >= H-1)
 // are masked here, as the Pallas kernel masked `col < w - 1`. TI takes
 // an optional predecessor frame, so a chunk's first TI is computed in the
@@ -44,6 +67,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -259,26 +284,6 @@ __global__ void __launch_bounds__(THREADS) ti_partials(
   }
 }
 
-constexpr int ST_TW = 128;  // owned source columns per block (fused pass)
-constexpr int ST_TH = 32;   // owned source rows per block
-
-__device__ __forceinline__ void unpack_vec(const uint4& a, int* dst, uint8_t) {
-  const unsigned wa[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) dst[4 * q + k] = (wa[q] >> (8 * k)) & 0xffu;
-}
-
-__device__ __forceinline__ void unpack_vec(const uint4& a, int* dst,
-                                           uint16_t) {
-  const unsigned wa[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int k = 0; k < 2; ++k) dst[2 * q + k] = (wa[q] >> (16 * k)) & 0xffffu;
-}
-
 // Block-wide sums of four partials; the result is valid in thread 0.
 __device__ __forceinline__ void block_sum4(double& a, long long& b,
                                            long long& c, long long& d) {
@@ -306,27 +311,299 @@ __device__ __forceinline__ void block_sum4(double& a, long long& b,
   }
 }
 
-// Fused SI+TI partials of nz = B*T frames y [B, T, H, W]. grid
-// (ceil(W/ST_TW), ceil(H/ST_TH), <= nz); blocks stride over the frames in
-// z. Block (x, y) of frame z owns source rows [32y, 32y+32) and columns
-// [128x, 128x+128) (clipped to the frame). It writes, at [z][y * gridDim.x
-// + x]: ps1 = Σ|∇| (f64) and ps2 = Σ(gx²+gy²) over the owned pixels with
-// 1 <= r <= H-2 and 1 <= c <= W-2, and pd1 = Σd, pd2 = Σd² over all owned
-// pixels, d = y[b, t] - pred: pred = y[b, t-1] for t > 0, prev[b] for
-// t = 0 when prev is given, else none (d sums stay 0, so TI[b, 0] = 0).
-// vec: rows of W samples are a multiple of 16 bytes and y and prev are
-// 16-byte aligned, so owned row segments go as uint4 loads.
+constexpr int ST_ROWS = 64;  // owned source rows per strip (fused pass)
+constexpr int ST_BYTES = 16;  // bytes of owned columns per thread (one vector)
+
+// Σ|∇| of u8 gradients for the fused pass, to ~1e-14 relative like MagSum
+// at a fraction of its cost. The root of each exact integer term x < 2^24
+// is m = x * rsqrt(x) (a few ulp) plus the first-order correction
+// (x - m²) / 2m, summed as Σ r * rsqrt(x) / 2 (r = x - m² by one fma). m
+// splits into hi, m rounded to a multiple of 2^-8 (m < 2^11, so a row of
+// 16 his sums exactly in f32), and lo = m - hi; each row's Σhi goes to an
+// f64 sum once per row, and Σlo and the corrections stay small f32 sums.
+struct RowMag {
+  double acc = 0.0;  // Σ hi of finished rows
+  float row = 0.0f;  // Σ hi of this row: exact (multiples of 2^-8, < 2^16)
+  float lo = 0.0f;   // Σ (m - hi)
+  float cor = 0.0f;  // Σ r * rsqrt(x): twice the corrections
+
+  __device__ __forceinline__ void add(float x) {
+    // x >= 1 after the max (x == 0 gives m = 0, r = 0), so the hardware
+    // approximation needs none of rsqrtf's denormal handling
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(fmaxf(x, 1.0f)));
+    const float m = x * y;
+    const float r = fmaf(-m, m, x);
+    cor = fmaf(r, y, cor);
+    const float hi = (m + 49152.0f) - 49152.0f;  // ulp 2^-8 in [2^15, 2^16)
+    row += hi;
+    lo += m - hi;
+  }
+  __device__ __forceinline__ void end_row() {
+    acc += (double)row;
+    row = 0.0f;
+  }
+  __device__ __forceinline__ double value() const {
+    return acc + (double)lo + 0.5 * (double)cor;
+  }
+};
+
+// One strip row of a thread's C = 16 / sizeof(T) owned columns: the samples
+// (f32 for u8, whose gradient arithmetic is exact in f32; int for u16) and,
+// for lanes 0 and 31, the column just left / right of the warp's span.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) siti_partials(
+struct StripRow {
+  using V = typename std::conditional<sizeof(T) == 1, float, int>::type;
+  static constexpr int C = ST_BYTES / sizeof(T);
+  V v[C];
+  V el, er;
+};
+
+// The 16-byte vector of columns cb .. cb + C - 1 of row r of frame f
+// (zeros outside the frame), by one load when rows are 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ uint4 load_vec(const T* __restrict__ f, int r,
+                                          int h, int w, int cb, int vec) {
+  constexpr int C = ST_BYTES / sizeof(T);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const bool ok = r >= 0 && r < h && cb < w;
+  if (vec) {  // a predicated load: the warp does not branch
+    uint4 q = zero;
+    if (ok) q = *reinterpret_cast<const uint4*>(f + (size_t)r * w + cb);
+    return q;
+  }
+  if (!ok) return zero;
+  const T* p = f + (size_t)r * w + cb;
+  uint32_t u[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const uint32_t s = cb + j < w ? (uint32_t)p[j] : 0u;
+    u[j * sizeof(T) / 4] |= s << (8 * ((j * sizeof(T)) % 4));
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// Unpack a vector into row.v: u8 samples to exact f32 through the
+// 2^23 magic (one byte permute and one add each), u16 samples to int.
+template <typename T>
+__device__ __forceinline__ void unpack_row(const uint4& q, StripRow<T>& row) {
+  const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < StripRow<T>::C; ++j) {
+    if constexpr (sizeof(T) == 1)
+      row.v[j] = __int_as_float(__byte_perm(u[j / 4], 0x4b000000u,
+                                            0x7540u | (j % 4))) - 8388608.0f;
+    else
+      row.v[j] = (int)((u[j / 2] >> (16 * (j % 2))) & 0xffffu);
+  }
+}
+
+// Column c of row r of frame f for lanes 0 and 31 (the columns beside the
+// warp's span), 0 elsewhere and outside the frame; one predicated load, so
+// the warp does not diverge.
+template <typename T>
+__device__ __forceinline__ typename StripRow<T>::V edge_sample(
+    const T* __restrict__ f, int r, int h, int w, int c, bool edge_lane) {
+  using V = typename StripRow<T>::V;
+  V x = 0;
+  if (edge_lane && r >= 0 && r < h && c >= 0 && c < w)
+    x = (V)f[(size_t)r * w + c];
+  return x;
+}
+
+// Per-thread sums of the fused pass.
+template <typename T>
+struct StripSums {
+  RowMag mag8;            // Σ|∇| (u8)
+  MagSum mag16;           // Σ|∇| (u16)
+  long long s2 = 0;       // Σ(gx² + gy²)
+  long long d1 = 0, d2 = 0;  // Σd, Σd² (u16)
+  int sd = 0;                // u8: Σc - Σp
+  uint32_t sq = 0, cp = 0;   // u8: Σc² + Σp², Σcp
+};
+
+// Σ a_i b_i over the four bytes of a (signed) and b (unsigned), plus c.
+__device__ __forceinline__ int dp4a_su(uint32_t a, uint32_t b, int c) {
+  int d;
+  asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// TI terms of one owned row vector: u8 by byte dot products (Σd = Σc - Σp
+// with +1 and -1 weights, Σd² = (Σc² + Σp²) - 2Σcp, all exact in 32 bits
+// over a strip), u16 by diff_vec.
+template <typename T>
+__device__ __forceinline__ void ti_vec(const uint4& c, const uint4& p,
+                                       StripSums<T>& acc) {
+  if constexpr (sizeof(T) == 1) {
+    const uint32_t cu[4] = {c.x, c.y, c.z, c.w};
+    const uint32_t pu[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      acc.sd = dp4a_su(0x01010101u, cu[q], acc.sd);
+      acc.sd = dp4a_su(0xffffffffu, pu[q], acc.sd);
+      acc.sq = __dp4a(cu[q], cu[q], acc.sq);
+      acc.sq = __dp4a(pu[q], pu[q], acc.sq);
+      acc.cp = __dp4a(cu[q], pu[q], acc.cp);
+    }
+  } else {
+    diff_vec(c, p, acc.d1, acc.d2, T());
+  }
+}
+
+// The u8 SI terms of one row from the vertical smooths s and differences
+// d (index j + 1 for column cb + j): Σ|∇| and Σ(gx² + gy²), the latter
+// through exact f32 sums of 4 terms (<= 4 * 2 * 1020² < 2^23) read back as
+// integers.
+template <int N>
+__device__ __forceinline__ void si_terms8(const float (&s)[N],
+                                          const float (&d)[N],
+                                          uint32_t colmask,
+                                          StripSums<uint8_t>& acc) {
+  constexpr int C = N - 2;
+  int row2 = 0;
+#pragma unroll
+  for (int g = 0; g < C / 4; ++g) {
+    float quad = 0.0f;
+#pragma unroll
+    for (int j = 4 * g; j < 4 * g + 4; ++j) {
+      const float gx = s[j + 2] - s[j];
+      const float gy = d[j] + d[j + 2] + 2.0f * d[j + 1];
+      const float m2 = (colmask >> j) & 1u ? fmaf(gx, gx, gy * gy) : 0.0f;
+      acc.mag8.add(m2);
+      quad += m2;
+    }
+    row2 += __float_as_int(quad + 8388608.0f) - 0x4b000000;
+  }
+  acc.mag8.end_row();
+  acc.s2 += row2;
+}
+
+// SI terms of centre row r from rows r - 1 (up), r (md), r + 1 (dn), by the
+// separable Sobel: per column the vertical smooth s = up + 2 md + dn and
+// difference d = dn - up, then gx = s[c+1] - s[c-1] and
+// gy = d[c-1] + 2 d[c] + d[c+1]. The neighbours across a thread's edge come
+// from the next lanes; across the warp's edge from el/er. colmask: bit j
+// set when column cb + j has a Sobel interior.
+template <typename T>
+__device__ __forceinline__ void si_row(const StripRow<T>& up,
+                                       const StripRow<T>& md,
+                                       const StripRow<T>& dn, int lane,
+                                       uint32_t colmask, StripSums<T>& acc) {
+  using V = typename StripRow<T>::V;
+  constexpr int C = StripRow<T>::C;
+  V s[C + 2], d[C + 2];  // index j + 1 holds column cb + j
+  s[1] = up.v[0] + dn.v[0] + 2 * md.v[0];
+  d[1] = dn.v[0] - up.v[0];
+  s[C] = up.v[C - 1] + dn.v[C - 1] + 2 * md.v[C - 1];
+  d[C] = dn.v[C - 1] - up.v[C - 1];
+  __syncwarp();  // the shuffles' fast path needs the warp converged
+  s[0] = __shfl_up_sync(0xffffffffu, s[C], 1);
+  d[0] = __shfl_up_sync(0xffffffffu, d[C], 1);
+  s[C + 1] = __shfl_down_sync(0xffffffffu, s[1], 1);
+  d[C + 1] = __shfl_down_sync(0xffffffffu, d[1], 1);
+#pragma unroll
+  for (int j = 1; j < C - 1; ++j) {
+    s[j + 1] = up.v[j] + dn.v[j] + 2 * md.v[j];
+    d[j + 1] = dn.v[j] - up.v[j];
+  }
+  if (lane == 0) {
+    s[0] = up.el + dn.el + 2 * md.el;
+    d[0] = dn.el - up.el;
+  }
+  if (lane == 31) {
+    s[C + 1] = up.er + dn.er + 2 * md.er;
+    d[C + 1] = dn.er - up.er;
+  }
+  if constexpr (sizeof(T) == 1) {
+    si_terms8(s, d, colmask, acc);
+  } else {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (!((colmask >> j) & 1u)) continue;
+      const long long gx = s[j + 2] - s[j];
+      const long long gy = d[j] + d[j + 2] + 2 * d[j + 1];
+      const long long m2 = gx * gx + gy * gy;
+      acc.mag16.add(m2);
+      acc.s2 += m2;
+    }
+  }
+}
+
+// The next strip row, loaded one step ahead of its use: the samples and
+// edge columns of row r of cur, and the predecessor's row r when it is an
+// owned row with a predecessor (else zeros).
+template <typename T>
+struct RowAhead {
+  uint4 q, p;
+  typename StripRow<T>::V el, er;
+
+  __device__ __forceinline__ void load(const T* __restrict__ cur,
+                                       const T* __restrict__ pre, int r,
+                                       int r1, int h, int w, int cb, int lane,
+                                       int vec) {
+    constexpr int C = StripRow<T>::C;
+    q = load_vec(cur, r, h, w, cb, vec);
+    p = pre != nullptr && r < r1 ? load_vec(pre, r, h, w, cb, vec)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+    el = edge_sample(cur, r, h, w, cb - 1, lane == 0);
+    er = edge_sample(cur, r, h, w, cb + C, lane == 31);
+  }
+  // into a strip row, taking the owned row's TI terms on the way
+  __device__ __forceinline__ void take(StripRow<T>& row, bool ti,
+                                       StripSums<T>& acc) const {
+    if (ti) ti_vec(q, p, acc);
+    unpack_row(q, row);
+    row.el = el;
+    row.er = er;
+  }
+};
+
+// One step of the strip walk: centre row r with rows r - 1, r, r + 1 in
+// up, md, dn. dn takes row r + 1 from `ahead` (its slot held row r - 2),
+// with the TI terms of row r + 1 when it is owned; `ahead` then starts the
+// loads of row r + 2, which stay in flight during row r's SI.
+template <typename T>
+__device__ __forceinline__ void strip_step(
+    StripRow<T>& up, StripRow<T>& md, StripRow<T>& dn, RowAhead<T>& ahead,
+    const T* __restrict__ cur, const T* __restrict__ pre, int r, int r1,
+    int h, int w, int cb, int lane, int vec, uint32_t colmask,
+    StripSums<T>& acc) {
+  ahead.take(dn, pre != nullptr && r + 1 < r1, acc);
+  ahead.load(cur, pre, r + 2, r1, h, w, cb, lane, vec);
+  if (r >= 1 && r <= h - 2) si_row(up, md, dn, lane, colmask, acc);
+}
+
+// Fused SI+TI partials of nz = B*T frames y [B, T, H, W]. grid
+// (ceil(W / (256 C)), ceil(H / ST_ROWS), <= nz) with C = 16 / sizeof(T);
+// blocks stride over the frames in z. Thread k of block (x, y) owns
+// columns [C (256 x + k), C (256 x + k + 1)) of source rows
+// [ST_ROWS y, ST_ROWS (y + 1)) (clipped to the frame), and walks down them
+// with the rows above and below in registers. Block (x, y) of frame z
+// writes, at [z][y * gridDim.x + x]: ps1 = Σ|∇| (f64) and ps2 = Σ(gx²+gy²)
+// over the owned pixels with 1 <= r <= H-2 and 1 <= c <= W-2, and pd1 = Σd,
+// pd2 = Σd² over all owned pixels, d = y[b, t] - pred: pred = y[b, t-1] for
+// t > 0, prev[b] for t = 0 when prev is given, else none (d sums stay 0, so
+// TI[b, 0] = 0). vec: rows of W samples are a multiple of 16 bytes and y
+// and prev are 16-byte aligned, so each owned row segment is one uint4 load.
+// Two blocks per SM (128 registers a thread): with that bound ptxas
+// allocates the u8 walk without spilling.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2) siti_partials(
     const T* __restrict__ y, const T* __restrict__ prev, int t, int nz,
     int h, int w, int vec, double* __restrict__ ps1,
     long long* __restrict__ ps2, long long* __restrict__ pd1,
     long long* __restrict__ pd2) {
-  constexpr int NPV = 16 / sizeof(T);     // samples per 16-byte vector
-  constexpr int VPR = ST_TW / NPV;        // vectors per owned tile row
-  __shared__ int tile[ST_TH + 2][ST_TW + 2];  // tile[rr][cc]: (r0-1+rr, c0-1+cc)
+  constexpr int C = StripRow<T>::C;
   const size_t hw = (size_t)h * w;
-  const int r0 = blockIdx.y * ST_TH, c0 = blockIdx.x * ST_TW;
+  const int lane = threadIdx.x % 32;
+  const int cb = (blockIdx.x * THREADS + threadIdx.x) * C;
+  const bool warp_live = (cb - lane * C) < w;  // warp-uniform
+  const int r0 = blockIdx.y * ST_ROWS, r1 = min(r0 + ST_ROWS, h);
+  uint32_t colmask = 0;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (cb + j >= 1 && cb + j <= w - 2) colmask |= 1u << j;
   const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   const size_t nblk = (size_t)gridDim.x * gridDim.y;
 
@@ -336,85 +613,45 @@ __global__ void __launch_bounds__(THREADS) siti_partials(
     const T* pre = tz > 0 ? cur - hw
                           : (prev != nullptr ? prev + (size_t)(z / t) * hw
                                              : nullptr);
-    long long d1 = 0, d2 = 0;
-    // owned columns of rows r0-1 .. r0+ST_TH; owned rows also diff
-    if (vec) {
-      for (int e = threadIdx.x; e < (ST_TH + 2) * VPR; e += THREADS) {
-        const int rr = e / VPR, v = e % VPR;
-        const int r = r0 - 1 + rr, c = c0 + v * NPV;
-        int* dst = &tile[rr][1 + v * NPV];
-        if (r < 0 || r >= h || c >= w) {
-#pragma unroll
-          for (int k = 0; k < NPV; ++k) dst[k] = 0;
-          continue;
-        }
-        const size_t o = (size_t)r * w + c;
-        const uint4 a = *reinterpret_cast<const uint4*>(cur + o);
-        unpack_vec(a, dst, T());
-        if (pre != nullptr && rr >= 1 && rr <= ST_TH)
-          diff_vec(a, *reinterpret_cast<const uint4*>(pre + o), d1, d2, T());
+    StripSums<T> acc;
+    if (warp_live) {
+      StripRow<T> a, b, c;
+      RowAhead<T> ahead;
+      ahead.load(cur, pre, r0 - 1, r1, h, w, cb, lane, vec);
+      ahead.take(a, false, acc);
+      ahead.load(cur, pre, r0, r1, h, w, cb, lane, vec);
+      ahead.take(b, pre != nullptr, acc);
+      ahead.load(cur, pre, r0 + 1, r1, h, w, cb, lane, vec);
+      // one step per row; the two row copies cost no measurable time (a
+      // rotation of three unrolled steps without them timed the same)
+      for (int r = r0; r < r1; ++r) {
+        strip_step(a, b, c, ahead, cur, pre, r, r1, h, w, cb, lane, vec,
+                   colmask, acc);
+        a = b;
+        b = c;
       }
+    }
+    double s1;
+    long long d1, d2;
+    if constexpr (sizeof(T) == 1) {
+      s1 = acc.mag8.value();
+      d1 = acc.sd;
+      d2 = (long long)acc.sq - 2 * (long long)acc.cp;
     } else {
-      for (int e = threadIdx.x; e < (ST_TH + 2) * ST_TW; e += THREADS) {
-        const int rr = e / ST_TW, cc = e % ST_TW;
-        const int r = r0 - 1 + rr, c = c0 + cc;
-        int s = 0;
-        if (r >= 0 && r < h && c < w) {
-          const size_t o = (size_t)r * w + c;
-          s = (int)cur[o];
-          if (pre != nullptr && rr >= 1 && rr <= ST_TH) {
-            const long long d = (long long)s - (long long)pre[o];
-            d1 += d;
-            d2 += d * d;
-          }
-        }
-        tile[rr][1 + cc] = s;
-      }
+      s1 = acc.mag16.value();
+      d1 = acc.d1;
+      d2 = acc.d2;
     }
-    // halo columns c0-1 and c0+ST_TW
-    for (int e = threadIdx.x; e < 2 * (ST_TH + 2); e += THREADS) {
-      const int rr = e >> 1, right = e & 1;
-      const int r = r0 - 1 + rr, c = right ? c0 + ST_TW : c0 - 1;
-      tile[rr][right ? ST_TW + 1 : 0] =
-          (r >= 0 && r < h && c >= 0 && c < w) ? (int)cur[(size_t)r * w + c]
-                                               : 0;
-    }
-    __syncthreads();
-
-    using G = typename GradSum<T>::type;
-    MagSum mag;
-    G s2 = 0;
-    const int cc = threadIdx.x % ST_TW;  // owned column c0 + cc
-    const int c = c0 + cc;
-    if (c >= 1 && c <= w - 2) {
-      for (int rr = threadIdx.x / ST_TW; rr < ST_TH; rr += THREADS / ST_TW) {
-        const int r = r0 + rr;  // centre row, tile row rr + 1
-        if (r > h - 2) break;
-        if (r < 1) continue;
-        const int* up = tile[rr];
-        const int* md = tile[rr + 1];
-        const int* dn = tile[rr + 2];
-        const G gx = (G)(up[cc + 2] + 2 * md[cc + 2] + dn[cc + 2]) -
-                     (G)(up[cc] + 2 * md[cc] + dn[cc]);
-        const G gy = (G)(dn[cc] + 2 * dn[cc + 1] + dn[cc + 2]) -
-                     (G)(up[cc] + 2 * up[cc + 1] + up[cc + 2]);
-        const G m2 = gx * gx + gy * gy;
-        mag.add(m2);
-        s2 += m2;
-      }
-    }
-    double s1 = mag.value();
-    long long s2w = s2;
-    // block_sum4's barrier also orders this frame's tile reads before the
-    // next frame's tile writes
-    block_sum4(s1, s2w, d1, d2);
+    long long s2 = acc.s2;
+    block_sum4(s1, s2, d1, d2);
     if (threadIdx.x == 0) {
       const size_t o = (size_t)z * nblk + blk;
       ps1[o] = s1;
-      ps2[o] = s2w;
+      ps2[o] = s2;
       pd1[o] = d1;
       pd2[o] = d2;
     }
+    __syncthreads();  // thread 0 has read block_sum4's shared partials
   }
 }
 
@@ -441,14 +678,17 @@ extern "C" int pc_si_partials(const void* y, int t, int h, int w,
 }
 
 // y: [nz / t, t, h, w] u8/u16; prev: [nz / t, h, w] same type, or null.
-// ps1 f64 and ps2/pd1/pd2 int64: [nz, n_ty, n_tx] with n_tx = ceil(w/128),
-// n_ty = ceil(h/32).
+// ps1 f64 and ps2/pd1/pd2 int64: [nz, n_ty, n_tx] with
+// n_tx = ceil(w * elem_bytes / 4096) (256 threads x 16 bytes of columns),
+// n_ty = ceil(h / 64).
 extern "C" int pc_siti_partials(const void* y, const void* prev, int t,
                                 int nz, int h, int w, int elem_bytes,
                                 int vec, void* ps1, void* ps2, void* pd1,
                                 void* pd2, void* stream) {
-  if (t <= 0 || nz <= 0 || nz % t != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((w + ST_TW - 1) / ST_TW, (h + ST_TH - 1) / ST_TH,
+  if (t <= 0 || nz <= 0 || nz % t != 0 || (elem_bytes != 1 && elem_bytes != 2))
+    return (int)cudaErrorInvalidValue;
+  const int cols = THREADS * ST_BYTES / elem_bytes;  // owned columns per block
+  dim3 grid((w + cols - 1) / cols, (h + ST_ROWS - 1) / ST_ROWS,
             nz < 65535 ? nz : 65535);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   double* p1 = static_cast<double*>(ps1);

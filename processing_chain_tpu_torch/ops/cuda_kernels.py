@@ -36,8 +36,9 @@ LAUNCHES = {"resize_frames_fused": 0, "si_frames_fused": 0, "ti_frames_fused": 0
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "resize": {
-        "pc_resize_frames": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+        "pc_resize_frames": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P,
+                             _I, _I, _P],
     },
     "siti": {
         "pc_si_partials": [_P, _I, _I, _I, _I, _P, _P, _P],
@@ -47,11 +48,24 @@ _SIGNATURES = {
 }
 
 _INT_TYPES = (torch.uint8, torch.uint16)
-_RESIZE_TILE_W = 128    # output columns per block (csrc/resize.cu TILE_W)
-_RESIZE_MAX_ROWS = 192  # source rows a block stages: 192*128*4 B = 96 KB
+_RESIZE_TILE_W = 256  # output columns per tile: 32 threads x 8 (csrc/resize.cu TILE_W)
+# Shared memory per tile and frame: the row tile's source rows x the column
+# tile's source window, twice (double buffer), plus, in resize_two_pass,
+# the [rows, 256] int32 (exact) or f32 intermediate and the tap tables
+# (resize_ring keeps the intermediate in registers and needs less). The
+# tallest row tile whose resize_two_pass total fits a block is taken.
+_RESIZE_SMEM_MAX = 227 * 1024
+_RESIZE_TILE_HS = (64, 32, 16, 8, 4, 2, 1)
+_RESIZE_RING_TAPS = (2, 4, 6)  # kh == kv in these: resize_ring
+# grid: a few waves of the card's SMs, in 8-warp blocks (resize_two_pass)
+# or one-warp blocks (resize_ring)
+_RESIZE_BLOCKS_PER_SM = 8
+_RESIZE_RING_BLOCKS_PER_SM = 32
+_RESIZE_MIN_FRAMES = 2  # frames each block walks at least (taps loaded once)
 _SI_TILE = (32, 128)    # gradient rows, cols per block (csrc/siti.cu)
 _TI_BLOCKS = 64         # blocks per frame pair
-_SITI_TILE = (32, 128)  # owned source rows, cols per block (csrc/siti.cu)
+_SITI_STRIP_ROWS = 64     # owned source rows per block (csrc/siti.cu ST_ROWS)
+_SITI_BLOCK_BYTES = 4096  # owned bytes of each row per block: 256 threads x 16
 
 
 def reset_launches() -> None:
@@ -147,41 +161,108 @@ def resize_frames_plain(
     return out.to(torch.int32).to(frames.dtype)
 
 
-@functools.lru_cache(maxsize=64)
-def _device_resize_plan(src_h, src_w, dst_h, dst_w, kernel, exact, device):
-    """Tap lists and row tiling of one geometry, as device tensors.
+def _window_starts(idx: np.ndarray, src: int) -> np.ndarray:
+    """Unclipped first source index s[i] of each tap row, such that
+    idx[i, k] == clip(s[i] + k, 0, src - 1); raises ValueError for a tap
+    matrix whose rows are not such clipped windows."""
+    k = idx.shape[1]
+    positive = idx > 0
+    first = np.argmax(positive, axis=1)
+    rows = np.arange(idx.shape[0])
+    starts = np.where(positive.any(axis=1), idx[rows, first].astype(np.int64) - first, 1 - k)
+    if not np.array_equal(np.clip(starts[:, None] + np.arange(k), 0, src - 1), idx):
+        raise ValueError(f"tap matrix over {src} samples is not a clipped window")
+    return starts
 
-    The tile height is the tallest of 64, 32, ... rows whose source-row
-    span (tap windows of all its output rows) fits the kernel's staging
-    buffer, so large downscales get shorter tiles."""
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _resize_smem_bytes(rn, sw, elem, tile_h, kv, kh) -> int:
+    """Dynamic shared memory of one block, region by region as
+    csrc/resize.cu `layout` lays it out: two source buffers, the 4-byte
+    intermediate, vertical coefficients, horizontal coefficients,
+    vertical window starts."""
+    return (2 * rn * sw * elem + rn * _RESIZE_TILE_W * 4
+            + _round_up(tile_h * kv * 4, 16) + _round_up(_RESIZE_TILE_W * kh * 4, 16)
+            + _round_up(tile_h * 4, 16))
+
+
+def _resize_plan(src_h, src_w, dst_h, dst_w, kernel, exact, elem_bytes) -> dict:
+    """Host plan of one geometry for csrc/resize.cu (numpy arrays).
+
+    Columns: output column tiles of 256; tile c stages the source window
+    [xb[c], xb[c] + sw) (xb a multiple of one 16-byte vector, samples
+    outside the frame replicate its edge), and hpos[j] is column j's first
+    tap relative to its tile's xb. Rows: tiles of tile_h output rows; tile
+    r stages source rows rlo[r] .. rlo[r] + rn - 1 (clipped), and vpos[i]
+    is row i's first tap relative to its tile's rlo, non-decreasing in i.
+    Taps beyond dst_w or dst_h are padding with coefficient 0 (column
+    start 0; row start that of the last row). `ring`: kh == kv in
+    (2, 4, 6), which resize_ring takes; resize_two_pass takes the rest."""
     idx_h, co_h = _axis_plan(src_w, dst_w, kernel, exact, 1 << 14)
     idx_v, co_v = _axis_plan(src_h, dst_h, kernel, exact, 1 << 12)
-    for tile_h in (64, 32, 16, 8, 4, 2, 1):
-        n = -(-dst_h // tile_h)
-        r0 = np.array([idx_v[i * tile_h:(i + 1) * tile_h].min() for i in range(n)])
-        r1 = np.array([idx_v[i * tile_h:(i + 1) * tile_h].max() for i in range(n)])
-        rn = r1 - r0 + 1
-        if rn.max() <= _RESIZE_MAX_ROWS:
+    kh, kv = int(idx_h.shape[1]), int(idx_v.shape[1])
+    nv = 16 // elem_bytes
+    tw = _RESIZE_TILE_W
+    n_ct = -(-dst_w // tw)
+
+    hs = _window_starts(idx_h, src_w)
+    hs_pad = np.zeros(n_ct * tw, np.int64)
+    hs_pad[:dst_w] = hs
+    xb = np.array([hs[c * tw:(c + 1) * tw].min() // nv * nv for c in range(n_ct)])
+    hpos = hs_pad - np.repeat(xb, tw)
+    hpos[dst_w:] = 0
+    sw = _round_up(int(hpos.max()) + kh, nv)
+    hco = np.zeros((n_ct * tw, kh), co_h.dtype)
+    hco[:dst_w] = co_h
+
+    vs = _window_starts(idx_v, src_h)
+    for tile_h in _RESIZE_TILE_HS:
+        n_rt = -(-dst_h // tile_h)
+        rlo = np.array([vs[r * tile_h:(r + 1) * tile_h].min() for r in range(n_rt)])
+        rn = int(max(vs[r * tile_h:(r + 1) * tile_h].max() - rlo[r] for r in range(n_rt))) + kv
+        smem = _resize_smem_bytes(rn, sw, elem_bytes, tile_h, kv, kh)
+        if smem <= _RESIZE_SMEM_MAX:
             break
     else:
         raise ValueError(
-            f"resize {src_h}x{src_w}->{dst_h}x{dst_w}: vertical taps span "
-            f"{int(rn.max())} rows, more than {_RESIZE_MAX_ROWS}"
+            f"resize {src_h}x{src_w}->{dst_h}x{dst_w} {kernel}: a one-row tile "
+            f"needs {smem} bytes of shared memory, more than {_RESIZE_SMEM_MAX}"
         )
-
-    def dev(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
-
-    co_dtype = np.int32 if exact else np.float32
+    vpos = np.zeros(n_rt * tile_h, np.int64)
+    vpos[:dst_h] = vs - np.repeat(rlo, tile_h)[:dst_h]
+    vpos[dst_h:] = vpos[dst_h - 1]  # non-decreasing in each tile, as the kernel needs
+    vco = np.zeros((n_rt * tile_h, kv), co_v.dtype)
+    vco[:dst_h] = co_v
     return {
-        "idx_h": dev(idx_h, np.int32), "co_h": dev(co_h, co_dtype),
-        "kh": int(idx_h.shape[1]),
-        "idx_v": dev(idx_v, np.int32), "co_v": dev(co_v, co_dtype),
-        "kv": int(idx_v.shape[1]),
-        "tile_h": tile_h, "n_tiles": n,
-        "tile_r0": dev(r0, np.int32), "tile_rn": dev(rn, np.int32),
-        "smem_bytes": int(rn.max()) * _RESIZE_TILE_W * 4,
+        "hpos": hpos, "co_h": hco, "kh": kh, "tile_xb": xb, "sw": sw, "n_ct": n_ct,
+        "vpos": vpos, "co_v": vco, "kv": kv, "tile_rlo": rlo, "rn": rn,
+        "tile_h": tile_h, "n_rt": n_rt, "smem_bytes": smem,
+        "ring": kh == kv and kh in _RESIZE_RING_TAPS,
     }
+
+
+def _resize_grid_z(t: int, n_ct: int, n_rt: int, ring: bool, sms: int) -> int:
+    """Frame groups of the persistent grid: blocks (column tile, row tile,
+    z) walk frames z, z + Z, ...; Z fills a few waves of the card's `sms`
+    SMs while every block walks at least _RESIZE_MIN_FRAMES frames where T
+    allows."""
+    target = sms * (_RESIZE_RING_BLOCKS_PER_SM if ring else _RESIZE_BLOCKS_PER_SM)
+    by_card = max(1, target // (n_ct * n_rt))
+    return max(1, min(-(-t // _RESIZE_MIN_FRAMES), by_card, 65535))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_resize_plan(src_h, src_w, dst_h, dst_w, kernel, exact, elem_bytes, device):
+    """`_resize_plan` of one geometry with its arrays as device tensors."""
+    plan = _resize_plan(src_h, src_w, dst_h, dst_w, kernel, exact, elem_bytes)
+    co_dtype = np.int32 if exact else np.float32
+    for key in ("hpos", "tile_xb", "vpos", "tile_rlo", "co_h", "co_v"):
+        dtype = co_dtype if key.startswith("co") else np.int32
+        plan[key] = torch.from_numpy(np.ascontiguousarray(plan[key], dtype=dtype)).to(device)
+    return plan
 
 
 def resize_frames_fused(
@@ -201,17 +282,22 @@ def resize_frames_fused(
     out = torch.empty((t, dst_h, dst_w), dtype=frames.dtype, device=frames.device)
     if t == 0:
         return out
+    size = frames.element_size()
     plan = _device_resize_plan(
-        src_h, src_w, dst_h, dst_w, kernel, exact, str(frames.device)
+        src_h, src_w, dst_h, dst_w, kernel, exact, size, str(frames.device)
     )
+    vec = (src_w * size) % 16 == 0 and frames.data_ptr() % 16 == 0
+    sms = torch.cuda.get_device_properties(frames.device).multi_processor_count
     _launch(
         "resize", "pc_resize_frames", "resize_frames_fused", frames.device,
-        frames.data_ptr(), out.data_ptr(), t, frames.element_size(), int(exact),
-        src_h, src_w, dst_h, dst_w, plan["tile_h"], plan["n_tiles"],
-        plan["idx_h"].data_ptr(), plan["co_h"].data_ptr(), plan["kh"],
-        plan["idx_v"].data_ptr(), plan["co_v"].data_ptr(), plan["kv"],
-        plan["tile_r0"].data_ptr(), plan["tile_rn"].data_ptr(),
-        plan["smem_bytes"], 255 if frames.dtype == torch.uint8 else 1023,
+        frames.data_ptr(), out.data_ptr(), t, size, int(exact),
+        src_h, src_w, dst_h, dst_w, plan["tile_h"], plan["n_rt"], plan["rn"],
+        plan["sw"], _resize_grid_z(t, plan["n_ct"], plan["n_rt"], plan["ring"], sms),
+        int(plan["ring"]), int(vec),
+        plan["hpos"].data_ptr(), plan["co_h"].data_ptr(), plan["kh"],
+        plan["tile_xb"].data_ptr(), plan["vpos"].data_ptr(),
+        plan["co_v"].data_ptr(), plan["kv"], plan["tile_rlo"].data_ptr(),
+        255 if frames.dtype == torch.uint8 else 1023,
         int(frames.dtype == torch.uint8),
     )
     return out
@@ -353,6 +439,21 @@ def _siti_inputs(y, name: str, layout: str) -> bool:
     return on_cpu
 
 
+def _siti_grid(h: int, w: int, size: int) -> tuple:
+    """(row strips, column blocks) of one frame in siti_partials: each
+    block owns up to 64 rows x 4096 bytes of columns and writes one
+    partial of each sum."""
+    return -(-h // _SITI_STRIP_ROWS), -(-w * size // _SITI_BLOCK_BYTES)
+
+
+def _siti_partial_buffers(nz: int, h: int, w: int, size: int, device):
+    """siti_partials' outputs for nz frames: Σ|∇| (f64 [nz, blocks]) and
+    Σ(gx²+gy²), Σd, Σd² (int64 [3, nz, blocks]), one entry per block."""
+    nb = int(np.prod(_siti_grid(h, w, size)))
+    return (torch.empty((nz, nb), dtype=torch.float64, device=device),
+            torch.empty((3, nz, nb), dtype=torch.int64, device=device))
+
+
 def _siti_launch(y: torch.Tensor, prev, name: str):
     """One siti_partials launch over y [B, T, H, W] (prev [B, H, W] or
     None), then the f64 reduction of the per-block partials →
@@ -362,13 +463,10 @@ def _siti_launch(y: torch.Tensor, prev, name: str):
     if nz == 0:
         empty = torch.zeros((b, t), dtype=torch.float32, device=y.device)
         return empty, empty.clone()
-    th, tw = _SITI_TILE
-    nb = -(-h // th) * -(-w // tw)
     size = y.element_size()
     vec = (w * size) % 16 == 0 and y.data_ptr() % 16 == 0 and (
         prev is None or prev.data_ptr() % 16 == 0)
-    ps1 = torch.empty((nz, nb), dtype=torch.float64, device=y.device)
-    pint = torch.empty((3, nz, nb), dtype=torch.int64, device=y.device)
+    ps1, pint = _siti_partial_buffers(nz, h, w, size, y.device)
     _launch(
         "siti", "pc_siti_partials", name, y.device,
         y.data_ptr(), None if prev is None else prev.data_ptr(), t, nz, h, w,

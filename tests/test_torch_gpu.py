@@ -50,6 +50,39 @@ def test_resize_kernel_equals_plain(cuda, kernel, geom, dtype, hi):
     assert torch.equal(out.cpu(), ref)
 
 
+@pytest.mark.parametrize("kernel", ["bicubic", "lanczos"])
+@pytest.mark.parametrize("geom", [
+    (8, 1280, 24, 3840), (8, 640, 48, 3840), (8, 1920, 16, 3840), (5, 67, 11, 203),
+    (9, 100, 20, 251),
+])
+@pytest.mark.parametrize("dtype,hi", [(torch.uint8, 255), (torch.uint16, 1023)])
+def test_resize_kernel_chain_upscales_and_ragged_widths(cuda, kernel, geom, dtype, hi):
+    """The chain's upscales onto 3840 columns at a few rows, and widths
+    that are not a multiple of 8 output columns or 16 bytes; 9 frames,
+    more than the persistent grid's frame groups, so blocks walk frames."""
+    sh, sw, dh, dw = geom
+    x = _rand((9, sh, sw), hi, dtype, cuda, sum(geom) + hi)
+    plan = ck._resize_plan(sh, sw, dh, dw, kernel, dtype == torch.uint8, x.element_size())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ck._resize_grid_z(9, plan["n_ct"], plan["n_rt"], plan["ring"], sms) < 9
+    out = ck.resize_frames_fused(x, dh, dw, kernel)
+    assert torch.equal(out.cpu(), ck.resize_frames_plain(x.cpu(), dh, dw, kernel))
+    assert ck.LAUNCHES["resize_frames_fused"] == 1
+
+
+@pytest.mark.parametrize("dtype,hi", [(torch.uint8, 255), (torch.uint16, 1023)])
+def test_resize_kernel_unaligned_source_rows(cuda, dtype, hi):
+    """A source whose base is not 16-byte aligned (a view at an odd offset,
+    contiguous) takes the scalar staging branch of the same kernel."""
+    flat = _rand((1, 5 * 48 * 80 + 1), hi, dtype, cuda, 17)
+    x = flat[0, 1:].reshape(5, 48, 80)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    for kernel in ("bicubic", "lanczos", "bilinear"):
+        out = ck.resize_frames_fused(x, 96, 160, kernel)
+        assert torch.equal(out.cpu(), ck.resize_frames_plain(x.cpu(), 96, 160, kernel))
+    assert ck.LAUNCHES["resize_frames_fused"] == 3
+
+
 @pytest.mark.parametrize("dtype,hi,atol", [(torch.uint8, 255, 1e-3), (torch.uint16, 1023, 1e-2)])
 @pytest.mark.parametrize("shape", [(3, 40, 200), (2, 37, 61), (1, 3, 3), (5, 130, 257)])
 def test_siti_kernels_equal_plain(cuda, dtype, hi, atol, shape):
@@ -159,6 +192,29 @@ def test_fused_siti_kernels_equal_plain(cuda, dtype, hi, atol, shape):
         assert tib[:, 0].tolist() == [0.0] * b  # self-halo
     assert ck.LAUNCHES["siti_frames_fused"] == 1
     assert ck.LAUNCHES["siti_frames_fused_batch"] == 4
+
+
+@pytest.mark.parametrize("dtype,hi,atol", [(torch.uint8, 255, 1e-3), (torch.uint16, 1023, 1e-2)])
+@pytest.mark.parametrize("w", [3, 17, 33, 129, 257, 4100])
+def test_fused_siti_narrow_widths_and_short_strips(cuda, dtype, hi, atol, w):
+    """Widths that end inside a thread's 16 bytes, a warp's span or a
+    block's, at heights shorter than one 64-row strip and just over it;
+    the predecessor frame at an unaligned address (a view at an odd
+    offset) takes the scalar loads of the same kernel."""
+    for h in (3, 5, 40, 67):
+        y = _rand((2, 3, h, w), hi, dtype, cuda, h * w)
+        flat = _rand((1, 2 * h * w + 1), hi, dtype, cuda, h + w)
+        prev = flat[0, 1:].reshape(2, h, w)
+        assert prev.is_contiguous() and prev.data_ptr() % 16 != 0
+        si, ti = ck.siti_frames_fused_batch(y, prev)
+        psi, pti = ck.siti_frames_batch_plain(y.cpu(), prev.cpu())
+        torch.testing.assert_close(si.cpu(), psi, rtol=1e-4, atol=atol)
+        torch.testing.assert_close(ti.cpu(), pti, rtol=1e-4, atol=atol)
+        si1, ti1 = ck.siti_frames_fused(y[0])
+        psi1, pti1 = ck.siti_frames_plain(y[0].cpu())
+        torch.testing.assert_close(si1.cpu(), psi1, rtol=1e-4, atol=atol)
+        torch.testing.assert_close(ti1.cpu(), pti1, rtol=1e-4, atol=atol)
+    assert ck.LAUNCHES["siti_frames_fused_batch"] == ck.LAUNCHES["siti_frames_fused"] == 4
 
 
 def test_fused_siti_wrappers_raise_instead_of_falling_back(cuda):

@@ -1,0 +1,229 @@
+"""The host plans of the port's CUDA kernels, on the CPU.
+
+csrc/resize.cu runs what ops/cuda_kernels._resize_plan lays out: column
+tiles with a staged source window, row tiles with staged source rows,
+and window starts relative to them. These tests hold the plan's
+invariants, and replay the kernel's
+blocking in numpy (staging with clipped edges, the horizontal pass into
+the tile's intermediate, the vertical pass from it) against the plain
+torch version, so a plan fault shows here before the card runs it."""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from processing_chain_tpu.ops import resize as jr
+from processing_chain_tpu_torch.ops import cuda_kernels as ck
+from processing_chain_tpu_torch.ops import resize as tr
+
+# the chain's AVPVS upscales onto 3840x2160 (from 1920x1080, 1280x720,
+# 960x540 and 640x360) and the chroma 960x540 -> 1920x1080, per axis
+CHAIN_AXES = ((1920, 3840), (1080, 2160), (1280, 3840), (720, 2160),
+              (960, 3840), (540, 2160), (640, 3840), (360, 2160), (960, 1920),
+              (540, 1080))
+CARD_GEOMS = ((45, 80, 90, 160), (101, 77, 33, 250), (37, 61, 37, 130),
+              (300, 20, 21, 300), (64, 64, 1000, 17))
+
+
+def _plan(geom, kernel, dtype):
+    sh, sw, dh, dw = geom
+    exact = ck._exact_route(dtype, sh, sw, dh, dw, kernel)
+    elem = 1 if dtype == torch.uint8 else 2
+    return ck._resize_plan(sh, sw, dh, dw, kernel, exact, elem), exact
+
+
+def _emulate(x: np.ndarray, geom, kernel, dtype) -> np.ndarray:
+    """csrc/resize.cu's blocking replayed in numpy: per (row tile, column
+    tile), stage clip-indexed source rows and columns, run the horizontal
+    pass over the staged window into the intermediate, then the vertical
+    pass; f32 arithmetic rounds one product and one sum at a time in tap
+    order, as the kernel does."""
+    p, exact = _plan(geom, kernel, dtype)
+    t, sh, sw_src = x.shape
+    _, _, dh, dw = geom
+    tw, th = ck._RESIZE_TILE_W, p["tile_h"]
+    kh, kv, rn, sw = p["kh"], p["kv"], p["rn"], p["sw"]
+    out = np.zeros((t, p["n_rt"] * th, p["n_ct"] * tw), np.int64)
+    maxval = 255 if dtype == torch.uint8 else 1023
+    for rt in range(p["n_rt"]):
+        rows = np.clip(p["tile_rlo"][rt] + np.arange(rn), 0, sh - 1)
+        i = rt * th + np.arange(th)
+        vt = p["vpos"][i][:, None] + np.arange(kv)          # [th, kv]
+        assert vt.min() >= 0 and vt.max() < rn
+        for ct in range(p["n_ct"]):
+            cols = np.clip(p["tile_xb"][ct] + np.arange(sw), 0, sw_src - 1)
+            buf = x[:, rows][:, :, cols]                     # [t, rn, sw]
+            j = ct * tw + np.arange(tw)
+            ht = p["hpos"][j][:, None] + np.arange(kh)       # [tw, kh]
+            assert ht.min() >= 0 and ht.max() < sw
+            g = buf[:, :, ht]                                # [t, rn, tw, kh]
+            if exact:
+                mid = (g.astype(np.int64) * p["co_h"][j]).sum(-1) >> 7
+                mid = np.minimum(mid, 32767)
+                gv = mid[:, vt]                              # [t, th, kv, tw]
+                acc = (gv * p["co_v"][i][:, :, None]).sum(2)
+                o = np.clip((acc + (64 << 12)) >> 19, 0, 255)
+            else:
+                g = g.astype(np.float32)
+                mid = g[..., 0] * p["co_h"][j][:, 0]
+                for k in range(1, kh):
+                    mid = mid + g[..., k] * p["co_h"][j][:, k]
+                if dtype == torch.uint8:
+                    mid = np.minimum(mid, np.float32(32767.0 / 128.0))
+                gv = mid[:, vt]
+                cv = p["co_v"][i]
+                acc = gv[:, :, 0] * cv[:, 0][:, None]
+                for k in range(1, kv):
+                    acc = acc + gv[:, :, k] * cv[:, k][:, None]
+                o = np.clip(np.floor(acc + np.float32(0.5)), 0, maxval).astype(np.int64)
+            out[:, rt * th:(rt + 1) * th, ct * tw:(ct + 1) * tw] = o
+    return out[:, :dh, :dw]
+
+
+@pytest.mark.parametrize("kernel", ["bicubic", "lanczos", "bilinear"])
+@pytest.mark.parametrize("geom", CARD_GEOMS + (
+    (8, 1280, 24, 3840), (8, 640, 48, 3840), (5, 67, 11, 203), (6, 33, 13, 9)))
+@pytest.mark.parametrize("dtype,hi", [(torch.uint8, 255), (torch.uint16, 1023)])
+def test_resize_blocking_replay_equals_plain(kernel, geom, dtype, hi):
+    rng = np.random.default_rng(sum(geom))
+    x = rng.integers(0, hi + 1, (2,) + geom[:2])
+    want = ck.resize_frames_plain(
+        torch.from_numpy(x.astype(np.uint8 if hi == 255 else np.uint16)),
+        geom[2], geom[3], kernel)
+    np.testing.assert_array_equal(_emulate(x, geom, kernel, dtype), want.numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("kernel", ["bicubic", "lanczos", "bilinear"])
+@pytest.mark.parametrize("elem", [1, 2])
+def test_resize_plan_windows_lie_inside_the_staged_tile(kernel, elem):
+    """Every output row's vertical window lies in its row tile's staged
+    rows, every column's horizontal window in its column tile's staged
+    window, and staging is whole 16-byte vectors, at every chain axis."""
+    nv = 16 // elem
+    for src, dst in CHAIN_AXES:
+        dtype = torch.uint8 if elem == 1 else torch.uint16
+        exact = ck._exact_route(dtype, src, src, dst, dst, kernel)
+        p = ck._resize_plan(src, src, dst, dst, kernel, exact, elem)
+        assert p["sw"] % nv == 0 and (p["tile_xb"] % nv == 0).all()
+        assert p["hpos"].min() >= 0 and p["hpos"].max() + p["kh"] <= p["sw"]
+        assert p["vpos"].min() >= 0 and p["vpos"].max() + p["kv"] <= p["rn"]
+        # the vertical pass merges the windows of consecutive rows
+        assert (np.diff(p["vpos"].reshape(p["n_rt"], p["tile_h"]), axis=1) >= 0).all()
+        idx_v = ck._axis_plan(src, dst, kernel, exact, 1 << 12)[0]
+        for rt in range(p["n_rt"]):
+            rows = np.clip(p["tile_rlo"][rt] + np.arange(p["rn"]), 0, src - 1)
+            i = np.arange(rt * p["tile_h"], min((rt + 1) * p["tile_h"], dst))
+            staged = rows[p["vpos"][i][:, None] + np.arange(p["kv"])]
+            np.testing.assert_array_equal(staged, idx_v[i])
+        assert p["smem_bytes"] <= ck._RESIZE_SMEM_MAX
+        assert p["tile_h"] == 64  # the chain's upscales take the tallest tile
+
+
+@pytest.mark.parametrize("geom,kernel,ring", [
+    ((1080, 1920, 2160, 3840), "bicubic", True), ((540, 960, 1080, 1920), "lanczos", True),
+    ((360, 640, 2160, 3840), "lanczos", True), ((45, 80, 90, 160), "bilinear", True),
+    ((300, 20, 21, 300), "bicubic", False), ((64, 64, 1000, 17), "lanczos", False),
+    ((37, 61, 37, 130), "bicubic", False),
+])
+def test_resize_ring_walk_emits_every_row_once(geom, kernel, ring):
+    """resize_ring takes the plans with kh == kv in (2, 4, 6). Its walk, run
+    here on indices: staged row rr goes to ring slot rr % K, and output row
+    i is emitted when row vpos[i] + K - 1 arrives, reading tap k from slot
+    (rr % K + 1 + k) % K. Every row of every tile is emitted once, with the
+    taps of its own window in order."""
+    sh, sw, dh, dw = geom
+    p = ck._resize_plan(sh, sw, dh, dw, kernel, ck._exact_route(torch.uint8, *geom, kernel), 1)
+    assert p["ring"] == ring
+    if not ring:
+        return
+    k = p["kh"]
+    for rt in range(p["n_rt"]):
+        vpos = p["vpos"][rt * p["tile_h"]:(rt + 1) * p["tile_h"]]
+        rows = min(p["tile_h"], dh - rt * p["tile_h"])
+        slots, emitted = [None] * k, []
+        for rr in range(p["rn"]):
+            slots[rr % k] = rr
+            while len(emitted) < rows and vpos[len(emitted)] + k - 1 == rr:
+                i = len(emitted)
+                taps = [slots[(rr % k + 1 + j) % k] for j in range(k)]
+                assert taps == [vpos[i] + j for j in range(k)]
+                emitted.append(i)
+        assert emitted == list(range(rows))
+
+
+@pytest.mark.parametrize("kernel", ["bicubic", "lanczos"])
+def test_exact_plan_taps_are_the_jax_swscale_taps(kernel):
+    """On the exact route the plan's windows and integer coefficients,
+    unfolded from tile-relative starts, are the JAX package's own swscale
+    plan (14-bit horizontal, 12-bit vertical), at every chain axis."""
+    for src, dst in CHAIN_AXES:
+        assert ck._exact_route(torch.uint8, src, src, dst, dst, kernel)
+        p = ck._resize_plan(src, src, dst, dst, kernel, True, 1)
+        k = np.arange(p["kh"])
+        j = np.arange(dst)
+        xb = p["tile_xb"][j // ck._RESIZE_TILE_W]
+        pos_h, co_h = jr.make_swscale_plan(src, dst, kernel, 1 << 14)
+        np.testing.assert_array_equal(
+            np.clip((xb + p["hpos"][j])[:, None] + k, 0, src - 1),
+            np.clip(pos_h[:, None] + k, 0, src - 1))
+        np.testing.assert_array_equal(p["co_h"][:dst], co_h)
+        rlo = p["tile_rlo"][j // p["tile_h"]]
+        pos_v, co_v = jr.make_swscale_plan(src, dst, kernel, 1 << 12)
+        np.testing.assert_array_equal(
+            np.clip((rlo + p["vpos"][j])[:, None] + k, 0, src - 1),
+            np.clip(pos_v[:, None] + k, 0, src - 1))
+        np.testing.assert_array_equal(p["co_v"][:dst], co_v)
+
+
+def test_resize_plan_that_does_not_fit_raises(monkeypatch):
+    with pytest.raises(ValueError, match="shared memory"):
+        monkeypatch.setattr(ck, "_RESIZE_SMEM_MAX", 4096)
+        ck._resize_plan(1080, 1920, 2160, 3840, "bicubic", True, 1)
+
+
+def test_window_starts_recover_clipped_windows():
+    for src, dst, kernel in ((20, 300, "lanczos"), (300, 21, "bicubic"),
+                             (3, 40, "lanczos"), (2, 9, "bicubic"), (1, 5, "bilinear")):
+        idx, _ = tr.make_plan(src, dst, kernel)
+        starts = ck._window_starts(idx, src)
+        np.testing.assert_array_equal(
+            np.clip(starts[:, None] + np.arange(idx.shape[1]), 0, src - 1), idx)
+    with pytest.raises(ValueError, match="window"):
+        ck._window_starts(np.array([[0, 2, 1]], np.int32), 5)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 64, 2160, 3840), torch.uint8), ((2, 3, 3, 3), torch.uint8),
+    ((1, 5, 130, 257), torch.uint16), ((3, 2, 65, 4097), torch.uint8),
+    ((1, 2, 64, 2049), torch.uint16),
+])
+def test_siti_partial_buffers_match_the_grid(shape, dtype):
+    """The partials siti_partials writes hold one entry per block of its
+    grid: ceil(H / 64) row strips x ceil(W / (256 threads x 16 bytes /
+    sample size)) column blocks, for each of the B*T frames."""
+    b, t, h, w = shape
+    size = torch.zeros((), dtype=dtype).element_size()
+    cols = 256 * 16 // size
+    grid = (-(-h // 64), -(-w // cols))
+    assert ck._siti_grid(h, w, size) == grid
+    ps1, pint = ck._siti_partial_buffers(b * t, h, w, size, "cpu")
+    assert ps1.shape == (b * t, grid[0] * grid[1]) and ps1.dtype == torch.float64
+    assert pint.shape == (3, b * t, grid[0] * grid[1]) and pint.dtype == torch.int64
+
+
+@pytest.mark.parametrize("sms", [16, 132])
+@pytest.mark.parametrize("t", [1, 2, 3, 9, 64, 1000])
+def test_resize_grid_walks_every_frame(t, sms):
+    """Z frame groups: block z walks frames z, z + Z, ... so each frame
+    has exactly one group; every block walks at least two frames when
+    T allows, and the grid stays within a few waves of the card's SMs."""
+    for (n_ct, n_rt), ring in itertools.product(((15, 34), (8, 17), (1, 1), (2, 3)),
+                                                (False, True)):
+        z = ck._resize_grid_z(t, n_ct, n_rt, ring, sms)
+        target = sms * (ck._RESIZE_RING_BLOCKS_PER_SM if ring else ck._RESIZE_BLOCKS_PER_SM)
+        assert 1 <= z <= max(1, -(-t // 2))
+        assert n_ct * n_rt * z <= max(target, n_ct * n_rt)
+        walked = sorted(f for g in range(z) for f in range(g, t, z))
+        assert walked == list(range(t))

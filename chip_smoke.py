@@ -71,8 +71,10 @@ FP32_OPS_S = 67e12
 INT32_OPS_S = FP32_OPS_S / 2
 SI_OPS_PER_PX = 14  # separable Sobel 8, m² 3, sqrt 1, two sums 2
 TI_OPS_PER_PX = 4   # difference, square, two sums
-# si_partials and ti_partials do this work on the int32 pipe; siti_partials
-# does its SI half in f32 (exact for these samples), its TI half in int32.
+# SI work is priced at the fp32 rate: the strip walk (the SI pass and the
+# fused pass alike) runs it in f32, exact for u8 samples (u16 chunks are
+# bound by their bytes at either rate); TI work at the int32 rate, on which
+# ti_partials and the fused pass run it.
 
 # The redesigned kernels' previous design, for the reader: its phase-7 time
 # as PERF.md's kernel table records it (NVIDIA H100 80GB HBM3, 700.00 W).
@@ -81,6 +83,7 @@ TI_OPS_PER_PX = 4   # difference, square, two sums
 _PREV_SRC = "PERF.md kernel table, previous design"
 PREVIOUS = {
     "resize_frames_fused": {"previous_ms": 3.6221, "previous_from": _PREV_SRC},
+    "si_frames_fused": {"previous_ms": 1.8736, "previous_from": _PREV_SRC},
     "siti_frames_fused_batch": {"previous_ms": 1.7771, "previous_from": _PREV_SRC},
     "siti_frames_fused": {"previous_ms": 1.7725, "previous_from": _PREV_SRC},
 }
@@ -680,17 +683,24 @@ def time_kernels(dev) -> dict:
     sobel = torch.tensor([[[-1., 0., 1.], [-2., 0., 2.], [-1., 0., 1.]],
                           [[-1., -2., -1.], [0., 0., 0.], [1., 2., 1.]]],
                          device=dev)[:, None]
-    yf = y.to(torch.float32)[:, None]
     interior = t * (DST_H - 2) * (DST_W - 2)
-    out["si_frames_fused"] = dict(
-        zip(("bound_ms", "bound_by"), bound(t * hw, (SI_OPS_PER_PX * interior, INT32_OPS_S))),
-        ms=time_ms(lambda: ck.si_frames_fused(y), reps=10),
-        plain_ms=time_ms(lambda: ck.si_frames_plain(y), reps=2),
-        library_ms=time_ms(lambda: F.conv2d(yf, sobel), reps=3),
-        library_call="torch.nn.functional.conv2d(f32, 2 Sobel filters): gradients only",
-        per="one 64-frame 2160x3840 u8 luma chunk",
-    )
-    del yf
+    # SI: the u8 chunk, and the 10-bit seam's chunk (10-bit values in u16)
+    y16 = random_frames(gen, (t, DST_H, DST_W), 1023, torch.uint16, dev)
+    si_rows = {}
+    for key, frames in (("u8", y), ("u16", y16)):
+        yf = frames.to(torch.float32)[:, None]
+        si_rows[key] = dict(
+            zip(("bound_ms", "bound_by"), bound(
+                t * hw * frames.element_size(), (SI_OPS_PER_PX * interior, FP32_OPS_S))),
+            ms=time_ms(lambda: ck.si_frames_fused(frames), reps=10),
+            plain_ms=time_ms(lambda: ck.si_frames_plain(frames), reps=2),
+            library_ms=time_ms(lambda: F.conv2d(yf, sobel), reps=3),
+            library_call="torch.nn.functional.conv2d(f32, 2 Sobel filters): gradients only",
+            per=f"one 64-frame 2160x3840 {'u8' if key == 'u8' else '10-bit u16'} luma chunk",
+        )
+        del yf
+    out["si_frames_fused"] = dict(si_rows["u8"], u16=si_rows["u16"])
+    del y16
     out["ti_frames_fused"] = dict(
         zip(("bound_ms", "bound_by"), bound((t + 1) * hw, (TI_OPS_PER_PX * t * hw, INT32_OPS_S))),
         ms=time_ms(lambda: ck.ti_frames_fused(y, prev), reps=10),
@@ -725,8 +735,9 @@ def time_kernels(dev) -> dict:
         per="one 64-frame 2160x3840 u8 luma chunk, TI[0] = 0",
         **conv,
     )
-    for name, r in list(out.items()) + [("resize_frames_fused lanczos",
-                                         out["resize_frames_fused"]["lanczos"])]:
+    for name, r in list(out.items()) + [
+            ("resize_frames_fused lanczos", out["resize_frames_fused"]["lanczos"]),
+            ("si_frames_fused u16", out["si_frames_fused"]["u16"])]:
         sep = f", separate SI + TI kernels {r['separate_ms']:.4f} ms" if "separate_ms" in r else ""
         prev_design = (f", previous design {PREVIOUS[name]['previous_ms']} ms "
                        f"({PREVIOUS[name]['previous_from']})" if name in PREVIOUS else "")

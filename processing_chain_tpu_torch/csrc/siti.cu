@@ -2,23 +2,24 @@
 // Built by ops/_build.py with nvcc into a plain C shared library and bound
 // with ctypes (ops/cuda_kernels.py).
 //
-// siti_partials, the fused SI+TI pass, replaces the TPU kernels
+// siti_partials<T, kTI> is one strip walk with two instances. The fused
+// SI+TI pass (kTI) replaces the TPU kernels
 // processing_chain_tpu/ops/pallas_kernels.py siti_frames_fused_batch
 // (:398-428; _siti_batch_kernel :386-395) and siti_frames_fused (:355-383;
 // _siti_partial_kernel :345-352), which share the stripe body
-// _siti_stripe_rows (:325-333). One template serves both: a batch axis and
-// a per-frame predecessor (frame (b, t-1), or prev_last[b] for t = 0, or
-// none: TI = 0). What bounds it on an H100: a 64-frame 2160x3840 u8 chunk
-// plus its predecessor is 539 MB read once (0.161 ms at 3.35 TB/s) and
-// ~18 operations per pixel: 14 SI, which this design runs in f32 (7.42 G,
-// 0.111 ms at 67 T fp32 ops/s), and 4 TI in int32 (2.12 G, 0.063 ms at
-// 33.5 T int32 ops/s), 0.174 ms in all, so operations bind, just above
-// the bytes. The first design staged each block's 32x128 pixels into a
-// shared int tile (sixteen 4-byte stores per
-// 16-byte vector), read 8 shared words per gradient, did the 3x3 Sobel
-// unseparated and took a TwoSum per term: about 45 instructions and 9
-// shared accesses per pixel, 1.78 ms per chunk on an H100 80GB HBM3 at
-// 700 W. This design walks columns instead:
+// _siti_stripe_rows (:325-333): a batch axis and a per-frame predecessor
+// (frame (b, t-1), or prev_last[b] for t = 0, or none: TI = 0). The SI
+// pass (no kTI) replaces si_frames_fused (:293-313; _sobel_stripe_stats
+// :263-283; _std_from_partials :336-342). What bounds them on an H100: a
+// 64-frame 2160x3840 u8 chunk is 531 MB read once (0.158 ms at 3.35 TB/s;
+// 539 MB, 0.161 ms, with the predecessor frames TI reads) and ~14 SI
+// operations per pixel, which this design runs in f32 (7.42 G, 0.111 ms at
+// 67 T fp32 ops/s), so the SI pass is bound by its bytes; the fused pass
+// adds 4 TI operations in int32 (2.12 G, 0.063 ms at 33.5 T int32 ops/s),
+// 0.174 ms in all, so operations bind it, just above its bytes. In
+// practice instructions bind both (the u8 SI row step is ~24 SASS
+// instructions a pixel, issued at about two thirds of the SMs' rate), so
+// the design spends as few instructions per pixel as it can:
 //  * a thread owns 16 bytes of columns (16 u8 or 8 u16 samples) of a
 //    64-row strip and walks down it, one coalesced 16-byte load per row
 //    (issued a row ahead), rows r - 1, r, r + 1 held in registers; nothing
@@ -32,10 +33,11 @@
 //    arithmetic runs on the fp32 pipe at twice the int32 rate;
 //  * Σ|∇| takes RowMag: the root as x * rsqrt(x) plus its exact-residual
 //    correction, split so that a row's 16 terms sum exactly in f32 and go
-//    to f64 once per row (~10 instructions a term against MagSum's ~15);
-//  * TI's Σd and Σd² come from the same row vectors against the
+//    to f64 once per row (~9 instructions a term against MagSum's ~15);
+//  * with kTI, TI's Σd and Σd² come from the same row vectors against the
 //    predecessor's row by byte dot products (dp4a), about 1.25 int32
-//    instructions per pixel;
+//    instructions per pixel; without it no predecessor row is loaded and
+//    the walk keeps only the SI sums;
 //  * the warp stays converged around the shuffles: one masked path for
 //    every lane, predicated edge and row loads, __syncwarp before the
 //    shuffles (the first version, with a per-lane branch there, ran 1.5x
@@ -45,25 +47,20 @@
 // and H-1 and columns 0 and W-1 included), so every pixel's difference is
 // counted exactly once, and no [B, T+1] copy of the chunk is built.
 //
-// si_partials and ti_partials, the separate passes, replace
-// si_frames_fused (:293-313; _sobel_stripe_stats :263-283;
-// _std_from_partials :336-342) and ti_frames_fused (:443-465;
-// _ti_partial_kernel :431-440). Each reads one 8.3 MB 2160x3840 luma
-// frame (u8) and does ~14 (SI) or ~4 (TI) integer/float operations per
-// pixel. SI stages a tile plus a one-pixel halo in shared memory (~8%
-// re-read at tile edges); TI uses 16-byte vector loads of both frames;
-// each writes one partial per block, nothing else.
+// ti_partials, the separate TI pass, replaces ti_frames_fused (:443-465;
+// _ti_partial_kernel :431-440): 16-byte vector loads of each frame and its
+// predecessor, ~4 integer operations per pixel, one partial per block.
 //
 // Numerics: the Pallas kernels keep f32 sufficient statistics, and
 // sigma = sqrt(E[x^2] - E[x]^2) over 8.3 M samples is where f32
 // cancellation bites. Here Σ(gx²+gy²), Σd and Σd² are exact int64 sums
 // of exact integer terms, and Σ|∇| is an f64 sum of square roots good to
-// ~1e-14 (MagSum; RowMag in the fused pass). The caller reduces the per-block partials in
-// f64. The right and bottom edges (gradient columns >= W-1, rows >= H-1)
-// are masked here, as the Pallas kernel masked `col < w - 1`. TI takes
-// an optional predecessor frame, so a chunk's first TI is computed in the
-// kernel against the previous chunk's last frame (kept at container
-// depth).
+// ~1e-14 (RowMag for u8, MagSum for u16). The caller reduces the per-block
+// partials in f64. The right and bottom edges (gradient columns >= W-1,
+// rows >= H-1) are masked here, as the Pallas kernel masked `col < w - 1`.
+// TI takes an optional predecessor frame, so a chunk's first TI is
+// computed in the kernel against the previous chunk's last frame (kept at
+// container depth).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,13 +70,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int SI_TW = 128;  // gradient columns per block
-constexpr int SI_TH = 32;   // gradient rows per block
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ double warp_sum(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -91,25 +81,13 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
-// Per-thread sum type of Σ(gx²+gy²): a u8 thread sums 16 terms of at most
-// 2 * 1020² (fits int32); u16 terms need 64 bits.
-template <typename T>
-struct GradSum {
-  using type = long long;
-};
-template <>
-struct GradSum<uint8_t> {
-  using type = int;
-};
-
-// Σ|∇| to about double precision without f64 arithmetic per pixel. SI is
-// sqrt(E[m²] - E[m]²) with E[m²] exact, so on a frame with few gradients
-// any rounding of the square roots shows as σ > 0 where the exact σ is 0
-// (one f32 sqrt per term leaves ~0.03 on a 3x3 frame). Each term is the
-// f32 root m plus the first-order correction from its exact residual
-// m2 - m² (one fma; u8 m2 < 2^24 is exact in f32, u16 terms take an f64
-// root split into m + correction), and the f32 sum carries its rounding
-// errors in `lo` (TwoSum), so hi + lo is good to ~1e-14 relative.
+// Σ|∇| of u16 gradients to about double precision without f64 sums per
+// pixel. SI is sqrt(E[m²] - E[m]²) with E[m²] exact, so on a frame with
+// few gradients any rounding of the square roots shows as σ > 0 where the
+// exact σ is 0 (one f32 sqrt per term leaves ~0.03 on a 3x3 frame). Each
+// term is its f64 root split into the f32 m plus a correction, and the f32
+// sum carries its rounding errors in `lo` (TwoSum), so hi + lo is good to
+// ~1e-14 relative. (u8 terms take RowMag, below.)
 struct MagSum {
   float hi = 0.0f, lo = 0.0f;
 
@@ -118,12 +96,6 @@ struct MagSum {
     const float bp = t - hi;
     lo += ((hi - (t - bp)) + (m - bp)) + c;
     hi = t;
-  }
-  __device__ __forceinline__ void add(int m2) {
-    const float x = (float)m2;
-    const float m = sqrtf(x);
-    const float r = fmaf(-m, m, x);
-    add(m, m > 0.0f ? __fdividef(0.5f * r, m) : 0.0f);
   }
   __device__ __forceinline__ void add(long long m2) {
     const double md = sqrt((double)m2);
@@ -153,56 +125,6 @@ __device__ __forceinline__ void block_sum(A& a, B& b) {
       a += sa[k];
       b += sb[k];
     }
-  }
-}
-
-// One (frame, SI_TH x SI_TW gradient tile) per block. Gradient position
-// (r, c) is the 3x3 Sobel centred on source pixel (r, c), valid for
-// 1 <= r <= H-2, 1 <= c <= W-2. Partials: ps1 = Σ|∇| (f64), ps2 = Σ|∇|²
-// (int64), one per block, at [frame][blockIdx.y * gridDim.x + blockIdx.x].
-template <typename T>
-__global__ void __launch_bounds__(THREADS) si_partials(
-    const T* __restrict__ y, int h, int w, double* __restrict__ ps1,
-    long long* __restrict__ ps2) {
-  __shared__ int tile[SI_TH + 2][SI_TW + 2];
-  const T* f = y + (size_t)blockIdx.z * h * w;
-  const int r_base = blockIdx.y * SI_TH;  // source row of tile[0][*]
-  const int c_base = blockIdx.x * SI_TW;  // source col of tile[*][0]
-  for (int e = threadIdx.x; e < (SI_TH + 2) * (SI_TW + 2); e += THREADS) {
-    const int rr = e / (SI_TW + 2), cc = e % (SI_TW + 2);
-    const int r = r_base + rr, c = c_base + cc;
-    tile[rr][cc] = (r < h && c < w) ? (int)f[(size_t)r * w + c] : 0;
-  }
-  __syncthreads();
-
-  using G = typename GradSum<T>::type;
-  MagSum mag;
-  G s2 = 0;
-  const int cc = threadIdx.x % SI_TW;
-  if (c_base + 1 + cc < w - 1) {
-    for (int rr = threadIdx.x / SI_TW; rr < SI_TH; rr += THREADS / SI_TW) {
-      if (r_base + 1 + rr >= h - 1) break;
-      const int* up = tile[rr];
-      const int* md = tile[rr + 1];
-      const int* dn = tile[rr + 2];
-      const G gx = (G)(up[cc + 2] + 2 * md[cc + 2] + dn[cc + 2]) -
-                   (G)(up[cc] + 2 * md[cc] + dn[cc]);
-      const G gy = (G)(dn[cc] + 2 * dn[cc + 1] + dn[cc + 2]) -
-                   (G)(up[cc] + 2 * up[cc + 1] + up[cc + 2]);
-      const G m2 = gx * gx + gy * gy;
-      mag.add(m2);
-      s2 += m2;
-    }
-  }
-  double s1 = mag.value();
-  long long s2w = s2;
-  block_sum(s1, s2w);
-  if (threadIdx.x == 0) {
-    const size_t o =
-        (size_t)blockIdx.z * gridDim.x * gridDim.y + blockIdx.y * gridDim.x +
-        blockIdx.x;
-    ps1[o] = s1;
-    ps2[o] = s2w;
   }
 }
 
@@ -311,10 +233,10 @@ __device__ __forceinline__ void block_sum4(double& a, long long& b,
   }
 }
 
-constexpr int ST_ROWS = 64;  // owned source rows per strip (fused pass)
+constexpr int ST_ROWS = 64;   // owned source rows per strip
 constexpr int ST_BYTES = 16;  // bytes of owned columns per thread (one vector)
 
-// Σ|∇| of u8 gradients for the fused pass, to ~1e-14 relative like MagSum
+// Σ|∇| of u8 gradients for the strip walk, to ~1e-14 relative like MagSum
 // at a fraction of its cost. The root of each exact integer term x < 2^24
 // is m = x * rsqrt(x) (a few ulp) plus the first-order correction
 // (x - m²) / 2m, summed as Σ r * rsqrt(x) / 2 (r = x - m² by one fma). m
@@ -327,11 +249,13 @@ struct RowMag {
   float lo = 0.0f;   // Σ (m - hi)
   float cor = 0.0f;  // Σ r * rsqrt(x): twice the corrections
 
-  __device__ __forceinline__ void add(float x) {
-    // x >= 1 after the max (x == 0 gives m = 0, r = 0), so the hardware
-    // approximation needs none of rsqrtf's denormal handling
+  // x: the term, 0 or an exact integer below 2^24 or 2^-100 (whose root
+  // 2^-50 stands in for 0); xr: x, or any normal positive number where x
+  // is 0, so that the hardware approximation needs none of rsqrtf's
+  // denormal handling and m = x * y is 0 there
+  __device__ __forceinline__ void add(float x, float xr) {
     float y;
-    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(fmaxf(x, 1.0f)));
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(xr));
     const float m = x * y;
     const float r = fmaf(-m, m, x);
     cor = fmaf(r, y, cor);
@@ -411,7 +335,8 @@ __device__ __forceinline__ typename StripRow<T>::V edge_sample(
   return x;
 }
 
-// Per-thread sums of the fused pass.
+// Per-thread sums of the strip walk; the SI pass never touches the TI
+// fields, so they cost it nothing.
 template <typename T>
 struct StripSums {
   RowMag mag8;            // Σ|∇| (u8)
@@ -454,11 +379,15 @@ __device__ __forceinline__ void ti_vec(const uint4& c, const uint4& p,
 // The u8 SI terms of one row from the vertical smooths s and differences
 // d (index j + 1 for column cb + j): Σ|∇| and Σ(gx² + gy²), the latter
 // through exact f32 sums of 4 terms (<= 4 * 2 * 1020² < 2^23) read back as
-// integers.
+// integers. col[j] (1 or 0) multiplies column cb + j's term. The root's
+// argument gets a floor of 2^-100 inside the fma: a normal f32 far below
+// half an ulp of every nonzero term, so it changes none, and where both
+// gradients are 0 the term is 2^-100 and its root 2^-50 (negligible, and
+// lost when the 4-term sums are read back as integers).
 template <int N>
 __device__ __forceinline__ void si_terms8(const float (&s)[N],
                                           const float (&d)[N],
-                                          uint32_t colmask,
+                                          const float (&col)[N - 2],
                                           StripSums<uint8_t>& acc) {
   constexpr int C = N - 2;
   int row2 = 0;
@@ -469,8 +398,9 @@ __device__ __forceinline__ void si_terms8(const float (&s)[N],
     for (int j = 4 * g; j < 4 * g + 4; ++j) {
       const float gx = s[j + 2] - s[j];
       const float gy = d[j] + d[j + 2] + 2.0f * d[j + 1];
-      const float m2 = (colmask >> j) & 1u ? fmaf(gx, gx, gy * gy) : 0.0f;
-      acc.mag8.add(m2);
+      const float xr = fmaf(gx, gx, fmaf(gy, gy, 0x1p-100f));
+      const float m2 = xr * col[j];
+      acc.mag8.add(m2, xr);
       quad += m2;
     }
     row2 += __float_as_int(quad + 8388608.0f) - 0x4b000000;
@@ -483,13 +413,13 @@ __device__ __forceinline__ void si_terms8(const float (&s)[N],
 // separable Sobel: per column the vertical smooth s = up + 2 md + dn and
 // difference d = dn - up, then gx = s[c+1] - s[c-1] and
 // gy = d[c-1] + 2 d[c] + d[c+1]. The neighbours across a thread's edge come
-// from the next lanes; across the warp's edge from el/er. colmask: bit j
-// set when column cb + j has a Sobel interior.
+// from the next lanes; across the warp's edge from el/er. col[j]: 1 when
+// column cb + j has a Sobel interior, else 0.
 template <typename T>
-__device__ __forceinline__ void si_row(const StripRow<T>& up,
-                                       const StripRow<T>& md,
-                                       const StripRow<T>& dn, int lane,
-                                       uint32_t colmask, StripSums<T>& acc) {
+__device__ __forceinline__ void si_row(
+    const StripRow<T>& up, const StripRow<T>& md, const StripRow<T>& dn,
+    int lane, const typename StripRow<T>::V (&col)[StripRow<T>::C],
+    StripSums<T>& acc) {
   using V = typename StripRow<T>::V;
   constexpr int C = StripRow<T>::C;
   V s[C + 2], d[C + 2];  // index j + 1 holds column cb + j
@@ -516,11 +446,11 @@ __device__ __forceinline__ void si_row(const StripRow<T>& up,
     d[C + 1] = dn.er - up.er;
   }
   if constexpr (sizeof(T) == 1) {
-    si_terms8(s, d, colmask, acc);
+    si_terms8(s, d, col, acc);
   } else {
 #pragma unroll
     for (int j = 0; j < C; ++j) {
-      if (!((colmask >> j) & 1u)) continue;
+      if (col[j] == 0) continue;
       const long long gx = s[j + 2] - s[j];
       const long long gy = d[j] + d[j + 2] + 2 * d[j + 1];
       const long long m2 = gx * gx + gy * gy;
@@ -531,11 +461,11 @@ __device__ __forceinline__ void si_row(const StripRow<T>& up,
 }
 
 // The next strip row, loaded one step ahead of its use: the samples and
-// edge columns of row r of cur, and the predecessor's row r when it is an
-// owned row with a predecessor (else zeros).
-template <typename T>
+// edge columns of row r of cur and, with kTI, the predecessor's row r when
+// it is an owned row with a predecessor (else zeros).
+template <typename T, bool kTI>
 struct RowAhead {
-  uint4 q, p;
+  uint4 q, p;  // p: kTI only
   typename StripRow<T>::V el, er;
 
   __device__ __forceinline__ void load(const T* __restrict__ cur,
@@ -544,15 +474,17 @@ struct RowAhead {
                                        int vec) {
     constexpr int C = StripRow<T>::C;
     q = load_vec(cur, r, h, w, cb, vec);
-    p = pre != nullptr && r < r1 ? load_vec(pre, r, h, w, cb, vec)
-                                 : make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (kTI)
+      p = pre != nullptr && r < r1 ? load_vec(pre, r, h, w, cb, vec)
+                                   : make_uint4(0u, 0u, 0u, 0u);
     el = edge_sample(cur, r, h, w, cb - 1, lane == 0);
     er = edge_sample(cur, r, h, w, cb + C, lane == 31);
   }
-  // into a strip row, taking the owned row's TI terms on the way
+  // into a strip row, taking the owned row's TI terms on the way (kTI)
   __device__ __forceinline__ void take(StripRow<T>& row, bool ti,
                                        StripSums<T>& acc) const {
-    if (ti) ti_vec(q, p, acc);
+    if constexpr (kTI)
+      if (ti) ti_vec(q, p, acc);
     unpack_row(q, row);
     row.el = el;
     row.er = er;
@@ -563,128 +495,134 @@ struct RowAhead {
 // up, md, dn. dn takes row r + 1 from `ahead` (its slot held row r - 2),
 // with the TI terms of row r + 1 when it is owned; `ahead` then starts the
 // loads of row r + 2, which stay in flight during row r's SI.
-template <typename T>
+template <typename T, bool kTI>
 __device__ __forceinline__ void strip_step(
-    StripRow<T>& up, StripRow<T>& md, StripRow<T>& dn, RowAhead<T>& ahead,
-    const T* __restrict__ cur, const T* __restrict__ pre, int r, int r1,
-    int h, int w, int cb, int lane, int vec, uint32_t colmask,
+    StripRow<T>& up, StripRow<T>& md, StripRow<T>& dn,
+    RowAhead<T, kTI>& ahead, const T* __restrict__ cur,
+    const T* __restrict__ pre, int r, int r1, int h, int w, int cb, int lane,
+    int vec, const typename StripRow<T>::V (&col)[StripRow<T>::C],
     StripSums<T>& acc) {
   ahead.take(dn, pre != nullptr && r + 1 < r1, acc);
   ahead.load(cur, pre, r + 2, r1, h, w, cb, lane, vec);
-  if (r >= 1 && r <= h - 2) si_row(up, md, dn, lane, colmask, acc);
+  if (r >= 1 && r <= h - 2) si_row(up, md, dn, lane, col, acc);
 }
 
-// Fused SI+TI partials of nz = B*T frames y [B, T, H, W]. grid
+// SI (and, with kTI, TI) partials of nz = B*T frames y [B, T, H, W]. grid
 // (ceil(W / (256 C)), ceil(H / ST_ROWS), <= nz) with C = 16 / sizeof(T);
 // blocks stride over the frames in z. Thread k of block (x, y) owns
 // columns [C (256 x + k), C (256 x + k + 1)) of source rows
 // [ST_ROWS y, ST_ROWS (y + 1)) (clipped to the frame), and walks down them
 // with the rows above and below in registers. Block (x, y) of frame z
 // writes, at [z][y * gridDim.x + x]: ps1 = Σ|∇| (f64) and ps2 = Σ(gx²+gy²)
-// over the owned pixels with 1 <= r <= H-2 and 1 <= c <= W-2, and pd1 = Σd,
-// pd2 = Σd² over all owned pixels, d = y[b, t] - pred: pred = y[b, t-1] for
-// t > 0, prev[b] for t = 0 when prev is given, else none (d sums stay 0, so
-// TI[b, 0] = 0). vec: rows of W samples are a multiple of 16 bytes and y
-// and prev are 16-byte aligned, so each owned row segment is one uint4 load.
-// Two blocks per SM (128 registers a thread): with that bound ptxas
-// allocates the u8 walk without spilling.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2) siti_partials(
-    const T* __restrict__ y, const T* __restrict__ prev, int t, int nz,
-    int h, int w, int vec, double* __restrict__ ps1,
-    long long* __restrict__ ps2, long long* __restrict__ pd1,
-    long long* __restrict__ pd2) {
+// over the owned pixels with 1 <= r <= H-2 and 1 <= c <= W-2 and, with
+// kTI, pd1 = Σd, pd2 = Σd² over all owned pixels, d = y[b, t] - pred: pred
+// = y[b, t-1] for t > 0, prev[b] for t = 0 when prev is given, else none
+// (d sums stay 0, so TI[b, 0] = 0). Without kTI, prev, pd1 and pd2 are not
+// read. vec: rows of W samples are a multiple of 16 bytes and y and prev
+// are 16-byte aligned, so each owned row segment is one uint4 load.
+// Two blocks an SM (128 registers a thread): the u8 walks need them, and
+// with three (85 registers) ptxas spills the u8 SI walk, which then runs
+// slower (tune_siti.py).
+template <typename T, bool kTI>
+__global__ void __launch_bounds__(THREADS, 2)
+    siti_partials(const T* __restrict__ y, const T* __restrict__ prev, int t,
+                  int nz, int h, int w, int vec, double* __restrict__ ps1,
+                  long long* __restrict__ ps2, long long* __restrict__ pd1,
+                  long long* __restrict__ pd2) {
   constexpr int C = StripRow<T>::C;
   const size_t hw = (size_t)h * w;
   const int lane = threadIdx.x % 32;
   const int cb = (blockIdx.x * THREADS + threadIdx.x) * C;
   const bool warp_live = (cb - lane * C) < w;  // warp-uniform
   const int r0 = blockIdx.y * ST_ROWS, r1 = min(r0 + ST_ROWS, h);
-  uint32_t colmask = 0;
+  // column factors, kept in registers over the walk: a bit mask would be
+  // turned back into predicates at every row (two compares a column)
+  typename StripRow<T>::V col[C];
 #pragma unroll
-  for (int j = 0; j < C; ++j)
-    if (cb + j >= 1 && cb + j <= w - 2) colmask |= 1u << j;
+  for (int j = 0; j < C; ++j) col[j] = cb + j >= 1 && cb + j <= w - 2;
   const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   const size_t nblk = (size_t)gridDim.x * gridDim.y;
 
   for (int z = blockIdx.z; z < nz; z += gridDim.z) {
-    const int tz = z % t;
     const T* cur = y + (size_t)z * hw;
-    const T* pre = tz > 0 ? cur - hw
-                          : (prev != nullptr ? prev + (size_t)(z / t) * hw
-                                             : nullptr);
+    const T* pre = nullptr;
+    if constexpr (kTI) {
+      const int tz = z % t;
+      pre = tz > 0 ? cur - hw
+                   : (prev != nullptr ? prev + (size_t)(z / t) * hw : nullptr);
+    }
     StripSums<T> acc;
     if (warp_live) {
       StripRow<T> a, b, c;
-      RowAhead<T> ahead;
+      RowAhead<T, kTI> ahead;
       ahead.load(cur, pre, r0 - 1, r1, h, w, cb, lane, vec);
       ahead.take(a, false, acc);
       ahead.load(cur, pre, r0, r1, h, w, cb, lane, vec);
       ahead.take(b, pre != nullptr, acc);
       ahead.load(cur, pre, r0 + 1, r1, h, w, cb, lane, vec);
-      // one step per row; the two row copies cost no measurable time (a
-      // rotation of three unrolled steps without them timed the same)
-      for (int r = r0; r < r1; ++r) {
-        strip_step(a, b, c, ahead, cur, pre, r, r1, h, w, cb, lane, vec,
-                   colmask, acc);
-        a = b;
-        b = c;
+      if constexpr (sizeof(T) == 1) {
+        // three steps a turn, the rows' roles rotating, so that no row is
+        // copied (the copies were 50 of ~500 instructions a step)
+        for (int r = r0; r < r1; r += 3) {
+          strip_step(a, b, c, ahead, cur, pre, r, r1, h, w, cb, lane, vec,
+                     col, acc);
+          if (r + 1 >= r1) break;
+          strip_step(b, c, a, ahead, cur, pre, r + 1, r1, h, w, cb, lane,
+                     vec, col, acc);
+          if (r + 2 >= r1) break;
+          strip_step(c, a, b, ahead, cur, pre, r + 2, r1, h, w, cb, lane,
+                     vec, col, acc);
+        }
+      } else {
+        // u16: one step a row, the rows copied down; rotating, the walk
+        // needs 100 registers instead of 70 and loses a block an SM
+        for (int r = r0; r < r1; ++r) {
+          strip_step(a, b, c, ahead, cur, pre, r, r1, h, w, cb, lane, vec,
+                     col, acc);
+          a = b;
+          b = c;
+        }
       }
     }
     double s1;
-    long long d1, d2;
-    if constexpr (sizeof(T) == 1) {
+    if constexpr (sizeof(T) == 1)
       s1 = acc.mag8.value();
-      d1 = acc.sd;
-      d2 = (long long)acc.sq - 2 * (long long)acc.cp;
-    } else {
+    else
       s1 = acc.mag16.value();
-      d1 = acc.d1;
-      d2 = acc.d2;
-    }
     long long s2 = acc.s2;
-    block_sum4(s1, s2, d1, d2);
-    if (threadIdx.x == 0) {
-      const size_t o = (size_t)z * nblk + blk;
-      ps1[o] = s1;
-      ps2[o] = s2;
-      pd1[o] = d1;
-      pd2[o] = d2;
+    const size_t o = (size_t)z * nblk + blk;
+    if constexpr (kTI) {
+      long long d1, d2;
+      if constexpr (sizeof(T) == 1) {
+        d1 = acc.sd;
+        d2 = (long long)acc.sq - 2 * (long long)acc.cp;
+      } else {
+        d1 = acc.d1;
+        d2 = acc.d2;
+      }
+      block_sum4(s1, s2, d1, d2);
+      if (threadIdx.x == 0) {
+        ps1[o] = s1;
+        ps2[o] = s2;
+        pd1[o] = d1;
+        pd2[o] = d2;
+      }
+    } else {
+      block_sum(s1, s2);
+      if (threadIdx.x == 0) {
+        ps1[o] = s1;
+        ps2[o] = s2;
+      }
     }
-    __syncthreads();  // thread 0 has read block_sum4's shared partials
+    __syncthreads();  // thread 0 has read the block sum's shared partials
   }
 }
 
-}  // namespace
-
-// y: [t, h, w] u8 (elem_bytes 1) or u16 (2). ps1 f64 / ps2 int64:
-// [t, n_ty, n_tx] with n_tx = ceil((w-2)/128), n_ty = ceil((h-2)/32).
-extern "C" int pc_si_partials(const void* y, int t, int h, int w,
-                              int elem_bytes, void* ps1, void* ps2,
-                              void* stream) {
-  dim3 grid((w - 2 + SI_TW - 1) / SI_TW, (h - 2 + SI_TH - 1) / SI_TH, t);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  double* p1 = static_cast<double*>(ps1);
-  long long* p2 = static_cast<long long*>(ps2);
-  if (elem_bytes == 1)
-    si_partials<uint8_t><<<grid, THREADS, 0, s>>>(
-        static_cast<const uint8_t*>(y), h, w, p1, p2);
-  else if (elem_bytes == 2)
-    si_partials<uint16_t><<<grid, THREADS, 0, s>>>(
-        static_cast<const uint16_t*>(y), h, w, p1, p2);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-// y: [nz / t, t, h, w] u8/u16; prev: [nz / t, h, w] same type, or null.
-// ps1 f64 and ps2/pd1/pd2 int64: [nz, n_ty, n_tx] with
-// n_tx = ceil(w * elem_bytes / 4096) (256 threads x 16 bytes of columns),
-// n_ty = ceil(h / 64).
-extern "C" int pc_siti_partials(const void* y, const void* prev, int t,
-                                int nz, int h, int w, int elem_bytes,
-                                int vec, void* ps1, void* ps2, void* pd1,
-                                void* pd2, void* stream) {
+// One launch of the strip walk over nz frames (see siti_partials).
+template <bool kTI>
+int launch_strips(const void* y, const void* prev, int t, int nz, int h,
+                  int w, int elem_bytes, int vec, void* ps1, void* ps2,
+                  void* pd1, void* pd2, void* stream) {
   if (t <= 0 || nz <= 0 || nz % t != 0 || (elem_bytes != 1 && elem_bytes != 2))
     return (int)cudaErrorInvalidValue;
   const int cols = THREADS * ST_BYTES / elem_bytes;  // owned columns per block
@@ -696,16 +634,39 @@ extern "C" int pc_siti_partials(const void* y, const void* prev, int t,
   long long* q1 = static_cast<long long*>(pd1);
   long long* q2 = static_cast<long long*>(pd2);
   if (elem_bytes == 1)
-    siti_partials<uint8_t><<<grid, THREADS, 0, s>>>(
+    siti_partials<uint8_t, kTI><<<grid, THREADS, 0, s>>>(
         static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(prev), t,
         nz, h, w, vec, p1, p2, q1, q2);
-  else if (elem_bytes == 2)
-    siti_partials<uint16_t><<<grid, THREADS, 0, s>>>(
+  else
+    siti_partials<uint16_t, kTI><<<grid, THREADS, 0, s>>>(
         static_cast<const uint16_t*>(y), static_cast<const uint16_t*>(prev),
         t, nz, h, w, vec, p1, p2, q1, q2);
-  else
-    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The grids and partials below: [nz, n_ty, n_tx] with
+// n_tx = ceil(w * elem_bytes / 4096) (256 threads x 16 bytes of columns)
+// and n_ty = ceil(h / 64); vec as in siti_partials.
+
+// y: [t, h, w] u8 (elem_bytes 1) or u16 (2). ps1 f64 = Σ|∇|, ps2 int64 =
+// Σ(gx²+gy²) per frame and block (nz = t).
+extern "C" int pc_si_partials(const void* y, int t, int h, int w,
+                              int elem_bytes, int vec, void* ps1, void* ps2,
+                              void* stream) {
+  return launch_strips<false>(y, nullptr, t, t, h, w, elem_bytes, vec, ps1,
+                              ps2, nullptr, nullptr, stream);
+}
+
+// y: [nz / t, t, h, w] u8/u16; prev: [nz / t, h, w] same type, or null.
+// ps1 f64 and ps2/pd1/pd2 int64 per frame and block.
+extern "C" int pc_siti_partials(const void* y, const void* prev, int t,
+                                int nz, int h, int w, int elem_bytes,
+                                int vec, void* ps1, void* ps2, void* pd1,
+                                void* pd2, void* stream) {
+  return launch_strips<true>(y, prev, t, nz, h, w, elem_bytes, vec, ps1, ps2,
+                             pd1, pd2, stream);
 }
 
 // y: [t, h*w] u8/u16; prev: [h*w] same type, or null. ps1/ps2 int64:

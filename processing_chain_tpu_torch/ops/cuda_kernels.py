@@ -9,8 +9,9 @@ One wrapper per TPU kernel:
   siti_frames_fused        csrc/siti.cu    (pallas_kernels.py:355-383)
   siti_frames_fused_batch  csrc/siti.cu    (pallas_kernels.py:398-428)
 
-The last two are entry points of one fused SI+TI kernel (siti_partials)
-with separate launch counts.
+The SI kernel and the last two, the fused SI+TI kernel's entry points,
+are instances of one strip walk (siti_partials, with and without TI),
+each with its own launch count.
 
 Each wrapper checks its input and, for a CUDA tensor, launches its kernel
 on the tensor's current stream (and adds one to `LAUNCHES[name]` there
@@ -41,7 +42,7 @@ _SIGNATURES = {
                              _I, _I, _P],
     },
     "siti": {
-        "pc_si_partials": [_P, _I, _I, _I, _I, _P, _P, _P],
+        "pc_si_partials": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
         "pc_ti_partials": [_P, _P, _I, _L, _I, _I, _I, _P, _P, _P],
         "pc_siti_partials": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
@@ -62,7 +63,6 @@ _RESIZE_RING_TAPS = (2, 4, 6)  # kh == kv in these: resize_ring
 _RESIZE_BLOCKS_PER_SM = 8
 _RESIZE_RING_BLOCKS_PER_SM = 32
 _RESIZE_MIN_FRAMES = 2  # frames each block walks at least (taps loaded once)
-_SI_TILE = (32, 128)    # gradient rows, cols per block (csrc/siti.cu)
 _TI_BLOCKS = 64         # blocks per frame pair
 _SITI_STRIP_ROWS = 64     # owned source rows per block (csrc/siti.cu ST_ROWS)
 _SITI_BLOCK_BYTES = 4096  # owned bytes of each row per block: 256 threads x 16
@@ -335,8 +335,9 @@ def si_frames_plain(y: torch.Tensor) -> torch.Tensor:
 
 def si_frames_fused(y: torch.Tensor) -> torch.Tensor:
     """SI per frame (f32 [T]) of [T, H, W] luma at container depth
-    (csrc/siti.cu si_partials, then an f64 reduction of the per-block
-    partials). CPU tensors (u8, u16 or f32) take `si_frames_plain`."""
+    (csrc/siti.cu siti_partials without TI, then an f64 reduction of the
+    per-block partials). CPU tensors (u8, u16 or f32) take
+    `si_frames_plain`."""
     on_cpu = isinstance(y, torch.Tensor) and y.device.type == "cpu"
     _check_frames(y, "si_frames_fused",
                   _INT_TYPES + ((torch.float32,) if on_cpu else ()))
@@ -347,15 +348,14 @@ def si_frames_fused(y: torch.Tensor) -> torch.Tensor:
         return si_frames_plain(y)
     if t == 0:
         return torch.empty((0,), dtype=torch.float32, device=y.device)
-    th, tw = _SI_TILE
-    nb = -(-(h - 2) // th) * -(-(w - 2) // tw)
-    ps1 = torch.empty((t, nb), dtype=torch.float64, device=y.device)
-    ps2 = torch.empty((t, nb), dtype=torch.int64, device=y.device)
+    size = y.element_size()
+    vec = (w * size) % 16 == 0 and y.data_ptr() % 16 == 0
+    ps1, pint = _siti_partial_buffers(t, h, w, size, y.device, ti=False)
     _launch(
         "siti", "pc_si_partials", "si_frames_fused", y.device,
-        y.data_ptr(), t, h, w, y.element_size(), ps1.data_ptr(), ps2.data_ptr(),
+        y.data_ptr(), t, h, w, size, int(vec), ps1.data_ptr(), pint[0].data_ptr(),
     )
-    return _std_from_sums(ps1.sum(1), ps2.sum(1).to(torch.float64), (h - 2) * (w - 2))
+    return _std_from_sums(ps1.sum(1), pint[0].sum(1).to(torch.float64), (h - 2) * (w - 2))
 
 
 def ti_frames_plain(y: torch.Tensor, prev=None) -> torch.Tensor:
@@ -440,18 +440,19 @@ def _siti_inputs(y, name: str, layout: str) -> bool:
 
 
 def _siti_grid(h: int, w: int, size: int) -> tuple:
-    """(row strips, column blocks) of one frame in siti_partials: each
-    block owns up to 64 rows x 4096 bytes of columns and writes one
-    partial of each sum."""
+    """(row strips, column blocks) of one frame in siti_partials (both
+    instances): each block owns up to 64 rows x 4096 bytes of columns and
+    writes one partial of each sum."""
     return -(-h // _SITI_STRIP_ROWS), -(-w * size // _SITI_BLOCK_BYTES)
 
 
-def _siti_partial_buffers(nz: int, h: int, w: int, size: int, device):
-    """siti_partials' outputs for nz frames: Σ|∇| (f64 [nz, blocks]) and
-    Σ(gx²+gy²), Σd, Σd² (int64 [3, nz, blocks]), one entry per block."""
+def _siti_partial_buffers(nz: int, h: int, w: int, size: int, device, ti: bool = True):
+    """siti_partials' outputs for nz frames, one entry per block: Σ|∇|
+    (f64 [nz, blocks]) and Σ(gx²+gy²), then with `ti` Σd and Σd² (int64
+    [3, nz, blocks], or [1, nz, blocks] for the SI pass)."""
     nb = int(np.prod(_siti_grid(h, w, size)))
     return (torch.empty((nz, nb), dtype=torch.float64, device=device),
-            torch.empty((3, nz, nb), dtype=torch.int64, device=device))
+            torch.empty((3 if ti else 1, nz, nb), dtype=torch.int64, device=device))
 
 
 def _siti_launch(y: torch.Tensor, prev, name: str):

@@ -99,6 +99,19 @@ def test_siti_kernels_equal_plain(cuda, dtype, hi, atol, shape):
     assert ck.LAUNCHES["ti_frames_fused"] == (2 if shape[0] > 1 else 1)
 
 
+@pytest.mark.parametrize("dtype,hi,atol", [(torch.uint8, 255, 1e-3), (torch.uint16, 1023, 1e-2)])
+def test_si_unaligned_frames_take_scalar_path(cuda, dtype, hi, atol):
+    """Frames whose base is not 16-byte aligned (a view at an odd offset,
+    contiguous) and rows that are a multiple of 16 bytes: the SI pass takes
+    its predicated scalar loads (vec = 0)."""
+    flat = _rand((1, 3 * 70 * 256 + 1), hi, dtype, cuda, 23)
+    y = flat[0, 1:].reshape(3, 70, 256)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    torch.testing.assert_close(ck.si_frames_fused(y).cpu(), ck.si_frames_plain(y.cpu()),
+                               rtol=1e-4, atol=atol)
+    assert ck.LAUNCHES["si_frames_fused"] == 1
+
+
 def test_ti_unaligned_predecessor_takes_scalar_path(cuda):
     y = _rand((3, 9, 17), 255, torch.uint8, cuda, 1)
     prev = _rand((1, 9 * 17 + 1), 255, torch.uint8, cuda, 2)[0, 1:].reshape(9, 17)
@@ -200,7 +213,9 @@ def test_fused_siti_narrow_widths_and_short_strips(cuda, dtype, hi, atol, w):
     """Widths that end inside a thread's 16 bytes, a warp's span or a
     block's, at heights shorter than one 64-row strip and just over it;
     the predecessor frame at an unaligned address (a view at an odd
-    offset) takes the scalar loads of the same kernel."""
+    offset) takes the scalar loads of the same kernel. The SI pass, the
+    same walk without TI, on the aligned frames and on the unaligned
+    ones."""
     for h in (3, 5, 40, 67):
         y = _rand((2, 3, h, w), hi, dtype, cuda, h * w)
         flat = _rand((1, 2 * h * w + 1), hi, dtype, cuda, h + w)
@@ -214,7 +229,11 @@ def test_fused_siti_narrow_widths_and_short_strips(cuda, dtype, hi, atol, w):
         psi1, pti1 = ck.siti_frames_plain(y[0].cpu())
         torch.testing.assert_close(si1.cpu(), psi1, rtol=1e-4, atol=atol)
         torch.testing.assert_close(ti1.cpu(), pti1, rtol=1e-4, atol=atol)
+        for frames in (y[0], prev):
+            torch.testing.assert_close(ck.si_frames_fused(frames).cpu(),
+                                       ck.si_frames_plain(frames.cpu()), rtol=1e-4, atol=atol)
     assert ck.LAUNCHES["siti_frames_fused_batch"] == ck.LAUNCHES["siti_frames_fused"] == 4
+    assert ck.LAUNCHES["si_frames_fused"] == 8
 
 
 def test_fused_siti_wrappers_raise_instead_of_falling_back(cuda):
@@ -293,3 +312,21 @@ def test_one_gradient_frames_give_si_zero(cuda, dtype, hi):
     for si in (ck.si_frames_fused(y), ck.siti_frames_fused(y)[0],
                ck.siti_frames_fused_batch(y[:, None], y.clone())[0][:, 0]):
         torch.testing.assert_close(si.cpu(), zero, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16])
+def test_constant_gradient_frames_give_si_zero(cuda, dtype):
+    """A flat frame (every gradient 0) and ramps of slope (1, 1), (1, -1)
+    and (2, 0), whose gradients have one magnitude everywhere (8√2 for the
+    first two), have SI exactly 0: Σ|∇| must hold the roots to about double
+    precision over thousands of equal terms (a plain f32 sum leaves
+    σ ≈ 0.005), and a zero gradient must add nothing measurable."""
+    r = torch.arange(120)[:, None]
+    c = torch.arange(130)[None, :]
+    frames = torch.stack([torch.full((120, 130), 77), r + c, r - c + 129,
+                          (2 * r).expand(120, 130)]).to(dtype).to(cuda)
+    zero = torch.zeros(4, dtype=torch.float32)
+    for si in (ck.si_frames_fused(frames), ck.siti_frames_fused(frames)[0],
+               ck.siti_frames_fused_batch(frames[:, None], frames.clone())[0][:, 0]):
+        torch.testing.assert_close(si.cpu(), zero, rtol=0, atol=1e-3)
+    torch.testing.assert_close(ck.si_frames_plain(frames.cpu()), zero, rtol=0, atol=1e-3)

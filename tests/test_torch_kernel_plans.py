@@ -202,15 +202,55 @@ def test_window_starts_recover_clipped_windows():
 def test_siti_partial_buffers_match_the_grid(shape, dtype):
     """The partials siti_partials writes hold one entry per block of its
     grid: ceil(H / 64) row strips x ceil(W / (256 threads x 16 bytes /
-    sample size)) column blocks, for each of the B*T frames."""
+    sample size)) column blocks, for each of the B*T frames; the fused
+    pass writes three int64 sums a block, the SI pass one."""
     b, t, h, w = shape
     size = torch.zeros((), dtype=dtype).element_size()
     cols = 256 * 16 // size
     grid = (-(-h // 64), -(-w // cols))
     assert ck._siti_grid(h, w, size) == grid
-    ps1, pint = ck._siti_partial_buffers(b * t, h, w, size, "cpu")
-    assert ps1.shape == (b * t, grid[0] * grid[1]) and ps1.dtype == torch.float64
-    assert pint.shape == (3, b * t, grid[0] * grid[1]) and pint.dtype == torch.int64
+    for ti, n_int in ((True, 3), (False, 1)):
+        ps1, pint = ck._siti_partial_buffers(b * t, h, w, size, "cpu", ti=ti)
+        assert ps1.shape == (b * t, grid[0] * grid[1]) and ps1.dtype == torch.float64
+        assert pint.shape == (n_int, b * t, grid[0] * grid[1]) and pint.dtype == torch.int64
+
+
+def _strip_walk_counts(h: int, w: int, size: int) -> np.ndarray:
+    """How often csrc/siti.cu's strip walk takes the SI term of each source
+    pixel, replayed in numpy over its grid: block (x, y), thread k owns
+    columns cb = C (256 x + k) .. cb + C - 1 (C = 16 / size) of rows
+    64 y .. min(64 y + 64, H) - 1; a warp whose first column lies at or past
+    W walks nothing, and the others take row r when 1 <= r <= H - 2 and
+    column cb + j when bit j of colmask is set (1 <= cb + j <= W - 2)."""
+    n_ty, n_tx = ck._siti_grid(h, w, size)
+    c = 16 // size
+    k = np.arange(256)
+    lane, j = k % 32, np.arange(c)
+    idx = []
+    for by in range(n_ty):
+        rows = np.arange(by * 64, min(by * 64 + 64, h))
+        rows = rows[(rows >= 1) & (rows <= h - 2)]
+        for bx in range(n_tx):
+            cb = (bx * 256 + k) * c
+            live = (cb - lane * c) < w
+            cols = (cb[live][:, None] + j).ravel()
+            colmask = (cols >= 1) & (cols <= w - 2)
+            idx.append((rows[:, None] * w + cols[colmask][None, :]).ravel())
+    return np.bincount(np.concatenate(idx), minlength=h * w).reshape(h, w)
+
+
+@pytest.mark.parametrize("size", [1, 2])
+@pytest.mark.parametrize("w", [3, 17, 3840, 4097])
+@pytest.mark.parametrize("h", [3, 64, 65, 2160])
+def test_strip_walk_takes_every_interior_pixel_once(h, w, size):
+    """Over (strip, thread, column, colmask) the walk takes each Sobel
+    interior pixel (1 <= r <= H-2, 1 <= c <= W-2) exactly once and no
+    other pixel, so the SI pass's Σ|∇| and Σ(gx²+gy²) cover the
+    (H-2)(W-2) terms that si_frames_plain sums."""
+    counts = _strip_walk_counts(h, w, size)
+    want = np.zeros((h, w), np.int64)
+    want[1:-1, 1:-1] = 1
+    np.testing.assert_array_equal(counts, want)
 
 
 @pytest.mark.parametrize("sms", [16, 132])

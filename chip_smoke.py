@@ -25,11 +25,27 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      the wave journal's slot accounting, each lane's frame count, first
      block (against the plain resize) and SI/TI (against the lane rendered
      alone through pump_ready) are checked; frames/s end to end
-  7. timing of each kernel at the main paths' shapes beside its bound, its
+  7. the downstream render: phase 4's 600-frame clip through pump_ready
+     onto the 3840x2160 60 fps canvas, its quantized chunks left on the
+     card and fed to the fused fan-out (models/fused.FusedFanout): two
+     spinner stalls (600 -> 690 frames, a seeded synthetic RGBA spinner)
+     composited into a stalled-AVPVS sink, a PC context (UYVY 3840x2160
+     at 30 fps, 345 frames), a mobile context (bicubic to 1920x1080) and
+     the preview (422 10-bit); then the staged route (plan_stalling + the
+     monotonic gather + the same compositor) over the same frames, whose
+     checksum and frame count must equal the fused route's; the first
+     stall chunk and each context's first chunk against the port's plain
+     path on the CPU; resize launches against each pipeline's chunk
+     count. Then phase 4's 128-frame yuv420p10le clip with a frame freeze
+     (128 frames kept) into a PC v210 and a mobile context. Frames/s of
+     each route, device ms per 64-frame chunk of the composite and of
+     each transform, peak device bytes
+  8. timing of each kernel at the main paths' shapes beside its bound, its
      plain version and, where one exists, a PyTorch library call
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
-every kernel's numbers and `{"ok": true, "device": {...}}`.
+every kernel's numbers and `{"ok": true, "device": {...}}`. The card
+needs neither PIL nor libav: the spinner is built in numpy.
 """
 
 from __future__ import annotations
@@ -46,10 +62,14 @@ import time
 import numpy as np
 import torch
 
-from processing_chain_tpu_torch.models import avpvs
+from processing_chain_tpu_torch.config.domain import PostProcessing
+from processing_chain_tpu_torch.engine import prefetch as pfe
+from processing_chain_tpu_torch.models import avpvs, fused
+from processing_chain_tpu_torch.models import cpvs as cp
 from processing_chain_tpu_torch.models import frames as fr
 from processing_chain_tpu_torch.ops import _build
 from processing_chain_tpu_torch.ops import cuda_kernels as ck
+from processing_chain_tpu_torch.ops import overlay as ov
 from processing_chain_tpu_torch.parallel import mesh as pmesh
 from processing_chain_tpu_torch.parallel import meshobs, p03_batch, pipeline
 
@@ -61,6 +81,18 @@ FLAGSHIP_FRAMES = 64
 WAVE_CASES = (  # (label, lane lengths, 4-lane mesh on the card?)
     ("production", (600, 250), False),
     ("4lane", (200, 130, 100, 64, 40), True),
+)
+CANVAS_FPS = 60.0
+MOBILE_H, MOBILE_W = 1080, 1920
+# the downstream render's resize geometries, [dtype, max, source, output,
+# kernel, resize_ring?]: the CPVS downscale of the three planes (not a
+# ring plan: 8 taps) and the 420->422 chroma lift, u8 and 10-bit (a ring
+# plan: 2 taps, one of them weighted 0 on the identity width axis)
+DOWNSTREAM_RESIZES = (
+    (torch.uint8, 255, (DST_H, DST_W), (MOBILE_H, MOBILE_W), "bicubic", False),
+    (torch.uint8, 255, (MOBILE_H, MOBILE_W), (MOBILE_H // 2, MOBILE_W // 2), "bicubic", False),
+    (torch.uint8, 255, (DST_H // 2, DST_W // 2), (DST_H, DST_W // 2), "bilinear", True),
+    (torch.uint16, 1023, (DST_H // 2, DST_W // 2), (DST_H, DST_W // 2), "bilinear", True),
 )
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
@@ -210,6 +242,21 @@ def check_kernels(dev) -> dict:
                     f"{name} {dtype} {what}: off by {e}")
             err[name] = max(err[name], e)
         del y, prev, yb, prevb, halo
+    for dtype, hi, (h, w), (dh, dw), kernel, ring in DOWNSTREAM_RESIZES:
+        x = random_frames(gen, (8, h, w), hi, dtype, dev)
+        exact = ck._exact_route(dtype, h, w, dh, dw, kernel)
+        plan = ck._resize_plan(h, w, dh, dw, kernel, exact, x.element_size())
+        what = f"resize {str(dtype)[6:]} {kernel} {h}x{w}->{dh}x{dw} x8"
+        require(plan["ring"] == ring,
+                f"{what}: takes {'resize_ring' if plan['ring'] else 'resize_two_pass'}")
+        a = ck.resize_frames_fused(x, dh, dw, kernel)
+        b = ck.resize_frames_plain(x, dh, dw, kernel)
+        e = max_abs(a, b)
+        log(f"{what} ({'resize_ring' if ring else 'resize_two_pass'}, kh {plan['kh']}, "
+            f"kv {plan['kv']}): max|kernel-plain| = {e}")
+        require(torch.equal(a, b), f"{what}: kernel != plain")
+        err["resize_frames_fused"] = max(err["resize_frames_fused"], e)
+        del x, a, b
     torch.cuda.synchronize()
     return err
 
@@ -303,14 +350,17 @@ def host_breakdown(dev, host_planes, quant_planes) -> dict:
 class HostSink:
     """The writer end of the main path: fetches every quantized chunk to
     pinned host memory on its own stream, on a thread of its own, and folds
-    it into a running checksum. The first chunk's host copy is kept."""
+    it into a running checksum. The host copies of the chunks numbered in
+    `keep` are kept (the first, by default)."""
 
-    def __init__(self, device):
+    def __init__(self, device, keep=(0,)):
         self.stream = torch.cuda.Stream(device)
         self.queue = queue.Queue(maxsize=2)
         self.checksum = 0
         self.frames = 0
-        self.first = None
+        self.chunks = 0
+        self.keep = set(keep)  # chunk indices whose host copy is kept
+        self.kept = {}
         self.error = None
         self.fetch_s = 0.0     # wall time of the device->host copies
         self.checksum_s = 0.0  # wall time of the host checksum
@@ -354,8 +404,13 @@ class HostSink:
         self.fetch_s += t1 - t0
         self.checksum_s += time.perf_counter() - t1
         self.frames += planes[0].shape[0]
-        if self.first is None:
-            self.first = [h.clone() for h in host]
+        if self.chunks in self.keep:
+            self.kept[self.chunks] = [h.clone() for h in host]
+        self.chunks += 1
+
+    @property
+    def first(self):
+        return self.kept.get(0)
 
     def close(self) -> None:
         self.queue.put(None)
@@ -626,7 +681,220 @@ def run_wave(dev, label: str, lengths, four_lanes: bool, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: timing beside the bounds
+# phase 7: the downstream render (stall composite + CPVS transforms)
+# ---------------------------------------------------------------------------
+
+
+def synthetic_spinner(seed: int) -> np.ndarray:
+    """A seeded 128x128 RGBA spinner: a ring whose alpha fades along its
+    circumference (so each rotation phase differs) and whose color is
+    noise, built in numpy so that the smoke needs no PIL."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:128, 0:128] - 63.5
+    ring = np.clip(1.0 - np.abs(np.hypot(yy, xx) - 44.0) / 12.0, 0.0, 1.0)
+    tail = (np.arctan2(yy, xx) + np.pi) / (2 * np.pi)
+    rgba = np.empty((128, 128, 4), np.uint8)
+    rgba[..., :3] = rng.integers(150, 256, (128, 128, 3))
+    rgba[..., 3] = np.round(255 * ring * tail)
+    return rgba
+
+
+def pc_plan(fps: float, ten_bit: bool) -> dict:
+    """`cpvs_plan`'s record for a PC context at the AVPVS's own size."""
+    return {"context": "pc", "fps": float(fps), "normalize": False, "t": None,
+            "vcodec": "v210" if ten_bit else "rawvideo",
+            "pix_fmt": "yuv422p10le" if ten_bit else "uyvy422",
+            "pad": None, "scale": None, "audio": None}
+
+
+def mobile_plan() -> dict:
+    """`cpvs_plan`'s record for a mobile context scaled to 1920x1080."""
+    return {"context": "mobile", "fps": None, "normalize": False, "t": None,
+            "vcodec": "libx264", "pix_fmt": "yuv420p", "crf": 17, "preset": "fast",
+            "profile": "high", "pad": None, "scale": (MOBILE_W, MOBILE_H), "audio": None}
+
+
+def downstream_contexts(ten_bit: bool, pc_fps: float) -> list:
+    """(name, post-processing, plan, resize launches per output chunk) of
+    the two contexts: a PC one on the 3840x2160 canvas at `pc_fps` and a
+    mobile one at 1920x1080."""
+    pc = PostProcessing({"type": "pc", "displayWidth": DST_W, "displayHeight": DST_H,
+                         "codingWidth": DST_W, "codingHeight": DST_H,
+                         "displayFrameRate": pc_fps})
+    mobile = PostProcessing({"type": "mobile", "displayWidth": MOBILE_W,
+                             "displayHeight": MOBILE_H, "codingWidth": MOBILE_W,
+                             "codingHeight": MOBILE_H})
+    return [("pc_v210" if ten_bit else "pc_uyvy", pc, pc_plan(pc_fps, ten_bit), 2),
+            ("mobile", mobile, mobile_plan(), 3)]
+
+
+def fps_frames(n: int, src_fps: float, dst_fps: float) -> int:
+    """Output frames of the `fps=` resample of n frames: every output whose
+    source index is in the stream, padded to round(n / src * dst)."""
+    k = 0
+    while int(np.floor(k / dst_fps * src_fps + 0.5)) <= n - 1:
+        k += 1
+    return max(k, int(round(n / src_fps * dst_fps)))
+
+
+class ListSink:
+    """A writer that keeps what it is given (the CPU checks' pipelines)."""
+
+    def __init__(self):
+        self.chunks = []
+
+    def put(self, planes, recycle=None):
+        self.chunks.append(planes)
+
+    def close(self):
+        pass
+
+
+class Tee:
+    """pump_ready's writer here: keeps each quantized chunk on the card
+    (the staged route reads them again) and feeds it to the fan-out."""
+
+    def __init__(self, fanout):
+        self.fanout = fanout
+        self.chunks = []
+
+    def put(self, planes, recycle=None):
+        self.chunks.append(planes)
+        self.fanout.feed(planes)
+
+
+def run_downstream(dev, label: str, frames: int, pix_fmt: str, events, skipping: bool,
+                   pc_fps: float, preview: bool, want_frames: int) -> dict:
+    ten_bit = "10" in pix_fmt
+    chunk = avpvs.CHUNK
+    src = synthetic_clip(frames, chunk, ten_bit, SEED + frames)  # phase 4's clip
+    rgba = synthetic_spinner(SEED + 5)
+    plan = ov.plan_stalling(frames, CANVAS_FPS, events, skipping=skipping)
+    first_stall = int(np.flatnonzero(plan.stall_mask)[0]) // chunk
+    comp = avpvs.make_stall_compositor(pix_fmt, rgba, skipping, 64, device=dev)
+    contexts = downstream_contexts(ten_bit, pc_fps)
+    stalled = HostSink(dev, keep={0, 1, first_stall})
+    sinks = {name: HostSink(dev) for name, *_ in contexts}
+    pipes = [fused._ContextPipeline(sinks[name], p, pp, pix_fmt, CANVAS_FPS, False, chunk)
+             for name, pp, p, _ in contexts]
+    per_chunk = {name: n for name, _, _, n in contexts}
+    if preview:
+        sinks["preview"] = HostSink(dev)
+        pipes.append(fused._PreviewPipeline(sinks["preview"], pix_fmt))
+        per_chunk["preview"] = 2 if "420" in pix_fmt else 0
+    fan = fused.FusedFanout(pipes, compositor=comp, stall_writer=stalled, fps=CANVAS_FPS,
+                            events=events, skipping=skipping, chunk=chunk)
+    tee = Tee(fan)
+
+    def fused_route():
+        try:
+            avpvs.pump_ready(iter(src), tee, avpvs.SiTiAccumulator(), DST_H, DST_W,
+                             pix_fmt, device=dev)
+            fan.finish_streams()
+        except BaseException:
+            fan.abort()
+            raise
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, launches, seconds = counted(fused_route)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_src = len(src)
+    log(f"downstream {label} fused: {frames} -> {stalled.frames} frames, {seconds:.3f} s, "
+        f"launches {launches}, sinks {[(k, v.frames, v.chunks) for k, v in sinks.items()]}")
+    require(stalled.frames == plan.n_out == want_frames,
+            f"{label}: fused route wrote {stalled.frames} frames, plan {plan.n_out}, "
+            f"want {want_frames}")
+    want_resize = 3 * n_src + sum(per_chunk[k] * sinks[k].chunks for k in sinks)
+    want = launches_want(resize_frames_fused=want_resize, si_frames_fused=n_src,
+                         ti_frames_fused=n_src)
+    require(launches == want, f"{label}: fused launches {launches} != {want}")
+    # the PC context resamples to its display rate; the others keep 1:1
+    want_ctx = {k: want_frames for k in sinks}
+    want_ctx[contexts[0][0]] = fps_frames(want_frames, CANVAS_FPS, pc_fps)
+    got_ctx = {k: v.frames for k, v in sinks.items()}
+    require(got_ctx == want_ctx, f"{label}: context frames {got_ctx} != {want_ctx}")
+
+    # the staged route over the same quantized frames, still on the card
+    staged = HostSink(dev)
+
+    def staged_route():
+        try:
+            avpvs.pump_stalled(pfe.iter_chunk_frames(tee.chunks), plan, comp, staged, chunk)
+        finally:
+            staged.close()
+
+    _, staged_launches, staged_s = counted(staged_route)
+    log(f"downstream {label} staged: {staged.frames} frames, {staged_s:.3f} s, "
+        f"checksum {staged.checksum:016x} (fused {stalled.checksum:016x})")
+    require(staged.frames == stalled.frames and staged.checksum == stalled.checksum,
+            f"{label}: staged and fused stalled streams differ")
+    require(staged_launches == launches_want(), f"{label}: staged launches {staged_launches}")
+
+    # the first stall chunk, composited again through the plain path on the CPU
+    t0 = time.perf_counter()
+    lo = first_stall * chunk
+    sel = plan.src_idx[lo: lo + chunk]
+    gathered = [torch.stack([tee.chunks[k // chunk][p][k % chunk] for k in sel])
+                for p in range(3)]
+    masks = [m[lo: lo + len(sel)] for m in (plan.stall_mask, plan.black_mask, plan.phase)]
+    cpu = avpvs.make_stall_compositor(pix_fmt, rgba, skipping, 64, device="cpu")(
+        [g.cpu() for g in gathered], *masks)
+    require(all(torch.equal(a, b) for a, b in zip(cpu, stalled.kept[first_stall])),
+            f"{label}: stall chunk {first_stall} differs from the CPU composite")
+    del cpu
+    # each context's first chunk: its pipeline on the CPU over the kept
+    # stalled chunks (a 30 fps context needs two)
+    ctx_err = {}
+    for name, pp, p, _ in contexts + ([("preview", None, None, 0)] if preview else []):
+        sink = ListSink()
+        pipe = (fused._PreviewPipeline(sink, pix_fmt) if name == "preview" else
+                fused._ContextPipeline(sink, p, pp, pix_fmt, CANVAS_FPS, False, chunk))
+        for k in (0, 1):
+            if not sink.chunks:
+                pipe.feed(stalled.kept[k])
+        got, ref = sinks[name].first, sink.chunks[0]
+        ctx_err[name] = max(max_abs(a, b) for a, b in zip(got, ref))
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"{label}: {name}'s first chunk differs from its CPU transform ({ctx_err[name]})")
+    cpu_check_s = time.perf_counter() - t0
+
+    # device ms per 64-frame chunk, the chunk resident: the composite of
+    # the first stall chunk, and each transform of the first stalled chunk
+    composite_ms = time_ms(lambda: comp(gathered, *masks), reps=3)
+    resident = [h.to(dev) for h in stalled.kept[0]]
+    transform_ms = {}
+    for name, pp, p, _ in contexts:
+        tf = cp.make_cpvs_transform(p, pp, pix_fmt, False)
+        transform_ms[name] = time_ms(lambda: tf(resident), reps=3)
+    if preview:
+        tf = cp.make_preview_transform(pix_fmt)
+        transform_ms["preview"] = time_ms(lambda: tf(resident), reps=3)
+    result = {
+        "label": label, "pix_fmt": pix_fmt, "events": events, "skipping": skipping,
+        "source_frames": frames, "stalled_frames": stalled.frames,
+        "context_frames": got_ctx,
+        "fused_seconds": seconds, "fused_frames_per_s": stalled.frames / seconds,
+        "staged_seconds": staged_s, "staged_frames_per_s": staged.frames / staged_s,
+        "composite_ms_per_chunk": composite_ms, "transform_ms_per_chunk": transform_ms,
+        "peak_device_bytes": peak, "launches": launches, "staged_launches": staged_launches,
+        "checksum": f"{stalled.checksum:016x}", "first_stall_chunk": first_stall,
+        "context_first_chunk_max_err": ctx_err, "cpu_check_s": cpu_check_s,
+        "sink_fetch_s": {k: v.fetch_s for k, v in [("stalled", stalled), *sinks.items()]},
+        "sink_checksum_s": {k: v.checksum_s for k, v in [("stalled", stalled), *sinks.items()]},
+    }
+    log(f"downstream {label}: fused {result['fused_frames_per_s']:.2f} frames/s end to end "
+        f"(pump_ready, composite, {len(pipes)} pipelines, {len(sinks) + 1} sinks), staged "
+        f"{result['staged_frames_per_s']:.2f} frames/s (gather, composite, one sink); device "
+        f"ms per {chunk}-frame chunk: composite {composite_ms:.3f}, transforms "
+        f"{json.dumps(transform_ms)}; peak device bytes {peak}; CPU checks {cpu_check_s:.1f} s")
+    del tee, gathered, resident, fan, pipes
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timing beside the bounds
 # ---------------------------------------------------------------------------
 
 
@@ -646,34 +914,49 @@ def time_kernels(dev) -> dict:
     t = avpvs.CHUNK
     out = {}
 
-    # resize: the three plane calls of one 64-frame chunk, bicubic (the
-    # seam's and the waves' method) and lanczos (the flagship step's)
-    planes = [random_frames(gen, s, 255, torch.uint8, dev) for s in plane_shapes(t)]
-    dims = [(DST_H, DST_W), (DST_H // 2, DST_W // 2), (DST_H // 2, DST_W // 2)]
-    floats = [p.to(torch.float32)[:, None] for p in planes]
-    rows = {}
-    for method in ("bicubic", "lanczos"):
+    def resize_row(planes, dims, method, per):
+        """One row: the plane calls of one chunk through each route."""
+        floats = [p.to(torch.float32)[:, None] for p in planes]
         bytes_moved = ops = 0
         for p, (dh, dw) in zip(planes, dims):
             _, h, w = p.shape
             plan = ck._resize_plan(h, w, dh, dw, method, True, 1)
             bytes_moved += t * (h * w + dh * dw)
             ops += 2 * t * (h * dw * plan["kh"] + dh * dw * plan["kv"])
-        rows[method] = dict(
+        row = dict(
             zip(("bound_ms", "bound_by"), bound(bytes_moved, (ops, INT32_OPS_S))),
             ms=time_ms(lambda: [ck.resize_frames_fused(p, h, w, method)
                                 for p, (h, w) in zip(planes, dims)], reps=10),
             plain_ms=time_ms(lambda: [ck.resize_frames_plain(p, h, w, method)
                                       for p, (h, w) in zip(planes, dims)], reps=2),
-            # F.interpolate has no lanczos: its bicubic is the yardstick for both
+            # F.interpolate has no lanczos: its bicubic is the yardstick for all
             library_ms=time_ms(lambda: [F.interpolate(f, size=(h, w), mode="bicubic")
                                         for f, (h, w) in zip(floats, dims)], reps=3),
             library_call="torch.nn.functional.interpolate(bicubic, f32) per plane",
-            per="one 64-frame yuv420p chunk: Y 1080x1920->2160x3840, U and V "
-                f"540x960->1080x1920, u8 {method}",
+            per=per,
         )
-    out["resize_frames_fused"] = dict(rows["bicubic"], lanczos=rows["lanczos"])
-    del planes, floats
+        del floats
+        torch.cuda.empty_cache()
+        return row
+
+    # resize: the three plane calls of one 64-frame chunk, bicubic (the
+    # seam's and the waves' method) and lanczos (the flagship step's), and
+    # the mobile CPVS downscale of one 2160p chunk (phase 7)
+    planes = [random_frames(gen, s, 255, torch.uint8, dev) for s in plane_shapes(t)]
+    dims = [(DST_H, DST_W), (DST_H // 2, DST_W // 2), (DST_H // 2, DST_W // 2)]
+    rows = {method: resize_row(planes, dims, method,
+                               "one 64-frame yuv420p chunk: Y 1080x1920->2160x3840, U and V "
+                               f"540x960->1080x1920, u8 {method}")
+            for method in ("bicubic", "lanczos")}
+    planes = [random_frames(gen, (t, h, w), 255, torch.uint8, dev) for h, w in dims]
+    rows["cpvs_downscale"] = resize_row(
+        planes, [(MOBILE_H, MOBILE_W), (MOBILE_H // 2, MOBILE_W // 2),
+                 (MOBILE_H // 2, MOBILE_W // 2)], "bicubic",
+        "one 64-frame 2160p yuv420p chunk to the mobile CPVS: Y 2160x3840->1080x1920, "
+        "U and V 1080x1920->540x960, u8 bicubic")
+    out["resize_frames_fused"] = dict(rows["bicubic"], lanczos=rows["lanczos"],
+                                      cpvs_downscale=rows["cpvs_downscale"])
+    del planes
     torch.cuda.empty_cache()
 
     # SI and TI: one 64-frame 2160x3840 u8 luma chunk, TI with a predecessor
@@ -737,6 +1020,7 @@ def time_kernels(dev) -> dict:
     )
     for name, r in list(out.items()) + [
             ("resize_frames_fused lanczos", out["resize_frames_fused"]["lanczos"]),
+            ("resize_frames_fused cpvs_downscale", out["resize_frames_fused"]["cpvs_downscale"]),
             ("si_frames_fused u16", out["si_frames_fused"]["u16"])]:
         sep = f", separate SI + TI kernels {r['separate_ms']:.4f} ms" if "separate_ms" in r else ""
         prev_design = (f", previous design {PREVIOUS[name]['previous_ms']} ms "
@@ -776,11 +1060,20 @@ def main() -> int:
              for label, lengths, four in WAVE_CASES}
     log(f"wave render (production mesh): {waves['production']['frames_per_s']:.2f} frames/s "
         f"beside pump_ready {main8['frames_per_s']:.2f} frames/s, same run")
+    downstream = {
+        "u8": run_downstream(dev, "u8 stall", CLIP_FRAMES, "yuv420p", [[2.0, 1.0], [7.5, 0.5]],
+                             False, pc_fps=30.0, preview=True, want_frames=690),
+        "10bit": run_downstream(dev, "10-bit freeze", CLIP_FRAMES_10BIT, "yuv420p10le",
+                                [[0.5, 0.4]], True, pc_fps=CANVAS_FPS, preview=False,
+                                want_frames=CLIP_FRAMES_10BIT),
+    }
     timing = time_kernels(dev)
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
-             **{f"wave_{k}": v["launches"] for k, v in waves.items()}}
+             **{f"wave_{k}": v["launches"] for k, v in waves.items()},
+             **{f"downstream_{k}": v["launches"] for k, v in downstream.items()},
+             **{f"staged_stall_{k}": v["staged_launches"] for k, v in downstream.items()}}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
@@ -802,7 +1095,7 @@ def main() -> int:
             **timing[name],
         })
     log(json.dumps({"main_path": [main8, main10], "flagship": flagship,
-                    "waves": waves, "card": smi}))
+                    "waves": waves, "downstream": downstream, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ copy). Entry points run on `cuda:0` unless the caller passes a device.
 
 Ported so far: the p03 AVPVS device render (canvas resize of Y/U/V,
 container-depth quantize, per-frame SI/TI sidecar), the batched wave
-render on one device (parallel/p03_batch.run_bucket) and the flagship
-step (parallel/pipeline.avpvs_siti_step), with a hand-written CUDA kernel
-for each of the five TPU kernels (ops/cuda_kernels.py).
+render on one device (parallel/p03_batch.run_bucket), the flagship step
+(parallel/pipeline.avpvs_siti_step), the stalling pass and the device
+half of p04 (ops/overlay, models/cpvs, models/fused), with a
+hand-written CUDA kernel for each of the five TPU kernels
+(ops/cuda_kernels.py).
 """

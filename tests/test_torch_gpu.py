@@ -330,3 +330,148 @@ def test_constant_gradient_frames_give_si_zero(cuda, dtype):
                ck.siti_frames_fused_batch(frames[:, None], frames.clone())[0][:, 0]):
         torch.testing.assert_close(si.cpu(), zero, rtol=0, atol=1e-3)
     torch.testing.assert_close(ck.si_frames_plain(frames.cpu()), zero, rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the downstream render: stall composite, CPVS transforms, fused fan-out
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("geom,kernel,ring", [
+    ((2160, 3840, 1080, 1920), "bicubic", False),   # the mobile CPVS downscale, Y
+    ((1080, 1920, 540, 960), "bicubic", False),     # ... U and V
+    ((45, 80, 90, 80), "bilinear", True),           # 420->422: identity width axis
+    ((1080, 1920, 2160, 1920), "bilinear", True),
+])
+@pytest.mark.parametrize("dtype,hi", [(torch.uint8, 255), (torch.uint16, 1023)])
+def test_resize_kernel_downstream_geometries_equal_plain(cuda, geom, kernel, ring, dtype, hi):
+    sh, sw, dh, dw = geom
+    x = _rand((2, sh, sw), hi, dtype, cuda, sh + dw)
+    exact = ck._exact_route(dtype, sh, sw, dh, dw, kernel)
+    assert ck._resize_plan(sh, sw, dh, dw, kernel, exact, x.element_size())["ring"] == ring
+    out = ck.resize_frames_fused(x, dh, dw, kernel)
+    assert torch.equal(out.cpu(), ck.resize_frames_plain(x.cpu(), dh, dw, kernel))
+    assert ck.LAUNCHES["resize_frames_fused"] == 1
+
+
+def _yuv(shape_hw, pix_fmt, t, device, seed):
+    h, w = shape_hw
+    hi, dtype = (1023, torch.uint16) if "10" in pix_fmt else (255, torch.uint8)
+    sub_h = 2 if "420" in pix_fmt else 1
+    return [_rand(s, hi, dtype, device, seed + k)
+            for k, s in enumerate(((t, h, w), (t, h // sub_h, w // 2), (t, h // sub_h, w // 2)))]
+
+
+@pytest.mark.parametrize("pix_fmt", ["yuv420p", "yuv420p10le", "yuv422p"])
+@pytest.mark.parametrize("skipping", [False, True])
+def test_stall_compositor_cuda_equals_cpu(cuda, pix_fmt, skipping):
+    from processing_chain_tpu_torch.ops import overlay as ov
+
+    planes = _yuv((90, 160), pix_fmt, 12, cuda, 40)
+    plan = ov.plan_stalling(12, 10.0, [[0.1, 0.3]] if skipping else [[0.4, 0.5]],
+                            skipping=skipping)
+    idx = torch.from_numpy(plan.src_idx.astype(np.int64)).to(cuda)
+    gathered = [torch.index_select(p, 0, idx) for p in planes]
+    rgba = np.random.default_rng(7).integers(0, 256, (128, 128, 4)).astype(np.uint8)
+    masks = (plan.stall_mask, plan.black_mask, plan.phase)
+    got = avpvs.make_stall_compositor(pix_fmt, rgba, skipping, 64, device=cuda)(gathered, *masks)
+    want = avpvs.make_stall_compositor(pix_fmt, rgba, skipping, 64, device="cpu")(
+        [g.cpu() for g in gathered], *masks)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert ck.LAUNCHES == {name: 0 for name in ck.LAUNCHES}
+
+
+_PC = {"type": "pc", "displayWidth": 160, "displayHeight": 90, "codingWidth": 160,
+       "codingHeight": 90, "displayFrameRate": 30}
+_PC_PAD = {**_PC, "displayWidth": 192, "displayHeight": 108, "codingWidth": 192,
+           "codingHeight": 108}
+_MOBILE = {"type": "mobile", "displayWidth": 80, "displayHeight": 46, "codingWidth": 80,
+           "codingHeight": 46}
+_MOBILE_PAD = {"type": "tablet", "displayWidth": 160, "displayHeight": 120,
+               "codingWidth": 160, "codingHeight": 100}
+
+
+def _plan(pp, pad):
+    base = {"fps": None, "normalize": False, "t": None, "scale": None, "audio": None}
+    if pp["type"] == "pc":
+        return {**base, "context": "pc", "fps": 30.0,
+                "pad": (pp["displayWidth"], pp["displayHeight"]) if pad else None}
+    return {**base, "context": "mobile",
+            "pad": (pp["displayWidth"], pp["displayHeight"]) if pad else None}
+
+
+@pytest.mark.parametrize("pp,pad,rawvideo", [
+    (_PC, False, False), (_PC, False, True), (_PC_PAD, True, False),
+    (_MOBILE, False, False), (_MOBILE_PAD, True, False),
+])
+@pytest.mark.parametrize("pix_fmt", ["yuv420p", "yuv420p10le"])
+def test_cpvs_transforms_cuda_equal_cpu(cuda, pp, pad, rawvideo, pix_fmt):
+    from processing_chain_tpu_torch.config.domain import PostProcessing
+    from processing_chain_tpu_torch.models import cpvs
+
+    planes = _yuv((90, 160), pix_fmt, 5, cuda, 60)
+    for tf in (cpvs.make_cpvs_transform(_plan(pp, pad), PostProcessing(pp), pix_fmt, rawvideo),
+               cpvs.make_preview_transform(pix_fmt)):
+        got = tf(planes)
+        want = tf([p.cpu() for p in planes])
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_fused_fanout_cuda_equals_cpu(cuda):
+    """pump_ready's quantized chunks through the fused fan-out on the card
+    (composited chunks never leave it) against the same on the CPU, and
+    the staged route on the card against the fused one."""
+    from processing_chain_tpu_torch.config.domain import PostProcessing
+    from processing_chain_tpu_torch.engine import prefetch as pfe
+    from processing_chain_tpu_torch.models import fused
+    from processing_chain_tpu_torch.ops import overlay as ov
+
+    class Keep:
+        def __init__(self):
+            self.chunks, self.closed = [], 0
+
+        def put(self, planes, recycle=None):
+            self.chunks.append([p.cpu() for p in planes])
+
+        def close(self):
+            self.closed += 1
+
+    rng = np.random.default_rng(8)
+    src = [[rng.integers(0, 256, s).astype(np.uint8) for s in ((8, 45, 80), (8, 22, 40), (8, 22, 40))]
+           for _ in range(3)]
+    rgba = rng.integers(0, 256, (128, 128, 4)).astype(np.uint8)
+    events = [[0.1, 0.1], [0.3, 0.05]]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        comp = avpvs.make_stall_compositor("yuv420p", rgba, False, 64, device=dev)
+        stall_w, pc_w, mob_w = Keep(), Keep(), Keep()
+        pipes = [fused._ContextPipeline(pc_w, _plan(_PC, False), PostProcessing(_PC),
+                                        "yuv420p", 60.0, False, 8),
+                 fused._ContextPipeline(mob_w, _plan(_MOBILE, False), PostProcessing(_MOBILE),
+                                        "yuv420p", 60.0, False, 8)]
+        fan = fused.FusedFanout(pipes, compositor=comp, stall_writer=stall_w, fps=60.0,
+                                events=events, chunk=8)
+        kept = []
+
+        class Tee:
+            def put(self, planes, recycle=None):
+                kept.append(planes)
+                fan.feed(planes)
+
+        avpvs.pump_ready(iter(src), Tee(), avpvs.SiTiAccumulator(), 90, 160, "yuv420p",
+                         device=dev)
+        fan.finish_streams()
+        staged = Keep()
+        plan = ov.plan_stalling(24, 60.0, events)
+        avpvs.pump_stalled(pfe.iter_chunk_frames(kept), plan, comp, staged, 8)
+        runs[dev.type] = (stall_w, pc_w, mob_w, staged)
+    for a_w, b_w in zip(runs["cuda"], runs["cpu"]):
+        assert len(a_w.chunks) == len(b_w.chunks) > 0
+        for a, b in zip(a_w.chunks, b_w.chunks):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    stalled, staged = runs["cuda"][0], runs["cuda"][3]
+    assert all(torch.equal(x, y) for a, b in zip(stalled.chunks, staged.chunks) for x, y in zip(a, b))
+    assert sum(c[0].shape[0] for c in stalled.chunks) == 24 + 9

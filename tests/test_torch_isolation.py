@@ -54,7 +54,13 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.engine.prefetch",
                 "processing_chain_tpu_torch.parallel.mesh",
                 "processing_chain_tpu_torch.parallel.meshobs",
-                "processing_chain_tpu_torch.parallel.p03_batch"):
+                "processing_chain_tpu_torch.parallel.p03_batch",
+                "processing_chain_tpu_torch.ops.overlay",
+                "processing_chain_tpu_torch.ops.pad",
+                "processing_chain_tpu_torch.ops.pixfmt",
+                "processing_chain_tpu_torch.config.domain",
+                "processing_chain_tpu_torch.models.cpvs",
+                "processing_chain_tpu_torch.models.fused"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

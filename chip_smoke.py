@@ -4,11 +4,15 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure (a non-zero exit, and no result line):
-  1. device: CUDA must be present; prints the card's name and power limit
+  1. device: CUDA must be present; prints the card's name and power limit,
+     and, for information only, whether libavcodec.so.59 loads and which
+     libav headers exist
   2. build: compiles csrc/*.cu with nvcc (one process per source, all at
      once) and prints each kernel's registers, shared memory and spills
   3. kernel vs plain torch version at the main paths' shapes (the fused
-     SI+TI kernels also against the separate SI and TI kernels)
+     SI+TI kernels also against the separate SI and TI kernels; the resize
+     also at the downstream render's geometries and at p01's quality
+     ladder from 2160p, each on the route its plan names)
   4. the p03 device seam: a seeded synthetic 600-frame 1920x1080 yuv420p
      clip through models.avpvs.pump_ready onto a 3840x2160 canvas in
      64-frame chunks, then a 128-frame yuv420p10le clip; launch counts,
@@ -41,7 +45,10 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      each route, device ms per 64-frame chunk of the composite and of
      each transform, peak device bytes
   8. timing of each kernel at the main paths' shapes beside its bound, its
-     plain version and, where one exists, a PyTorch library call
+     plain version and, where one exists, a PyTorch library call (for the
+     resize also the antialiased call, as information); the resize also at
+     the mobile CPVS downscale and at the 640x360 and 320x180 ladder levels
+     of a 2160p chunk
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -85,14 +92,23 @@ WAVE_CASES = (  # (label, lane lengths, 4-lane mesh on the card?)
 CANVAS_FPS = 60.0
 MOBILE_H, MOBILE_W = 1080, 1920
 # the downstream render's resize geometries, [dtype, max, source, output,
-# kernel, resize_ring?]: the CPVS downscale of the three planes (not a
-# ring plan: 8 taps) and the 420->422 chroma lift, u8 and 10-bit (a ring
-# plan: 2 taps, one of them weighted 0 on the identity width axis)
+# kernel, resize_ring?]: the CPVS downscale of the three planes
+# (resize_stream: 8 taps) and the 420->422 chroma lift, u8 and 10-bit (a
+# ring plan: 2 taps, one of them weighted 0 on the identity width axis);
+# then p01's quality ladder from a 2160p yuv420p source to 1280x720,
+# 640x360 and 320x180 (resize_stream: 11, 24 and 48 bicubic taps a pass;
+# 70 for lanczos), luma and chroma, and one 10-bit plane
+LADDER = ((720, 1280), (360, 640), (180, 320))
 DOWNSTREAM_RESIZES = (
     (torch.uint8, 255, (DST_H, DST_W), (MOBILE_H, MOBILE_W), "bicubic", False),
     (torch.uint8, 255, (MOBILE_H, MOBILE_W), (MOBILE_H // 2, MOBILE_W // 2), "bicubic", False),
     (torch.uint8, 255, (DST_H // 2, DST_W // 2), (DST_H, DST_W // 2), "bilinear", True),
     (torch.uint16, 1023, (DST_H // 2, DST_W // 2), (DST_H, DST_W // 2), "bilinear", True),
+    *((torch.uint8, 255, (DST_H, DST_W), (h, w), "bicubic", False) for h, w in LADDER),
+    *((torch.uint8, 255, (DST_H // 2, DST_W // 2), (h // 2, w // 2), "bicubic", False)
+      for h, w in LADDER),
+    (torch.uint8, 255, (DST_H, DST_W), LADDER[2], "lanczos", False),
+    (torch.uint16, 1023, (DST_H, DST_W), LADDER[1], "bicubic", False),
 )
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
@@ -115,6 +131,7 @@ TI_OPS_PER_PX = 4   # difference, square, two sums
 _PREV_SRC = "PERF.md kernel table, previous design"
 PREVIOUS = {
     "resize_frames_fused": {"previous_ms": 3.6221, "previous_from": _PREV_SRC},
+    "resize_frames_fused cpvs_downscale": {"previous_ms": 19.0104, "previous_from": _PREV_SRC},
     "si_frames_fused": {"previous_ms": 1.8736, "previous_from": _PREV_SRC},
     "siti_frames_fused_batch": {"previous_ms": 1.7771, "previous_from": _PREV_SRC},
     "siti_frames_fused": {"previous_ms": 1.7725, "previous_from": _PREV_SRC},
@@ -248,12 +265,14 @@ def check_kernels(dev) -> dict:
         plan = ck._resize_plan(h, w, dh, dw, kernel, exact, x.element_size())
         what = f"resize {str(dtype)[6:]} {kernel} {h}x{w}->{dh}x{dw} x8"
         require(plan["ring"] == ring,
-                f"{what}: takes {'resize_ring' if plan['ring'] else 'resize_two_pass'}")
+                f"{what}: takes {'resize_ring' if plan['ring'] else 'resize_stream'}")
         a = ck.resize_frames_fused(x, dh, dw, kernel)
         b = ck.resize_frames_plain(x, dh, dw, kernel)
         e = max_abs(a, b)
-        log(f"{what} ({'resize_ring' if ring else 'resize_two_pass'}, kh {plan['kh']}, "
-            f"kv {plan['kv']}): max|kernel-plain| = {e}")
+        route = "resize_ring" if ring else (
+            f"resize_stream, {plan['tile_w']}x{plan['tile_h']} tiles, "
+            f"{plan['smem_bytes']} B shared")
+        log(f"{what} ({route}, kh {plan['kh']}, kv {plan['kv']}): max|kernel-plain| = {e}")
         require(torch.equal(a, b), f"{what}: kernel != plain")
         err["resize_frames_fused"] = max(err["resize_frames_fused"], e)
         del x, a, b
@@ -915,7 +934,11 @@ def time_kernels(dev) -> dict:
     out = {}
 
     def resize_row(planes, dims, method, per):
-        """One row: the plane calls of one chunk through each route."""
+        """One row: the plane calls of one chunk through each route. The
+        bound is the larger of the bytes (each input read once, each
+        output written once) and the int32 multiply-adds of both passes
+        (kh taps for each source row of each output column, kv for each
+        output sample); both are kept."""
         floats = [p.to(torch.float32)[:, None] for p in planes]
         bytes_moved = ops = 0
         for p, (dh, dw) in zip(planes, dims):
@@ -925,6 +948,8 @@ def time_kernels(dev) -> dict:
             ops += 2 * t * (h * dw * plan["kh"] + dh * dw * plan["kv"])
         row = dict(
             zip(("bound_ms", "bound_by"), bound(bytes_moved, (ops, INT32_OPS_S))),
+            bound_bytes_ms=bound(bytes_moved)[0],
+            bound_ops_ms=bound(0, (ops, INT32_OPS_S))[0],
             ms=time_ms(lambda: [ck.resize_frames_fused(p, h, w, method)
                                 for p, (h, w) in zip(planes, dims)], reps=10),
             plain_ms=time_ms(lambda: [ck.resize_frames_plain(p, h, w, method)
@@ -935,6 +960,15 @@ def time_kernels(dev) -> dict:
             library_call="torch.nn.functional.interpolate(bicubic, f32) per plane",
             per=per,
         )
+        # for information: the antialiased call, which filters a downscale
+        # as the swscale plans do (not the yardstick: it may be refused)
+        try:
+            row["library_antialias_ms"] = time_ms(
+                lambda: [F.interpolate(f, size=(h, w), mode="bicubic", antialias=True)
+                         for f, (h, w) in zip(floats, dims)], reps=3)
+        except (RuntimeError, NotImplementedError) as exc:
+            row["library_antialias_ms"] = None
+            row["library_antialias_refused"] = f"{type(exc).__name__}: {exc}"[:300]
         del floats
         torch.cuda.empty_cache()
         return row
@@ -954,8 +988,14 @@ def time_kernels(dev) -> dict:
                  (MOBILE_H // 2, MOBILE_W // 2)], "bicubic",
         "one 64-frame 2160p yuv420p chunk to the mobile CPVS: Y 2160x3840->1080x1920, "
         "U and V 1080x1920->540x960, u8 bicubic")
-    out["resize_frames_fused"] = dict(rows["bicubic"], lanczos=rows["lanczos"],
-                                      cpvs_downscale=rows["cpvs_downscale"])
+    # p01's quality ladder: the same 2160p chunk to 640x360 and 320x180
+    for h, w in LADDER[1:]:
+        rows[f"ladder_{w}x{h}"] = resize_row(
+            planes, [(h, w), (h // 2, w // 2), (h // 2, w // 2)], "bicubic",
+            f"one 64-frame 2160p yuv420p chunk to the {w}x{h} quality level: Y "
+            f"2160x3840->{h}x{w}, U and V 1080x1920->{h // 2}x{w // 2}, u8 bicubic")
+    out["resize_frames_fused"] = dict(rows["bicubic"], **{
+        k: v for k, v in rows.items() if k != "bicubic"})
     del planes
     torch.cuda.empty_cache()
 
@@ -1019,16 +1059,39 @@ def time_kernels(dev) -> dict:
         **conv,
     )
     for name, r in list(out.items()) + [
-            ("resize_frames_fused lanczos", out["resize_frames_fused"]["lanczos"]),
-            ("resize_frames_fused cpvs_downscale", out["resize_frames_fused"]["cpvs_downscale"]),
+            (f"resize_frames_fused {k}", out["resize_frames_fused"][k])
+            for k in ("lanczos", "cpvs_downscale", "ladder_640x360", "ladder_320x180")] + [
             ("si_frames_fused u16", out["si_frames_fused"]["u16"])]:
         sep = f", separate SI + TI kernels {r['separate_ms']:.4f} ms" if "separate_ms" in r else ""
         prev_design = (f", previous design {PREVIOUS[name]['previous_ms']} ms "
                        f"({PREVIOUS[name]['previous_from']})" if name in PREVIOUS else "")
+        both = (f"; bytes {r['bound_bytes_ms']:.4f} ms, operations {r['bound_ops_ms']:.4f} ms"
+                if "bound_ops_ms" in r else "")
+        aa = (f", antialiased library {r['library_antialias_ms']} ms"
+              f"{' (' + r['library_antialias_refused'] + ')' if 'library_antialias_refused' in r else ''}"
+              if "library_antialias_ms" in r else "")
         log(f"timing {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms']} ms{sep}{prev_design} — {r['per']}")
+            f"({r['bound_by']}{both}), plain {r['plain_ms']:.3f} ms, "
+            f"library {r['library_ms']} ms{aa}{sep}{prev_design} — {r['per']}")
     return out
+
+
+def libav_probe() -> str:
+    """Whether the native media layer's libav could load here: does
+    libavcodec.so.59 open, and which libav headers exist. Printed for the
+    record; nothing depends on it."""
+    import ctypes
+    import glob
+
+    try:
+        ctypes.CDLL("libavcodec.so.59")
+        lib = "libavcodec.so.59 loads"
+    except OSError as exc:
+        lib = f"libavcodec.so.59 does not load ({exc})"
+    heads = sorted(glob.glob("/usr/include/libavcodec/avcodec.h")
+                   + glob.glob("/usr/include/*/libavcodec/avcodec.h")
+                   + glob.glob("/usr/local/include/libavcodec/avcodec.h"))
+    return f"{lib}; libav headers: {heads if heads else 'none found'}"
 
 
 def main() -> int:
@@ -1036,13 +1099,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    # chainlint: disable=subprocess-hygiene (one read-only nvidia-smi query with a timeout; check=True fails the run)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
+        capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(smi)
+    log(f"libav (information only): {libav_probe()}")
 
     t0 = time.perf_counter()
     _build.build()

@@ -38,6 +38,7 @@ class BuildError(RuntimeError):
 
 
 def nvcc_path() -> str:
+    # chainlint: disable=plan-purity (where the compiler lives: the library is keyed by its source and flags, and no artifact of the chain holds its bytes)
     for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
         if root:
@@ -74,6 +75,7 @@ def build(names=SOURCES) -> dict:
     procs = {}
     for name, path in missing.items():
         tmp = f"{path}.{os.getpid()}.tmp"
+        # chainlint: disable=subprocess-hygiene (one nvcc per source, all running at once; each one's output is read to its end and a refusal raises BuildError with it)
         procs[name] = (tmp, path, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, _source(name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

@@ -38,8 +38,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "resize": {
         "pc_resize_frames": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P,
-                             _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I,
+                             _P, _I, _I, _P],
     },
     "siti": {
         "pc_si_partials": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -49,19 +49,27 @@ _SIGNATURES = {
 }
 
 _INT_TYPES = (torch.uint8, torch.uint16)
-_RESIZE_TILE_W = 256  # output columns per tile: 32 threads x 8 (csrc/resize.cu TILE_W)
-# Shared memory per tile and frame: the row tile's source rows x the column
-# tile's source window, twice (double buffer), plus, in resize_two_pass,
-# the [rows, 256] int32 (exact) or f32 intermediate and the tap tables
-# (resize_ring keeps the intermediate in registers and needs less). The
-# tallest row tile whose resize_two_pass total fits a block is taken.
+# csrc/resize.cu. resize_ring (kh == kv in _RESIZE_RING_TAPS) takes 256-column
+# tiles, 32 lanes x 8 columns, and stages its row tile's source rows x the
+# column tile's source window twice (double buffer over frames): the
+# tallest row tile that fits a block is taken. resize_stream (every other
+# plan) takes the widest column tile, then the tallest row tile, whose
+# shared memory (the staged source rows, a ring of kv + 1 intermediate
+# rows, the tap tables) fits _RESIZE_STREAM_SMEM_TARGET,
+# so several one-warp blocks share an SM; failing that, one that fits a
+# block at all.
+_RESIZE_TILE_W = 256  # resize_ring's output columns per tile (csrc/resize.cu TILE_W)
+_RESIZE_STREAM_TILE_WS = (256, 128, 64, 32)
+# resize_stream stages source rows in groups of _RESIZE_STREAM_BATCH, a ring
+# of _RESIZE_STREAM_NBUF groups, each with an mbarrier (csrc/resize.cu)
+_RESIZE_STREAM_BATCH = 4
+_RESIZE_STREAM_NBUF = 3
+_RESIZE_STREAM_SMEM_TARGET = 32 * 1024
 _RESIZE_SMEM_MAX = 227 * 1024
 _RESIZE_TILE_HS = (64, 32, 16, 8, 4, 2, 1)
 _RESIZE_RING_TAPS = (2, 4, 6)  # kh == kv in these: resize_ring
-# grid: a few waves of the card's SMs, in 8-warp blocks (resize_two_pass)
-# or one-warp blocks (resize_ring)
-_RESIZE_BLOCKS_PER_SM = 8
-_RESIZE_RING_BLOCKS_PER_SM = 32
+# grid: a few waves of the card's SMs in one-warp blocks (both kernels)
+_RESIZE_BLOCKS_PER_SM = 32
 _RESIZE_MIN_FRAMES = 2  # frames each block walks at least (taps loaded once)
 _TI_BLOCKS = 64         # blocks per frame pair
 _SITI_STRIP_ROWS = 64     # owned source rows per block (csrc/siti.cu ST_ROWS)
@@ -179,77 +187,169 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _resize_smem_bytes(rn, sw, elem, tile_h, kv, kh) -> int:
-    """Dynamic shared memory of one block, region by region as
-    csrc/resize.cu `layout` lays it out: two source buffers, the 4-byte
-    intermediate, vertical coefficients, horizontal coefficients,
-    vertical window starts."""
-    return (2 * rn * sw * elem + rn * _RESIZE_TILE_W * 4
-            + _round_up(tile_h * kv * 4, 16) + _round_up(_RESIZE_TILE_W * kh * 4, 16)
+def _ring_tile_bytes(rn, sw, elem, tile_h, k) -> int:
+    """The budget resize_ring's row tiles are sized by (the former two-pass
+    kernel's total: the staged rows twice, a [rn, 256] 4-byte intermediate, the
+    tap tables), kept so that the ring's plans stay as measured: a taller
+    tile would hold more of a block's shared memory and fewer blocks an
+    SM."""
+    return (2 * rn * sw * elem + rn * _RESIZE_TILE_W * 4 + _round_up(tile_h * k * 4, 16)
+            + _round_up(_RESIZE_TILE_W * k * 4, 16) + _round_up(tile_h * 4, 16))
+
+
+def _ring_smem_bytes(rn, sw, elem, tile_h, k) -> int:
+    """resize_ring's dynamic shared memory (csrc/resize.cu launch_ring):
+    two source buffers of rn x sw samples, vertical coefficients, vertical
+    window ends."""
+    return (2 * _round_up(rn * sw * elem, 16) + _round_up(tile_h * k * 4, 16)
             + _round_up(tile_h * 4, 16))
+
+
+def _stream_smem_bytes(sw, elem, tile_w, tile_h, kv, kp, exact) -> int:
+    """resize_stream's dynamic shared memory, region by region as
+    csrc/resize.cu `stream_layout` lays it out: the staged source rows
+    (groups of _RESIZE_STREAM_BATCH, _RESIZE_STREAM_NBUF groups),
+    the ring of kv + 1 intermediate rows (4 bytes a sample; two rows are
+    written a step), the horizontal coefficients (kp taps, int16 on the
+    exact route, f32 otherwise), the vertical coefficients, the vertical
+    window ends, one mbarrier a staging group."""
+    stages = _RESIZE_STREAM_BATCH * _RESIZE_STREAM_NBUF
+    return (_round_up(stages * sw * elem, 16) + (kv + 1) * tile_w * 4
+            + kp * tile_w * (2 if exact else 4)
+            + _round_up(tile_h * kv * 4, 16) + _round_up(tile_h * 4, 16)
+            + _round_up(_RESIZE_STREAM_NBUF * 8, 16))
+
+
+def _stream_group_unroll(tile_w: int) -> int:
+    """resize_stream's 4-tap groups per step of its tap loop at tile_w
+    columns (tile_w / 32 a lane), so that a step holds at least 4
+    independent column sums (csrc/resize.cu stream_groups); its taps are
+    padded to a multiple of 4 x this."""
+    per_lane = tile_w // 32
+    return 1 if per_lane >= 4 else 4 // per_lane
+
+
+def _column_tiles(hs: np.ndarray, dst_w: int, tile_w: int, reach: int, nv: int) -> tuple:
+    """(hpos [n_ct * tile_w], xb [n_ct], sw) of output column tiles of
+    tile_w: tile c stages the source window [xb[c], xb[c] + sw) (xb a
+    multiple of one 16-byte vector of nv samples, samples outside the frame
+    replicate its edge), hpos[j] is column j's first tap relative to its
+    tile's xb (0 past dst_w), and every column reads at most `reach`
+    samples from its first tap."""
+    n_ct = -(-dst_w // tile_w)
+    hs_pad = np.zeros(n_ct * tile_w, np.int64)
+    hs_pad[:dst_w] = hs
+    xb = np.array([hs[c * tile_w:(c + 1) * tile_w].min() // nv * nv for c in range(n_ct)])
+    hpos = hs_pad - np.repeat(xb, tile_w)
+    hpos[dst_w:] = 0
+    return hpos, xb, _round_up(int(hpos.max()) + reach, nv)
+
+
+def _row_tiles(vs: np.ndarray, kv: int, tile_h: int) -> tuple:
+    """(rlo [n_rt], rn) of output row tiles of tile_h: tile r stages source
+    rows rlo[r] .. rlo[r] + rn - 1 (clipped)."""
+    n_rt = -(-len(vs) // tile_h)
+    rlo = np.array([vs[r * tile_h:(r + 1) * tile_h].min() for r in range(n_rt)])
+    rn = int(max(vs[r * tile_h:(r + 1) * tile_h].max() - rlo[r] for r in range(n_rt))) + kv
+    return rlo, rn
+
+
+def _stream_hco(co_h: np.ndarray, n_ct: int, tile_w: int, kp: int, exact: bool) -> np.ndarray:
+    """resize_stream's horizontal coefficients, per column tile: exact,
+    [n_ct, kp / 4, tile_w, 2] int32, each word two int16 coefficients
+    (taps 4g, 4g + 1, then 4g + 2, 4g + 3; the low half first), as dp2a
+    reads them; f32, [n_ct, kp, tile_w]. Taps past kh and columns past
+    dst_w weigh 0."""
+    dst_w, kh = co_h.shape
+    full = np.zeros((n_ct * tile_w, kp), np.int64 if exact else np.float32)
+    full[:dst_w, :kh] = co_h
+    full = full.reshape(n_ct, tile_w, kp)
+    if not exact:
+        return np.ascontiguousarray(full.transpose(0, 2, 1))
+    if full.min() < -(1 << 15) or full.max() >= 1 << 15:
+        raise ValueError("a horizontal coefficient does not fit int16")
+    quads = full.reshape(n_ct, tile_w, kp // 4, 4).transpose(0, 2, 1, 3) & 0xFFFF
+    words = (quads[..., 0::2] | (quads[..., 1::2] << 16)).astype(np.uint32)
+    return np.ascontiguousarray(words.view(np.int32))
 
 
 def _resize_plan(src_h, src_w, dst_h, dst_w, kernel, exact, elem_bytes) -> dict:
     """Host plan of one geometry for csrc/resize.cu (numpy arrays).
 
-    Columns: output column tiles of 256; tile c stages the source window
-    [xb[c], xb[c] + sw) (xb a multiple of one 16-byte vector, samples
-    outside the frame replicate its edge), and hpos[j] is column j's first
-    tap relative to its tile's xb. Rows: tiles of tile_h output rows; tile
-    r stages source rows rlo[r] .. rlo[r] + rn - 1 (clipped), and vpos[i]
-    is row i's first tap relative to its tile's rlo, non-decreasing in i.
-    Taps beyond dst_w or dst_h are padding with coefficient 0 (column
-    start 0; row start that of the last row). `ring`: kh == kv in
-    (2, 4, 6), which resize_ring takes; resize_two_pass takes the rest."""
+    Columns: output column tiles of tile_w (`_column_tiles`). Rows: tiles
+    of tile_h output rows (`_row_tiles`); vpos[i] is row i's first tap
+    relative to its tile's rlo, non-decreasing in i. Taps beyond dst_w or
+    dst_h are padding with coefficient 0 (column start 0; row start that
+    of the last row). `ring`: kh == kv in (2, 4, 6), which resize_ring
+    takes, with co_h [n_ct * 256, kh]; resize_stream takes the rest, with
+    kh padded to kp taps, a multiple of 4 x gu (`_stream_group_unroll`),
+    and co_h laid out by `_stream_hco`."""
     idx_h, co_h = _axis_plan(src_w, dst_w, kernel, exact, 1 << 14)
     idx_v, co_v = _axis_plan(src_h, dst_h, kernel, exact, 1 << 12)
     kh, kv = int(idx_h.shape[1]), int(idx_v.shape[1])
     nv = 16 // elem_bytes
-    tw = _RESIZE_TILE_W
-    n_ct = -(-dst_w // tw)
-
     hs = _window_starts(idx_h, src_w)
-    hs_pad = np.zeros(n_ct * tw, np.int64)
-    hs_pad[:dst_w] = hs
-    xb = np.array([hs[c * tw:(c + 1) * tw].min() // nv * nv for c in range(n_ct)])
-    hpos = hs_pad - np.repeat(xb, tw)
-    hpos[dst_w:] = 0
-    sw = _round_up(int(hpos.max()) + kh, nv)
-    hco = np.zeros((n_ct * tw, kh), co_h.dtype)
-    hco[:dst_w] = co_h
-
     vs = _window_starts(idx_v, src_h)
-    for tile_h in _RESIZE_TILE_HS:
-        n_rt = -(-dst_h // tile_h)
-        rlo = np.array([vs[r * tile_h:(r + 1) * tile_h].min() for r in range(n_rt)])
-        rn = int(max(vs[r * tile_h:(r + 1) * tile_h].max() - rlo[r] for r in range(n_rt))) + kv
-        smem = _resize_smem_bytes(rn, sw, elem_bytes, tile_h, kv, kh)
-        if smem <= _RESIZE_SMEM_MAX:
+    ring = kh == kv and kh in _RESIZE_RING_TAPS
+    if ring:
+        candidates = [(_RESIZE_SMEM_MAX, _RESIZE_TILE_W, th) for th in _RESIZE_TILE_HS]
+    else:
+        # the widest tile within the target; failing that, the narrowest
+        # that fits a block at all
+        target = min(_RESIZE_STREAM_SMEM_TARGET, _RESIZE_SMEM_MAX)
+        candidates = [(b, tw, th) for b, tws in ((target, _RESIZE_STREAM_TILE_WS),
+                                                 (_RESIZE_SMEM_MAX, _RESIZE_STREAM_TILE_WS[::-1]))
+                      for tw in tws for th in _RESIZE_TILE_HS]
+    cols = functools.lru_cache(maxsize=None)(
+        lambda tw, reach: _column_tiles(hs, dst_w, tw, reach, nv))
+    smem = None
+    for budget, tile_w, tile_h in candidates:
+        if ring:
+            kp, gu = kh, 0
+        else:
+            gu = _stream_group_unroll(tile_w)
+            kp = _round_up(kh, 4 * gu)
+        # resize_stream's dp2a reads whole words: up to 4 samples past the last tap
+        hpos, xb, sw = cols(tile_w, kh if ring else kp + 4)
+        rlo, rn = _row_tiles(vs, kv, tile_h)
+        if ring:
+            smem = _ring_smem_bytes(rn, sw, elem_bytes, tile_h, kv)
+            fits = _ring_tile_bytes(rn, sw, elem_bytes, tile_h, kv) <= budget
+        else:
+            smem = _stream_smem_bytes(sw, elem_bytes, tile_w, tile_h, kv, kp, exact)
+            fits = smem <= budget
+        if fits:
             break
     else:
         raise ValueError(
-            f"resize {src_h}x{src_w}->{dst_h}x{dst_w} {kernel}: a one-row tile "
+            f"resize {src_h}x{src_w}->{dst_h}x{dst_w} {kernel}: the smallest tile "
             f"needs {smem} bytes of shared memory, more than {_RESIZE_SMEM_MAX}"
         )
+    n_ct, n_rt = len(xb), len(rlo)
     vpos = np.zeros(n_rt * tile_h, np.int64)
     vpos[:dst_h] = vs - np.repeat(rlo, tile_h)[:dst_h]
-    vpos[dst_h:] = vpos[dst_h - 1]  # non-decreasing in each tile, as the kernel needs
+    vpos[dst_h:] = vpos[dst_h - 1]  # non-decreasing in each tile, as the kernels need
     vco = np.zeros((n_rt * tile_h, kv), co_v.dtype)
     vco[:dst_h] = co_v
+    if ring:
+        hco = np.zeros((n_ct * tile_w, kh), co_h.dtype)
+        hco[:dst_w] = co_h
+    else:
+        hco = _stream_hco(co_h, n_ct, tile_w, kp, exact)
     return {
-        "hpos": hpos, "co_h": hco, "kh": kh, "tile_xb": xb, "sw": sw, "n_ct": n_ct,
-        "vpos": vpos, "co_v": vco, "kv": kv, "tile_rlo": rlo, "rn": rn,
-        "tile_h": tile_h, "n_rt": n_rt, "smem_bytes": smem,
-        "ring": kh == kv and kh in _RESIZE_RING_TAPS,
+        "hpos": hpos, "co_h": hco, "kh": kh, "kp": kp, "gu": gu, "tile_xb": xb,
+        "sw": sw, "n_ct": n_ct, "tile_w": tile_w, "vpos": vpos, "co_v": vco, "kv": kv,
+        "tile_rlo": rlo, "rn": rn, "tile_h": tile_h, "n_rt": n_rt, "smem_bytes": smem,
+        "ring": ring,
     }
 
 
-def _resize_grid_z(t: int, n_ct: int, n_rt: int, ring: bool, sms: int) -> int:
+def _resize_grid_z(t: int, n_ct: int, n_rt: int, sms: int) -> int:
     """Frame groups of the persistent grid: blocks (column tile, row tile,
     z) walk frames z, z + Z, ...; Z fills a few waves of the card's `sms`
     SMs while every block walks at least _RESIZE_MIN_FRAMES frames where T
     allows."""
-    target = sms * (_RESIZE_RING_BLOCKS_PER_SM if ring else _RESIZE_BLOCKS_PER_SM)
+    target = sms * _RESIZE_BLOCKS_PER_SM
     by_card = max(1, target // (n_ct * n_rt))
     return max(1, min(-(-t // _RESIZE_MIN_FRAMES), by_card, 65535))
 
@@ -291,10 +391,11 @@ def resize_frames_fused(
     _launch(
         "resize", "pc_resize_frames", "resize_frames_fused", frames.device,
         frames.data_ptr(), out.data_ptr(), t, size, int(exact),
-        src_h, src_w, dst_h, dst_w, plan["tile_h"], plan["n_rt"], plan["rn"],
-        plan["sw"], _resize_grid_z(t, plan["n_ct"], plan["n_rt"], plan["ring"], sms),
+        src_h, src_w, dst_h, dst_w, plan["tile_w"], plan["tile_h"], plan["n_rt"],
+        plan["rn"], plan["sw"],
+        _resize_grid_z(t, plan["n_ct"], plan["n_rt"], sms),
         int(plan["ring"]), int(vec),
-        plan["hpos"].data_ptr(), plan["co_h"].data_ptr(), plan["kh"],
+        plan["hpos"].data_ptr(), plan["co_h"].data_ptr(), plan["kp"],
         plan["tile_xb"].data_ptr(), plan["vpos"].data_ptr(),
         plan["co_v"].data_ptr(), plan["kv"], plan["tile_rlo"].data_ptr(),
         255 if frames.dtype == torch.uint8 else 1023,

@@ -64,7 +64,7 @@ def test_resize_kernel_chain_upscales_and_ragged_widths(cuda, kernel, geom, dtyp
     x = _rand((9, sh, sw), hi, dtype, cuda, sum(geom) + hi)
     plan = ck._resize_plan(sh, sw, dh, dw, kernel, dtype == torch.uint8, x.element_size())
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert ck._resize_grid_z(9, plan["n_ct"], plan["n_rt"], plan["ring"], sms) < 9
+    assert ck._resize_grid_z(9, plan["n_ct"], plan["n_rt"], sms) < 9
     out = ck.resize_frames_fused(x, dh, dw, kernel)
     assert torch.equal(out.cpu(), ck.resize_frames_plain(x.cpu(), dh, dw, kernel))
     assert ck.LAUNCHES["resize_frames_fused"] == 1
@@ -73,14 +73,18 @@ def test_resize_kernel_chain_upscales_and_ragged_widths(cuda, kernel, geom, dtyp
 @pytest.mark.parametrize("dtype,hi", [(torch.uint8, 255), (torch.uint16, 1023)])
 def test_resize_kernel_unaligned_source_rows(cuda, dtype, hi):
     """A source whose base is not 16-byte aligned (a view at an odd offset,
-    contiguous) takes the scalar staging branch of the same kernel."""
-    flat = _rand((1, 5 * 48 * 80 + 1), hi, dtype, cuda, 17)
-    x = flat[0, 1:].reshape(5, 48, 80)
-    assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    for kernel in ("bicubic", "lanczos", "bilinear"):
-        out = ck.resize_frames_fused(x, 96, 160, kernel)
-        assert torch.equal(out.cpu(), ck.resize_frames_plain(x.cpu(), 96, 160, kernel))
-    assert ck.LAUNCHES["resize_frames_fused"] == 3
+    contiguous) takes the scalar staging branch of the same kernel: an
+    upscale (resize_ring) and 2x and 12x downscales with a ragged output
+    width (resize_stream)."""
+    for (t, sh, sw), (dh, dw) in (((5, 48, 80), (96, 160)), ((5, 96, 400), (48, 198)),
+                                  ((3, 192, 770), (16, 63))):
+        flat = _rand((1, t * sh * sw + 1), hi, dtype, cuda, 17 + sw)
+        x = flat[0, 1:].reshape(t, sh, sw)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        for kernel in ("bicubic", "lanczos", "bilinear"):
+            out = ck.resize_frames_fused(x, dh, dw, kernel)
+            assert torch.equal(out.cpu(), ck.resize_frames_plain(x.cpu(), dh, dw, kernel))
+    assert ck.LAUNCHES["resize_frames_fused"] == 9
 
 
 @pytest.mark.parametrize("dtype,hi,atol", [(torch.uint8, 255, 1e-3), (torch.uint16, 1023, 1e-2)])
@@ -342,9 +346,21 @@ def test_constant_gradient_frames_give_si_zero(cuda, dtype):
     ((1080, 1920, 540, 960), "bicubic", False),     # ... U and V
     ((45, 80, 90, 80), "bilinear", True),           # 420->422: identity width axis
     ((1080, 1920, 2160, 1920), "bilinear", True),
+    # p01's quality ladder from 2160p and 1080p sources, luma and chroma
+    ((2160, 3840, 720, 1280), "bicubic", False), ((2160, 3840, 720, 1280), "lanczos", False),
+    ((2160, 3840, 360, 640), "bicubic", False), ((2160, 3840, 360, 640), "lanczos", False),
+    ((2160, 3840, 180, 320), "bicubic", False), ((2160, 3840, 180, 320), "lanczos", False),
+    ((1080, 1920, 90, 160), "bicubic", False), ((1080, 1920, 90, 160), "lanczos", False),
+    ((1080, 1920, 360, 640), "bicubic", False), ((1080, 1920, 180, 320), "lanczos", False),
+    ((1080, 1920, 720, 1280), "bicubic", True),     # 1.5x bicubic: 6 taps a pass
+    ((1080, 1920, 720, 1280), "lanczos", False),
+    ((2160, 3840, 1440, 2560), "lanczos", False),   # a 1440p context
 ])
 @pytest.mark.parametrize("dtype,hi", [(torch.uint8, 255), (torch.uint16, 1023)])
 def test_resize_kernel_downstream_geometries_equal_plain(cuda, geom, kernel, ring, dtype, hi):
+    """The downstream render's resizes and every downscale of the chain
+    (resize_stream; resize_ring where both passes have 2, 4 or 6 taps),
+    each one launch, equal to the plain version."""
     sh, sw, dh, dw = geom
     x = _rand((2, sh, sw), hi, dtype, cuda, sh + dw)
     exact = ck._exact_route(dtype, sh, sw, dh, dw, kernel)

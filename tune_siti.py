@@ -38,6 +38,7 @@ import torch
 
 from processing_chain_tpu_torch.ops import _build
 from processing_chain_tpu_torch.ops import cuda_kernels as ck
+from processing_chain_tpu_torch.utils import fsio
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_build.CSRC, "siti.cu")
@@ -95,6 +96,14 @@ VARIANTS = {
 }
 
 
+def write_text(path: str, text: str) -> None:
+    """Write `path` whole or not at all (temp file, then rename)."""
+    def write(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            f.write(text)
+    fsio.atomic_write(path, write)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -116,9 +125,9 @@ def build_all(sources: dict) -> dict:
     procs = {}
     for name, text in sources.items():
         cu = os.path.join(BUILD, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+        write_text(cu, text)
         so = os.path.join(BUILD, f"{name}.so")
+        # chainlint: disable=subprocess-hygiene (one nvcc per variant, all running at once; each one's output is read to its end and a refusal stops the run)
         procs[name] = (so, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", so, cu],
                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                             text=True))
@@ -135,6 +144,7 @@ def build_all(sources: dict) -> dict:
 
 def sass(so: str) -> str:
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    # chainlint: disable=subprocess-hygiene (a toolkit binary on a built library, check=True: a failure raises with its output)
     return subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
                           check=True).stdout
 
@@ -235,6 +245,7 @@ def clock_during(fn, seconds: float) -> dict:
     """SM clock and power that nvidia-smi reads (every 100 ms) while `fn`
     runs back to back for about `seconds`: the median of each, and the
     launches made."""
+    # chainlint: disable=subprocess-hygiene (a sampler that runs beside the timed kernel until it is terminated below)
     smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                             "--format=csv,noheader,nounits", "-lms", "100"],
                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
@@ -264,8 +275,9 @@ def main() -> int:
         print("tune_siti: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    # chainlint: disable=subprocess-hygiene (one read-only nvidia-smi query with a timeout; check=True raises on failure)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}; {smi}")
 
     sources = {name: variant_source(subs) for name, (subs, _) in VARIANTS.items()}
@@ -283,8 +295,7 @@ def main() -> int:
         report["variants"][name] = {"ptxas": lines, "sass_instructions": counts}
         log(f"{name}: SASS instructions {counts}\n  " + "\n  ".join(lines))
         if name == "committed":
-            with open(os.path.join(args.out, "tune_siti_committed.sass"), "w") as f:
-                f.write(text)
+            write_text(os.path.join(args.out, "tune_siti_committed.sass"), text)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     y8 = torch.randint(0, 256, (T, H, W), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
@@ -337,8 +348,7 @@ def main() -> int:
     report["wrapper_si_u8_ms"] = time_ms(lambda: ck.si_frames_fused(y8), REPS)
     log(f"wrapper si_frames_fused u8 (committed build, allocation and reduction included): "
         f"{report['wrapper_si_u8_ms']:.4f} ms")
-    with open(os.path.join(args.out, "tune_siti.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    write_text(os.path.join(args.out, "tune_siti.json"), json.dumps(report, indent=1))
     print(json.dumps(report), flush=True)
     return 0
 

@@ -49,6 +49,27 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      resize also the antialiased call, as information); the resize also at
      the mobile CPVS downscale and at the 640x360 and 320x180 ladder levels
      of a 2160p chunk
+  9. p01's quality ladder (models.segments.scaled_chunks: host chunk ->
+     fps select -> host-to-device copy -> bicubic scale -> device-to-host
+     copy through pinned memory, the smoke's checksum standing in for the
+     encoder): (a) a seeded 240-frame 2160p60 yuv420p segment to
+     1920x1080@30, 1280x720@30, 640x360@24 and 320x180@15, (b) the first
+     240 frames of phase 4's 1080p clip to 1280x720@30 (1.5x, resize_ring)
+     and 640x360@24, (c) a 128-frame 2160p60 yuv420p10le segment to
+     1920x1080@30 at 10 bits; frames kept, resize launches (3 a non-empty
+     chunk) and each plane's route, the first chunk against the plain
+     resize on the card and its first frames against the CPU route; source
+     frames/s end to end and device ms per chunk
+ 10. the quality tools: tools.quality_metrics.score_chunks on phase 4's
+     600-frame AVPVS (pump_ready's quantized 3840x2160 chunks, kept on the
+     card) against its 1080p SRC in 32-frame chunks, MS-SSIM and VIF on
+     (the SRC goes up by the banded f32 route), then the 128-frame 10-bit
+     clip; SI/TI against pump_ready's accumulator, the first frames against
+     the CPU route (banded forced), an identity pair; frames/s, device ms
+     per chunk of the SRC resize and of each metric, peak device bytes.
+     Then tools.src_analysis.src_siti_summary over phase 9's 2160p
+     segments and priors.features.temporal_features on a seeded 240-frame
+     1080p MV table, each against the CPU route
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -71,14 +92,20 @@ import torch
 
 from processing_chain_tpu_torch.config.domain import PostProcessing
 from processing_chain_tpu_torch.engine import prefetch as pfe
-from processing_chain_tpu_torch.models import avpvs, fused
+from processing_chain_tpu_torch.models import avpvs, fused, segments
 from processing_chain_tpu_torch.models import cpvs as cp
 from processing_chain_tpu_torch.models import frames as fr
 from processing_chain_tpu_torch.ops import _build
 from processing_chain_tpu_torch.ops import cuda_kernels as ck
+from processing_chain_tpu_torch.ops import fps as fps_ops
+from processing_chain_tpu_torch.ops import metrics as metrics_ops
 from processing_chain_tpu_torch.ops import overlay as ov
+from processing_chain_tpu_torch.ops import resize as resize_ops
 from processing_chain_tpu_torch.parallel import mesh as pmesh
 from processing_chain_tpu_torch.parallel import meshobs, p03_batch, pipeline
+from processing_chain_tpu_torch.priors import features as prior_features
+from processing_chain_tpu_torch.tools import quality_metrics as qm
+from processing_chain_tpu_torch.tools import src_analysis
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -172,6 +199,32 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# cycles of the spin kernel that holds the stream while the host queues
+# the calls time_ms_queued times (~25 ms at the H100's clocks)
+SPIN_CYCLES = 50_000_000
+
+
+def time_ms_queued(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host ms) per call of `fn`: a spin kernel holds the
+    stream while the host queues `reps` calls, so the events time the
+    card's work alone, without the host's launch cost between calls. The
+    host ms is the enqueue's wall time per call; the device number is
+    clean while reps times it stays under the spin."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -285,15 +338,18 @@ def check_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def synthetic_clip(frames: int, chunk: int, ten_bit: bool, seed: int) -> list:
-    """Host chunks of a moving gradient plus noise (yuv420p planes): every
-    frame shifts the gradient by 4 columns and takes one of 8 noise
-    fields, so SI and TI are non-trivial."""
+def synthetic_clip(frames: int, chunk: int, ten_bit: bool, seed: int,
+                   src_h: int = SRC_H, src_w: int = SRC_W) -> list:
+    """Host chunks of a moving gradient plus noise (yuv420p planes of a
+    src_h x src_w clip): every frame shifts the gradient by 4 columns and
+    takes one of 8 noise fields, so SI and TI are non-trivial. The first
+    n frames of a clip do not depend on its length."""
     rng = np.random.default_rng(seed)
     dtype, hi = (np.uint16, 1023) if ten_bit else (np.uint8, 255)
     out = []
     planes = []
-    for _, h, w in plane_shapes(1):
+    shapes = [(src_h, src_w), (src_h // 2, src_w // 2), (src_h // 2, src_w // 2)]
+    for h, w in shapes:
         xx = np.arange(w + 4 * frames)[None, :]
         yy = np.arange(h)[:, None]
         grad = ((xx * 3 + yy * 2) % (hi - 40)).astype(dtype)
@@ -302,7 +358,7 @@ def synthetic_clip(frames: int, chunk: int, ten_bit: bool, seed: int) -> list:
     for lo in range(0, frames, chunk):
         n = min(chunk, frames - lo)
         chunk_planes = []
-        for (grad, noise), (_, h, w) in zip(planes, plane_shapes(1)):
+        for (grad, noise), (h, w) in zip(planes, shapes):
             arr = np.empty((n, h, w), dtype)
             for k in range(n):
                 s = 4 * (lo + k)
@@ -316,7 +372,7 @@ def fold_checksum(checksum: int, host_planes) -> int:
     """Running checksum: each plane's bytes summed as uint64 words (mod
     2**64), folded into the running value."""
     for h in host_planes:
-        raw = h.numpy().reshape(-1).view(np.uint8)
+        raw = (h.numpy() if isinstance(h, torch.Tensor) else h).reshape(-1).view(np.uint8)
         words = raw[: raw.size // 8 * 8].view(np.uint64)
         s = int(words.sum(dtype=np.uint64)) + int(raw[words.size * 8:].sum())
         checksum = (checksum * 1000003 + s) % (1 << 64)
@@ -1076,6 +1132,333 @@ def time_kernels(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: p01's quality ladder
+# ---------------------------------------------------------------------------
+
+SRC_FPS = 60.0
+SEGMENT_FRAMES, SEGMENT_FRAMES_10BIT = 240, 128  # a 4 s event; 2 chunks
+UHD_H, UHD_W = 2160, 3840
+# (label, source, level width, fps spec, target pix_fmt): the sources are
+# (a) the 2160p u8 segment, (b) the first 240 frames of phase 4's 1080p
+# clip, (c) the 2160p 10-bit segment
+LADDER_RUNS = (
+    ("2160p_1920x1080_30", "2160p", 1920, 30, "yuv420p"),
+    ("2160p_1280x720_30", "2160p", 1280, 30, "yuv420p"),
+    ("2160p_640x360_24", "2160p", 640, 24, "yuv420p"),
+    ("2160p_320x180_15", "2160p", 320, 15, "yuv420p"),
+    ("1080p_1280x720_30", "1080p", 1280, 30, "yuv420p"),
+    ("1080p_640x360_24", "1080p", 640, 24, "yuv420p"),
+    ("2160p10_1920x1080_30", "2160p10", 1920, 30, "yuv420p10le"),
+)
+CPU_CHECK_FRAMES = 2  # frames each CPU re-check of phases 9-10 recomputes
+
+
+def ladder_sources() -> dict:
+    """The host chunks of phase 9's three sources: (chunks, height, width)."""
+    return {
+        "2160p": (synthetic_clip(SEGMENT_FRAMES, avpvs.CHUNK, False, SEED + 9, UHD_H, UHD_W),
+                  UHD_H, UHD_W),
+        # phase 4's clip has the same first frames whatever its length
+        "1080p": (synthetic_clip(SEGMENT_FRAMES, avpvs.CHUNK, False, SEED + CLIP_FRAMES),
+                  SRC_H, SRC_W),
+        "2160p10": (synthetic_clip(SEGMENT_FRAMES_10BIT, avpvs.CHUNK, True, SEED + 10,
+                                   UHD_H, UHD_W), UHD_H, UHD_W),
+    }
+
+
+def run_ladder(dev, label: str, chunks, src_h: int, src_w: int, width: int, fps_spec,
+               pix_fmt: str) -> dict:
+    th, tw, target_fps, out_fps = segments.plan_segment_frames(
+        src_h, src_w, SRC_FPS, width, fps_spec)
+    n_src = sum(c[0].shape[0] for c in chunks)
+    state = {"checksum": 0, "frames": 0, "chunks": 0, "first": None}
+
+    def encode_stand_in():
+        for planes in segments.scaled_chunks(iter(chunks), SRC_FPS, target_fps, th, tw,
+                                             pix_fmt, device=dev):
+            state["checksum"] = fold_checksum(state["checksum"], planes)
+            state["frames"] += planes[0].shape[0]
+            state["chunks"] += 1
+            if state["first"] is None:
+                state["first"] = planes
+
+    _, launches, seconds = counted(encode_stand_in)
+    want_frames = len(fps_ops.select_indices(n_src, SRC_FPS, target_fps or SRC_FPS))
+    log(f"p01 ladder {label}: {n_src} source frames -> {state['frames']} frames of "
+        f"{tw}x{th} at {out_fps} fps in {state['chunks']} chunks, {seconds:.3f} s, "
+        f"launches {launches}")
+    require(state["frames"] == want_frames,
+            f"ladder {label}: {state['frames']} frames kept, select_indices says {want_frames}")
+    want = launches_want(resize_frames_fused=3 * state["chunks"])
+    require(launches == want, f"ladder {label}: launches {launches} != {want}")
+
+    # the first selected chunk through the plain resize on the card, and
+    # its first frames through the same entry point on the CPU
+    sel = next(fps_ops.stream_select(iter(chunks[:1]), SRC_FPS, target_fps)) \
+        if target_fps not in (None, SRC_FPS) else chunks[0]
+    sub = fr.chroma_subsampling(pix_fmt)
+    ten_bit = "10" in pix_fmt
+    dims = [(th, tw), (th // sub[0], tw // sub[1]), (th // sub[0], tw // sub[1])]
+    first_dev = [torch.from_numpy(p).to(dev) for p in sel]
+    plain = fr.to_uint8([ck.resize_frames_plain(p, h, w, "bicubic")
+                         for p, (h, w) in zip(first_dev, dims)], ten_bit)
+    require(all(np.array_equal(a, b) for a, b in zip(state["first"], plain)),
+            f"ladder {label}: the first chunk differs from the plain resize")
+    cpu = next(segments.scaled_chunks(iter([[p[:CPU_CHECK_FRAMES] for p in sel]]), SRC_FPS,
+                                      None, th, tw, pix_fmt, device="cpu"))
+    require(all(np.array_equal(a[:CPU_CHECK_FRAMES], b) for a, b in zip(state["first"], cpu)),
+            f"ladder {label}: the first frames differ from the CPU route")
+    routes = []
+    for p, (h, w) in zip(first_dev, dims):
+        exact = ck._exact_route(p.dtype, p.shape[1], p.shape[2], h, w, "bicubic")
+        plan = ck._resize_plan(p.shape[1], p.shape[2], h, w, "bicubic", exact, p.element_size())
+        routes.append(f"{p.shape[1]}x{p.shape[2]}->{h}x{w} "
+                      f"{'resize_ring' if plan['ring'] else 'resize_stream'} "
+                      f"(kh {plan['kh']}, kv {plan['kv']})")
+    def scale():
+        return fr.scale_yuv_frames(first_dev, th, tw, "bicubic", sub)
+
+    device_ms = time_ms(scale, reps=5)
+    queued_ms, enqueue_ms = time_ms_queued(scale, reps=5)
+    result = {
+        "label": label, "pix_fmt": pix_fmt, "source": f"{src_w}x{src_h}@{SRC_FPS:g}",
+        "level": f"{tw}x{th}@{out_fps:g}", "source_frames": n_src,
+        "frames": state["frames"], "chunks": state["chunks"], "seconds": seconds,
+        "source_frames_per_s": n_src / seconds, "launches": launches, "routes": routes,
+        "device_ms_per_chunk": device_ms, "device_ms_queued_ahead": queued_ms,
+        "host_enqueue_ms": enqueue_ms, "frames_per_device_chunk": sel[0].shape[0],
+        "checksum": f"{state['checksum']:016x}",
+    }
+    log(f"p01 ladder {label}: {result['source_frames_per_s']:.2f} source frames/s end to "
+        f"end, device {device_ms:.4f} ms per {avpvs.CHUNK}-frame source chunk "
+        f"({sel[0].shape[0]} frames scaled; {queued_ms:.4f} ms with the calls queued ahead, "
+        f"host enqueue {enqueue_ms:.4f} ms); routes {routes}; first chunk equal to plain, "
+        f"first {CPU_CHECK_FRAMES} frames equal to the CPU route")
+    del first_dev, plain, state
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the quality tools
+# ---------------------------------------------------------------------------
+
+# tier-1's tolerances for the quality table (tests/test_torch_quality.py)
+TABLE_ATOL = {"psnr_y": 1e-3, "psnr_u": 1e-3, "psnr_v": 1e-3, "ssim_y": 1e-4,
+              "msssim_y": 1e-4, "vif_y": 1e-4, "si": 1e-3, "ti": 1e-3}
+
+
+class DeviceKeeper:
+    """pump_ready's writer here: keeps each quantized chunk on the card."""
+
+    def __init__(self):
+        self.chunks = []
+
+    def put(self, planes, recycle=None):
+        self.chunks.append(planes)
+
+
+def table_max_err(got: dict, want: dict, rows: int) -> dict:
+    return {k: float(np.abs(np.asarray(got[k][:rows], np.float64)
+                            - np.asarray(want[k][:rows], np.float64)).max())
+            for k in list(want)[1:]}
+
+
+def run_quality(dev, label: str, frames: int, pix_fmt: str) -> dict:
+    ten_bit = "10" in pix_fmt
+    scale = 0.25 if ten_bit else 1.0
+    src = synthetic_clip(frames, avpvs.CHUNK, ten_bit, SEED + frames)  # phase 4's clip
+    keeper = DeviceKeeper()
+    feat = avpvs.SiTiAccumulator()
+    avpvs.pump_ready(iter(src), keeper, feat, DST_H, DST_W, pix_fmt, device=dev)
+    deg_chunks = [[p[lo:lo + qm.CHUNK] for p in c] for c in keeper.chunks
+                  for lo in range(0, c[0].shape[0], qm.CHUNK)]
+    n_chunks = len(deg_chunks)
+    out_index = qm._src_index_map(CANVAS_FPS, CANVAS_FPS)
+
+    def score():
+        ref_frames = pfe.iter_chunk_frames([[torch.from_numpy(p) for p in c] for c in src])
+        pairs = qm._paired_chunks(iter(deg_chunks), ref_frames, out_index, qm.CHUNK)
+        with pfe.Prefetcher(pairs, depth=2) as pre:
+            return qm.score_chunks(pre, msssim=True, vif=True, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    table, launches, seconds = counted(score)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"quality {label}: {frames} AVPVS frames in {n_chunks} chunks of {qm.CHUNK}, "
+        f"{seconds:.3f} s, launches {launches}")
+    require(list(table) == ["frame"] + qm.metric_columns(True, True)
+            and all(len(v) == frames for v in table.values()),
+            f"quality {label}: table columns {list(table)} / rows")
+    require(all(np.isfinite(np.asarray(v, np.float64)).all() for v in table.values()),
+            f"quality {label}: non-finite values")
+    want = launches_want(si_frames_fused=n_chunks, ti_frames_fused=n_chunks)
+    require(launches == want, f"quality {label}: launches {launches} != {want}")
+    acc_si = torch.cat(feat.si).cpu().numpy() * scale
+    acc_ti = torch.cat(feat.ti).cpu().numpy() * scale
+    siti_err = max(float(np.abs(table["si"] - acc_si).max()),
+                   float(np.abs(table["ti"] - acc_ti).max()))
+    require(siti_err <= 1e-3, f"quality {label}: SI/TI off pump_ready's accumulator by {siti_err}")
+
+    # the first frames again through the CPU route, banded forced
+    n = CPU_CHECK_FRAMES
+    t0 = time.perf_counter()
+    cpu = qm.score_chunks(iter([([p[:n].cpu() for p in deg_chunks[0]],
+                                 [torch.from_numpy(p[:n]) for p in src[0]])]),
+                          msssim=True, vif=True, device="cpu", resize_method="banded")
+    cpu_s = time.perf_counter() - t0
+    cpu_err = table_max_err(table, cpu, n)
+    require(all(cpu_err[k] <= TABLE_ATOL[k] for k in cpu_err),
+            f"quality {label}: the first {n} rows differ from the CPU route: {cpu_err}")
+    # an identity pair: the first AVPVS chunk against itself
+    ident = qm.score_chunks(iter([(deg_chunks[0], deg_chunks[0])]), msssim=True, vif=True,
+                            device=dev)
+    require(bool((ident["psnr_y"] == 100.0).all() and (ident["psnr_u"] == 100.0).all()),
+            f"quality {label}: identity PSNR {ident['psnr_y'][:4]}")
+    ident_min = {k: float(ident[k].min()) for k in ("ssim_y", "msssim_y", "vif_y")}
+    require(all(v >= 0.9999 for v in ident_min.values()),
+            f"quality {label}: identity pair scores {ident_min}")
+
+    # device ms per 32-frame chunk, the pair resident on the card
+    deg = deg_chunks[0]
+    ref = [torch.from_numpy(p[:qm.CHUNK]).to(dev) for p in src[0]]
+    dy, du, dv = (p.to(torch.float32) * scale for p in deg)
+
+    def resize_src():
+        return [resize_ops.resize_plane(r.to(torch.float32) * scale, d.shape[-2], d.shape[-1],
+                                        "bicubic") for r, d in zip(ref, (dy, du, dv))]
+
+    ry, ru, rv = resize_src()
+    ms = {
+        "src_resize_banded": time_ms(resize_src, reps=3),
+        "psnr_yuv": time_ms(lambda: [metrics_ops.psnr_frames(r, d) for r, d in
+                                     ((ry, dy), (ru, du), (rv, dv))], reps=3),
+        "ssim": time_ms(lambda: metrics_ops.ssim_frames(ry, dy), reps=2),
+        "msssim_with_ssim": time_ms(lambda: metrics_ops.msssim_ssim_frames(ry, dy), reps=2),
+        "vif": time_ms(lambda: metrics_ops.vif_frames(ry, dy), reps=2),
+        "si_ti_kernels": time_ms(lambda: (ck.si_frames_fused(deg[0]),
+                                          ck.ti_frames_fused(deg[0])), reps=3),
+    }
+    result = {
+        "label": label, "pix_fmt": pix_fmt, "frames": frames, "chunks": n_chunks,
+        "seconds": seconds, "frames_per_s": frames / seconds, "launches": launches,
+        "peak_device_bytes": peak, "device_ms_per_chunk": ms,
+        "siti_vs_accumulator_max_err": siti_err, "cpu_rows_max_err": cpu_err,
+        "cpu_check_s": cpu_s, "identity_min": ident_min,
+        "means": {k: float(np.mean(table[k])) for k in list(table)[1:]},
+    }
+    log(f"quality {label}: {result['frames_per_s']:.2f} frames/s end to end (AVPVS chunks on "
+        f"the card, SRC gathered on the host, MS-SSIM and VIF on); device ms per "
+        f"{qm.CHUNK}-frame chunk {json.dumps(ms)}; peak device bytes {peak}; SI/TI vs the "
+        f"accumulator {siti_err}; first {n} rows vs the CPU route {json.dumps(cpu_err)} "
+        f"({cpu_s:.1f} s); identity pair {ident_min}")
+    del keeper, deg_chunks, deg, ref, dy, du, dv, ry, ru, rv, feat
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_src_analysis(dev, label: str, chunks) -> dict:
+    ten_bit = chunks[0][0].dtype == np.uint16
+    summary, launches, seconds = counted(
+        lambda: src_analysis.src_siti_summary(iter(chunks), device=dev))
+    n_chunks = len(chunks)
+    n_frames = sum(c[0].shape[0] for c in chunks)
+    want = launches_want(si_frames_fused=n_chunks, ti_frames_fused=n_chunks)
+    require(launches == want, f"src analysis {label}: launches {launches} != {want}")
+    si, ti = src_analysis.src_siti_frames(iter(chunks), device=dev)
+    require(summary == src_analysis.summarize_siti(si, ti),
+            f"src analysis {label}: summary {summary} differs from its per-frame values")
+    n = CPU_CHECK_FRAMES
+    csi, cti = src_analysis.src_siti_frames(iter([[chunks[0][0][:n]]]), device="cpu")
+    atol = 2.5e-3 if ten_bit else 1e-3  # the seam's 1e-2 / 1e-3 at container depth, scaled
+    err = max(float(np.abs(si[:n] - csi).max()), float(np.abs(ti[:n] - cti).max()))
+    require(err <= atol, f"src analysis {label}: first frames off the CPU route by {err}")
+    log(f"src analysis {label}: {n_frames} frames, {seconds:.3f} s "
+        f"({n_frames / seconds:.2f} frames/s), launches {launches}, summary {summary}, "
+        f"first {n} frames vs the CPU route {err}")
+    return {"label": label, "frames": n_frames, "seconds": seconds,
+            "frames_per_s": n_frames / seconds, "launches": launches, "summary": summary,
+            "cpu_max_err": err}
+
+
+class SyntheticPriors:
+    """A seeded MV table with the PriorsData fields that
+    priors.features reads: I, P and B frames of a 16x16 block grid, one MV
+    row per predicted block (a zoom-like field plus noise, a tenth of the
+    blocks left intra), B frames with each block twice (one row a
+    prediction direction)."""
+
+    def __init__(self, n: int, height: int, width: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.height, self.width = height, width
+        self.pict_type = np.array([1 if k % 12 == 0 else (3 if k % 3 == 2 else 2)
+                                   for k in range(n)], np.int8)
+        gy, gx = np.mgrid[0:(height + 15) // 16, 0:(width + 15) // 16]
+        cx, cy = gx.ravel() * 16 + 8, gy.ravel() * 16 + 8
+        rows, counts = [], []
+        for k in range(n):
+            if self.pict_type[k] == 1:
+                counts.append(0)
+                continue
+            keep = rng.random(cx.size) > 0.1
+            dx = np.round((cx - width / 2) * 0.01 * (k % 7) + rng.normal(0, 1.5, cx.size))
+            dy = np.round((cy - height / 2) * 0.01 * (k % 7) + rng.normal(0, 1.5, cx.size))
+            blk = np.stack([cx - dx, cy - dy, cx, cy, np.full_like(cx, 16),
+                            np.full_like(cx, 16), np.full_like(cx, -1)], 1)[keep]
+            blk = blk.astype(np.int32)
+            if self.pict_type[k] == 3:
+                fwd = blk.copy()
+                fwd[:, 6] = 1
+                blk = np.concatenate([blk, fwd])
+            rows.append(blk)
+            counts.append(len(blk))
+        self.mv_offsets = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=self.mv_offsets[1:])
+        self.mv_rows = np.concatenate(rows)
+
+    @property
+    def n_frames(self) -> int:
+        return len(self.pict_type)
+
+    @property
+    def n_mvs(self) -> int:
+        return int(self.mv_rows.shape[0])
+
+    def mv_for(self, i: int) -> np.ndarray:
+        return self.mv_rows[self.mv_offsets[i]:self.mv_offsets[i + 1]]
+
+    def has_mvs(self) -> bool:
+        return self.n_mvs > 0
+
+
+def run_priors(dev) -> dict:
+    data = SyntheticPriors(SEGMENT_FRAMES, SRC_H, SRC_W, SEED + 11)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = prior_features.temporal_features(data, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = prior_features.temporal_features(data, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in want}
+    require(list(got) == list(want) and all(
+        np.allclose(got[k], want[k], rtol=1e-5, atol=1e-6) for k in want),
+        f"priors: card vs CPU route {err}")
+    moving = data.pict_type != 1
+    require(bool((got["divergence"][moving] > 0).all() and (got["mean_mag"][moving] > 0).all()),
+            "priors: a predicted frame without motion features")
+    mags = prior_features.mv_magnitudes(data.mv_rows, dev)
+    mag_err = float((mags.cpu() - prior_features.mv_magnitudes(data.mv_rows, "cpu")).abs().max())
+    require(mag_err <= 1e-4, f"priors: mv_magnitudes card vs CPU {mag_err}")
+    log(f"priors: {data.n_frames} frames, {data.n_mvs} MV rows; temporal_features "
+        f"{card_s:.3f} s with the card, {cpu_s:.3f} s on the CPU; max|card-CPU| {err}, "
+        f"mv_magnitudes {mag_err}")
+    return {"frames": data.n_frames, "mv_rows": data.n_mvs, "card_s": card_s, "cpu_s": cpu_s,
+            "max_err": err, "mv_magnitudes_max_err": mag_err}
+
+
 def libav_probe() -> str:
     """Whether the native media layer's libav could load here: does
     libavcodec.so.59 open, and which libav headers exist. Printed for the
@@ -1133,12 +1516,28 @@ def main() -> int:
                                 want_frames=CLIP_FRAMES_10BIT),
     }
     timing = time_kernels(dev)
+    t9 = time.perf_counter()
+    sources = ladder_sources()
+    ladder = {}
+    for label, source, width, fps_spec, pix_fmt in LADDER_RUNS:
+        chunks, src_h, src_w = sources[source]
+        ladder[label] = run_ladder(dev, label, chunks, src_h, src_w, width, fps_spec, pix_fmt)
+    quality = {"u8": run_quality(dev, "u8", CLIP_FRAMES, "yuv420p"),
+               "10bit": run_quality(dev, "10-bit", CLIP_FRAMES_10BIT, "yuv420p10le")}
+    src_summary = {"2160p": run_src_analysis(dev, "2160p", sources["2160p"][0]),
+                   "2160p10": run_src_analysis(dev, "2160p10", sources["2160p10"][0])}
+    del sources
+    priors = run_priors(dev)
+    log(f"phases 9-10: {time.perf_counter() - t9:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
              **{f"wave_{k}": v["launches"] for k, v in waves.items()},
              **{f"downstream_{k}": v["launches"] for k, v in downstream.items()},
-             **{f"staged_stall_{k}": v["staged_launches"] for k, v in downstream.items()}}
+             **{f"staged_stall_{k}": v["staged_launches"] for k, v in downstream.items()},
+             **{f"p01_ladder_{k}": v["launches"] for k, v in ladder.items()},
+             **{f"quality_metrics_{k}": v["launches"] for k, v in quality.items()},
+             **{f"src_analysis_{k}": v["launches"] for k, v in src_summary.items()}}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
@@ -1160,7 +1559,9 @@ def main() -> int:
             **timing[name],
         })
     log(json.dumps({"main_path": [main8, main10], "flagship": flagship,
-                    "waves": waves, "downstream": downstream, "card": smi}))
+                    "waves": waves, "downstream": downstream, "p01_ladder": ladder,
+                    "quality": quality, "src_analysis": src_summary, "priors": priors,
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

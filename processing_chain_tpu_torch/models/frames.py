@@ -92,11 +92,26 @@ def quantize_device(planes: list, ten_bit: bool = False) -> list[torch.Tensor]:
     return out
 
 
+def _to_host(p) -> np.ndarray:
+    """A plane as host numpy; a CUDA tensor is fetched through pinned
+    memory (the host allocator recycles the block once the array dies)."""
+    if not isinstance(p, torch.Tensor):
+        return np.asarray(p)
+    if p.is_cuda:
+        host = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+        host.copy_(p)
+        return host.numpy()
+    return p.numpy()
+
+
 def to_uint8(planes: list, ten_bit: bool = False) -> list[np.ndarray]:
-    """Device float/int planes → host numpy in the container bit depth."""
+    """Device float/int planes → host numpy in the container bit depth.
+    An integer plane deeper than the target is clipped, not rescaled, as
+    the reference does (a 10-bit plane with an 8-bit target saturates at
+    255)."""
     out = []
     for p in planes:
-        arr = p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+        arr = _to_host(p)
         if ten_bit:
             if arr.dtype != np.uint16:
                 arr = np.clip(np.floor(arr.astype(np.float64) + 0.5), 0, 1023).astype(np.uint16)

@@ -9,16 +9,18 @@ to the originals. Filter construction mirrors libswscale's: align-centers
 source mapping, BC-spline bicubic (B=0, C=0.6), Lanczos-3, support
 widening + renormalization for downscale.
 
-Routing (`resize_plane`): integer frames with quantized output go to
-`cuda_kernels.resize_frames_fused`, which launches the CUDA kernel for a
-CUDA tensor and runs its plain torch version for a CPU tensor. Float
-input (or unquantized output) takes the plain f32 tap gather, on the CPU
-only. The reference's CPU-only native-libswscale route and its `banded`
-method are not ported.
+Routing (`resize_plane`, method "auto"): integer frames with quantized
+output go to `cuda_kernels.resize_frames_fused`, which launches the CUDA
+kernel for a CUDA tensor and runs its plain torch version for a CPU
+tensor. Float input (or unquantized output) takes the block-banded matrix
+products (`banded`, the reference's accelerator route) on the card and
+the f32 tap gather (`gather`, the reference's route elsewhere) on the
+CPU. The reference's CPU-only native-libswscale route is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -320,6 +322,43 @@ def swscale_exact_applicable(
 
 
 # ---------------------------------------------------------------------------
+# Block-banded matmul plan (copied from the reference package)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def make_banded_plan(
+    src_size: int, dst_size: int, kernel: str = "lanczos", block: int = 128
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Re-express the tap plan as block-banded dense matrices.
+
+    Tap windows are contiguous and their left edge is monotone in the output
+    index, so a block of `block` consecutive output rows only reads a
+    contiguous band of input rows. Returns (starts [nblocks] int32,
+    weights [nblocks, block, band] f32, band): output block b is
+    `weights[b] @ x[starts[b] : starts[b]+band]` — a batched dense matrix
+    product instead of K per-tap gathers. Weights of taps clipped to the
+    same edge row accumulate, so edge replication is preserved exactly.
+    """
+    idx, w = make_plan(src_size, dst_size, kernel)
+    ntaps = idx.shape[1]
+    ratio = src_size / dst_size
+    nblocks = (dst_size + block - 1) // block
+    band = min(int(math.ceil(block * ratio)) + ntaps + 1, src_size)
+    starts = np.empty(nblocks, np.int64)
+    weights = np.zeros((nblocks, block, band), np.float32)
+    for b in range(nblocks):
+        i0 = b * block
+        i1 = min(i0 + block, dst_size)
+        start = max(0, min(int(idx[i0:i1].min()), src_size - band))
+        starts[b] = start
+        rows = np.repeat(np.arange(i1 - i0), ntaps)
+        cols = (idx[i0:i1] - start).reshape(-1)
+        np.add.at(weights[b], (rows, cols), w[i0:i1].reshape(-1))
+    return starts.astype(np.int32), weights, band
+
+
+# ---------------------------------------------------------------------------
 # Plain torch resampling
 # ---------------------------------------------------------------------------
 
@@ -367,48 +406,123 @@ def _swscale_exact(
     return torch.clamp(out, 0, 255).to(torch.uint8)
 
 
+@contextlib.contextmanager
+def _full_f32_products():
+    """Run the enclosed f32 matrix products in full f32 on the card: the
+    TF32 flag is cleared for the block and restored after it, whatever
+    the caller's global setting (TF32 keeps 10 mantissa bits and would
+    move the result by ~1e-3 of its scale)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@functools.lru_cache(maxsize=64)
+def _device_banded_plan(src: int, dst: int, kernel: str, device: torch.device):
+    """`make_banded_plan` of one axis on `device`: ([nblocks, band] source
+    indices of each block's band, [nblocks, block, band] weights), copied
+    to the card once per geometry rather than once per call."""
+    starts, weights, band = make_banded_plan(src, dst, kernel)
+    idx = starts.astype(np.int64)[:, None] + np.arange(band)[None, :]
+    return torch.from_numpy(idx).to(device), torch.from_numpy(weights).to(device)
+
+
+def _banded_axis_last(x: torch.Tensor, src: int, dst: int, kernel: str) -> torch.Tensor:
+    """[..., src] -> [..., dst] via per-block band gather + batched matmul."""
+    band_idx, weights = _device_banded_plan(src, dst, kernel, x.device)
+    nblocks, block, _ = weights.shape
+    xb = x[..., band_idx]                                  # [..., n, band]
+    with _full_f32_products():
+        out = torch.einsum("...nk,nbk->...nb", xb, weights)
+    out = out.reshape(x.shape[:-1] + (nblocks * block,))
+    return out[..., :dst]
+
+
+def _banded_axis_rows(x: torch.Tensor, src: int, dst: int, kernel: str) -> torch.Tensor:
+    """[..., src, W] -> [..., dst, W]: band gather of whole rows + matmul."""
+    band_idx, weights = _device_banded_plan(src, dst, kernel, x.device)
+    nblocks, block, band = weights.shape
+    xb = torch.index_select(x, x.ndim - 2, band_idx.reshape(-1))
+    xb = xb.reshape(x.shape[:-2] + (nblocks, band, x.shape[-1]))
+    with _full_f32_products():
+        out = torch.einsum("nbk,...nkw->...nbw", weights, xb)
+    out = out.reshape(x.shape[:-2] + (nblocks * block, x.shape[-1]))
+    return out[..., :dst, :]
+
+
 def resize_plane(
     x: torch.Tensor,
     dst_h: int,
     dst_w: int,
     kernel: str = "lanczos",
     quantize_output: bool = True,
+    method: str = "auto",
 ) -> torch.Tensor:
-    """Resize [..., H, W] planes to [..., dst_h, dst_w].
+    """Resize [..., H, W] planes to [..., dst_h, dst_w], where they lie.
 
-    Integer (u8/u16) input with quantize_output: the fused two-pass resize
-    (`cuda_kernels.resize_frames_fused`) — the CUDA kernel for a CUDA
-    tensor, its plain version for a CPU tensor. u8 lanczos/bicubic runs
-    swscale's integer pipeline (bit-exact with `_swscale_exact`); u16 and
-    other u8 kernels run the reference TPU kernel's f32 arithmetic.
-    Float input, or unquantized output: the f32 tap gather (vertical,
-    then horizontal, as the reference's "gather" method), CPU only.
-    The identity geometry returns the input (f32 for float input)."""
+    Input uint8/uint16 or float; output of the input's integer type,
+    rounded half up and clipped, when quantize_output and the input was
+    integer, else float32.
+
+    method:
+      "gather" — for u8 lanczos/bicubic within the swscale envelope: the
+                 exact libswscale integer pipeline (`_swscale_exact`, the
+                 golden path). Otherwise K per-tap f32 gathers, vertical
+                 then horizontal.
+      "banded" — block-banded dense matrix products (`make_banded_plan`),
+                 horizontal then vertical, with the golden path's
+                 intermediate clamp for u8; f32 arithmetic with 14-bit
+                 weights on both axes, so a u8 result sits within one code
+                 value of the golden path.
+      "auto"   — integer input with quantized output: the fused two-pass
+                 resize (`cuda_kernels.resize_frames_fused`: the CUDA kernel
+                 for a CUDA tensor, its plain version for a CPU tensor).
+                 Otherwise "banded" on a CUDA tensor and "gather" on the
+                 CPU, as the reference routes an accelerator and the CPU.
+    The identity geometry returns integer input as it is and float input
+    as f32."""
     src_h, src_w = x.shape[-2], x.shape[-1]
     integer_in = x.dtype in (torch.uint8, torch.uint16)
-    if integer_in and quantize_output:
-        if (src_h, src_w) == (dst_h, dst_w):
-            return x
-        from . import cuda_kernels  # deferred: cuda_kernels imports us
+    if method not in ("auto", "gather", "banded"):
+        raise ValueError(f"unknown resize method {method!r}")
+    if integer_in and quantize_output and (src_h, src_w) == (dst_h, dst_w):
+        return x
+    if method == "auto":
+        if integer_in and quantize_output:
+            from . import cuda_kernels  # deferred: cuda_kernels imports us
 
-        frames = x.reshape((-1, src_h, src_w)).contiguous()
-        out = cuda_kernels.resize_frames_fused(frames, dst_h, dst_w, kernel)
-        return out.reshape(x.shape[:-2] + (dst_h, dst_w))
-    if x.is_cuda:
-        raise ValueError(
-            "the CUDA resize route takes u8/u16 frames with quantized "
-            f"output (got dtype {x.dtype}, quantize_output={quantize_output})"
-        )
+            frames = x.reshape((-1, src_h, src_w)).contiguous()
+            out = cuda_kernels.resize_frames_fused(frames, dst_h, dst_w, kernel)
+            return out.reshape(x.shape[:-2] + (dst_h, dst_w))
+        method = "banded" if x.is_cuda else "gather"
+    if (
+        method == "gather"
+        and x.dtype == torch.uint8
+        and quantize_output
+        and swscale_exact_applicable(src_h, src_w, dst_h, dst_w, kernel)
+    ):
+        return _swscale_exact(x, dst_h, dst_w, kernel)
     xf = x.to(torch.float32)
     if (src_h, src_w) != (dst_h, dst_w):
-        idx_v, w_v = make_plan(src_h, dst_h, kernel)
-        idx_h, w_h = make_plan(src_w, dst_w, kernel)
-        xf = _apply_axis(
-            xf, torch.from_numpy(idx_v), torch.from_numpy(w_v), x.ndim - 2
-        )
-        xf = _apply_axis(
-            xf, torch.from_numpy(idx_h), torch.from_numpy(w_h), x.ndim - 1
-        )
+        if method == "banded":
+            xf = _banded_axis_last(xf, src_w, dst_w, kernel)
+            if x.dtype == torch.uint8:
+                xf = torch.clamp(xf, max=32767.0 / 128.0)
+            xf = _banded_axis_rows(xf, src_h, dst_h, kernel)
+        else:
+            dev = x.device
+            idx_v, w_v = make_plan(src_h, dst_h, kernel)
+            idx_h, w_h = make_plan(src_w, dst_w, kernel)
+            xf = _apply_axis(xf, torch.from_numpy(idx_v).to(dev),
+                             torch.from_numpy(w_v).to(dev), x.ndim - 2)
+            xf = _apply_axis(xf, torch.from_numpy(idx_h).to(dev),
+                             torch.from_numpy(w_h).to(dev), x.ndim - 1)
+    if integer_in and quantize_output:
+        maxval = 255 if x.dtype == torch.uint8 else 1023
+        return torch.clamp(torch.floor(xf + 0.5), 0, maxval).to(torch.int32).to(x.dtype)
     return xf
 
 

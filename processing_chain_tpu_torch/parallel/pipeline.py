@@ -1,7 +1,8 @@
-"""Host→device transfer pipeline and the single-device flagship step
-(port of processing_chain_tpu/parallel/pipeline.py:100-153,
-`iter_device_ahead` and `avpvs_siti_step`). The sharded steps and the
-metrics step are not ported yet."""
+"""Host→device transfer pipeline, the single-device flagship step and
+the batch metrics step (port of processing_chain_tpu/parallel/
+pipeline.py:100-153 and :218-236: `iter_device_ahead`, `avpvs_siti_step`
+and `make_batch_metrics_step`). The sharded (pvs, time) steps are not
+ported yet."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import metrics as metrics_ops
 from ..ops import resize as resize_ops
 from ..ops import siti as siti_ops
 from ..utils.device import resolve_device
@@ -122,3 +124,22 @@ def avpvs_siti_step(
         si_b, ti_b = siti_ops.siti_batch(up_y[None], prev_last[None].to(up_y.dtype))
         si, ti = si_b[0], ti_b[0]
     return up_y, up_u, up_v, si, ti
+
+
+def make_batch_metrics_step(mesh):
+    """Per-frame PSNR and SSIM of a [B, T, H, W] reference batch against a
+    degraded one (BASELINE config 4): `step(ref, deg)` → (psnr [B, T],
+    ssim [B, T]) on the mesh's device. Frames are independent, so the
+    port's one-device mesh scores the batch as one stack of B·T frames."""
+
+    def step(ref: torch.Tensor, deg: torch.Tensor):
+        ref = ref.to(mesh.device)
+        deg = deg.to(mesh.device)
+        b, t = ref.shape[0], ref.shape[1]
+        r = ref.reshape((-1,) + tuple(ref.shape[2:]))
+        d = deg.reshape((-1,) + tuple(deg.shape[2:]))
+        psnr = metrics_ops.psnr_frames(r, d).reshape(b, t)
+        ssim = metrics_ops.ssim_frames(r, d).reshape(b, t)
+        return psnr, ssim
+
+    return step

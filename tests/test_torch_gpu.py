@@ -12,9 +12,12 @@ import pytest
 import torch
 
 from processing_chain_tpu_torch.models import avpvs
+from processing_chain_tpu_torch.models import segments as tseg
 from processing_chain_tpu_torch.ops import cuda_kernels as ck
+from processing_chain_tpu_torch.ops import metrics as tm
 from processing_chain_tpu_torch.ops import resize, siti
 from processing_chain_tpu_torch.parallel.pipeline import iter_device_ahead
+from processing_chain_tpu_torch.tools import quality_metrics as tqm
 
 pytestmark = pytest.mark.gpu
 
@@ -130,8 +133,10 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ck.resize_frames_fused(x, 40, 60)
     with pytest.raises(TypeError):
         ck.si_frames_fused(x)
-    with pytest.raises(ValueError):
-        resize.resize_plane(x, 40, 60)
+    # a float CUDA tensor takes the banded matrix products on the card
+    # (no kernel of this module, no CPU detour)
+    up = resize.resize_plane(x, 40, 60)
+    assert up.is_cuda and up.dtype == torch.float32 and tuple(up.shape) == (2, 40, 60)
     with pytest.raises(ValueError):
         ck.ti_frames_fused(x.to(torch.uint8)[:, :, ::2])
     assert ck.LAUNCHES == {name: 0 for name in ck.LAUNCHES}
@@ -491,3 +496,99 @@ def test_fused_fanout_cuda_equals_cpu(cuda):
     stalled, staged = runs["cuda"][0], runs["cuda"][3]
     assert all(torch.equal(x, y) for a, b in zip(stalled.chunks, staged.chunks) for x, y in zip(a, b))
     assert sum(c[0].shape[0] for c in stalled.chunks) == 24 + 9
+
+
+# ---------------------------------------------------------------------------
+# The quality path: banded resize, metrics, p01's ladder, the quality tool
+# ---------------------------------------------------------------------------
+
+
+def _smooth_pair(t, h, w, sigma, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(16, 235, size=(t, h, w)).astype(np.float32)
+    base = (base + np.roll(base, 1, 1) + np.roll(base, 1, 2)) / 3.0
+    deg = base + rng.normal(0, sigma, base.shape).astype(np.float32)
+    return torch.from_numpy(base), torch.from_numpy(deg)
+
+
+@pytest.mark.parametrize("kernel", ["bicubic", "lanczos"])
+@pytest.mark.parametrize("geom", [(270, 480, 1080, 1920), (270, 480, 90, 160),
+                                  (135, 240, 1080, 1920), (101, 77, 250, 33)])
+def test_banded_on_a_cuda_float_tensor_equals_the_cpu_route(cuda, kernel, geom):
+    """f32 products of 14-bit weights on values up to 255: within 1e-3 of
+    the CPU's banded route; TF32 (10-bit mantissas) would miss by ~0.1,
+    so the check also holds with the global TF32 flag set."""
+    sh, sw, dh, dw = geom
+    x = _smooth_pair(3, sh, sw, 0.0, sh + dw)[0]
+    want = resize.resize_plane(x, dh, dw, kernel, method="banded")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            got = resize.resize_plane(x.to(cuda), dh, dw, kernel)
+            assert got.is_cuda and torch.backends.cuda.matmul.allow_tf32 is flag
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert ck.LAUNCHES == {name: 0 for name in ck.LAUNCHES}
+
+
+@pytest.mark.parametrize("sigma", [0.0, 6.0])
+def test_metrics_on_the_card_equal_the_cpu(cuda, sigma):
+    ref, deg = _smooth_pair(3, 180, 200, sigma, 5)
+    r, d = ref.to(cuda), deg.to(cuda)
+    torch.testing.assert_close(tm.psnr_frames(r, d).cpu(), tm.psnr_frames(ref, deg),
+                               rtol=0, atol=1e-4)
+    for fn in (tm.ssim_frames, tm.msssim_frames, tm.vif_frames):
+        got = fn(r, d)
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), fn(ref, deg), rtol=0, atol=2e-5)
+    if sigma == 0.0:
+        assert (tm.psnr_frames(r, d) == 100.0).all()
+
+
+@pytest.mark.parametrize("src,width,fps", [((384, 768), 64, 15.0), ((96, 192), 128, 30.0)])
+def test_ladder_chunk_on_the_card_equals_the_cpu(cuda, src, width, fps):
+    """p01's device half at 12x (resize_stream) and at 1.5x bicubic
+    (resize_ring, 6 taps a pass): identical to the CPU's plain path."""
+    h, w = src
+    rng = np.random.default_rng(h)
+    planes = [rng.integers(0, 256, (20,) + s).astype(np.uint8)
+              for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    chunks = [[p[i:i + 8] for p in planes] for i in range(0, 20, 8)]
+    th, tw, target_fps, _ = tseg.plan_segment_frames(h, w, 60.0, width, fps)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        ck.reset_launches()
+        runs[str(dev)] = list(tseg.scaled_chunks(iter(chunks), 60.0, target_fps, th, tw,
+                                                 "yuv420p", device=dev))
+        if dev is cuda:
+            assert ck.LAUNCHES["resize_frames_fused"] == 3 * len(runs[str(dev)])
+    got, want = runs[str(cuda)], runs["cpu"]
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        for p, q in zip(a, b):
+            assert p.dtype == np.uint8
+            np.testing.assert_array_equal(p, q)
+
+
+def test_score_chunks_on_the_card_equals_the_cpu_route(cuda):
+    """One 8-frame chunk, MS-SSIM and VIF on, the SRC at half the AVPVS
+    grid: the card (banded resize) against the CPU with banded forced."""
+    rng = np.random.default_rng(8)
+    deg = [torch.from_numpy(rng.integers(0, 256, (8,) + s).astype(np.uint8))
+           for s in ((180, 192), (90, 96), (90, 96))]
+    ref = [p[:, ::2, ::2].contiguous() for p in deg]
+    tables = {}
+    for dev, method in ((cuda, "auto"), ("cpu", "banded")):
+        ck.reset_launches()
+        tables[str(dev)] = tqm.score_chunks(iter([(deg, ref)]), msssim=True, vif=True,
+                                            device=dev, resize_method=method)
+        if dev is cuda:
+            assert ck.LAUNCHES["si_frames_fused"] == ck.LAUNCHES["ti_frames_fused"] == 1
+            assert ck.LAUNCHES["resize_frames_fused"] == 0
+    got, want = tables[str(cuda)], tables["cpu"]
+    assert list(got) == list(want)
+    atol = {"psnr_y": 1e-3, "psnr_u": 1e-3, "psnr_v": 1e-3, "si": 1e-3, "ti": 1e-3}
+    for k in list(got)[1:]:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol.get(k, 1e-4), err_msg=k)

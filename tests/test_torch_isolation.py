@@ -6,10 +6,15 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from processing_chain_tpu_torch.models import avpvs as ta
+from processing_chain_tpu_torch.models import segments as tseg
 from processing_chain_tpu_torch.parallel import mesh as tmesh
+from processing_chain_tpu_torch.priors import features as tfeat
+from processing_chain_tpu_torch.tools import quality_metrics as tqm
+from processing_chain_tpu_torch.tools import src_analysis as tsa
 from processing_chain_tpu_torch.utils import device as tdev
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -18,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "processing_chain_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tune_siti.py")]
+    files = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "tune_siti.py", "tune_resize.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -60,7 +65,13 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.ops.pixfmt",
                 "processing_chain_tpu_torch.config.domain",
                 "processing_chain_tpu_torch.models.cpvs",
-                "processing_chain_tpu_torch.models.fused"):
+                "processing_chain_tpu_torch.models.fused",
+                "processing_chain_tpu_torch.models.segments",
+                "processing_chain_tpu_torch.ops.fps",
+                "processing_chain_tpu_torch.ops.metrics",
+                "processing_chain_tpu_torch.tools.quality_metrics",
+                "processing_chain_tpu_torch.tools.src_analysis",
+                "processing_chain_tpu_torch.priors.features", "tune_resize"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -91,6 +102,18 @@ def test_default_device_raises_without_cuda(monkeypatch):
         ta.chunk_frames()
     with pytest.raises(tdev.DeviceError):
         tmesh.make_mesh()
+    with pytest.raises(tdev.DeviceError):
+        tseg.scaled_chunks(iter([]), 60.0, 30.0, 8, 8, "yuv420p")
+    with pytest.raises(tdev.DeviceError):
+        tqm.score_chunks(iter([]))
+    with pytest.raises(tdev.DeviceError):
+        tsa.src_siti_summary(iter([]))
+    with pytest.raises(tdev.DeviceError):
+        tfeat.temporal_features(None)
+    with pytest.raises(tdev.DeviceError):
+        tfeat.mv_magnitudes(np.zeros((1, 7), np.int32))
+    with pytest.raises(tdev.DeviceError):
+        tfeat.field_divergence(np.zeros((2, 2, 2), np.float32))
     with pytest.raises(tdev.DeviceError, match="out of range"):
         tdev.select_device(0)
     assert tdev.device_count() == 0

@@ -70,6 +70,18 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      Then tools.src_analysis.src_siti_summary over phase 9's 2160p
      segments and priors.features.temporal_features on a seeded 240-frame
      1080p MV table, each against the CPU route
+ 11. the serve path: processing_chain_tpu_torch.serve.ChainServeService
+     with the `wave` executor on the card (workers 1, wave width 4), over
+     HTTP: request A (lab-a, P2STR01, SRC001-002 x HRC001-002: 4 units of
+     60 seeded 1920x1080 yuv420p frames -> 3840x2160 bicubic), request B
+     (lab-b, SRC002 x HRC002-003) posted while A runs (one unit shared),
+     both done, then A again (warm). Every request done, 5 plans executed
+     once each, no new wave for the warm re-POST, every artifact fetched
+     over /v1/artifacts equal (sha256) to its unit's seeded YUV through
+     the plain resize on the card, the wave journal's valid + pads ==
+     dispatched on every record; cold seconds of A and B, warm ms, served
+     frames/s, batches and lanes, launches, device ms per 8-frame wave
+     block, peak device bytes, bytes written; the serve root is removed
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -78,6 +90,7 @@ needs neither PIL nor libav: the spinner is built in numpy.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import queue
@@ -86,6 +99,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -104,6 +119,9 @@ from processing_chain_tpu_torch.ops import resize as resize_ops
 from processing_chain_tpu_torch.parallel import mesh as pmesh
 from processing_chain_tpu_torch.parallel import meshobs, p03_batch, pipeline
 from processing_chain_tpu_torch.priors import features as prior_features
+from processing_chain_tpu_torch import telemetry as serve_tm
+from processing_chain_tpu_torch.serve import api as serve_api
+from processing_chain_tpu_torch.serve.service import ChainServeService
 from processing_chain_tpu_torch.tools import quality_metrics as qm
 from processing_chain_tpu_torch.tools import src_analysis
 
@@ -1459,6 +1477,253 @@ def run_priors(dev) -> dict:
             "max_err": err, "mv_magnitudes_max_err": mag_err}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serve path
+# ---------------------------------------------------------------------------
+
+SERVE_GEO = {"frames": 60, "src_h": SRC_H, "src_w": SRC_W, "dst_h": DST_H, "dst_w": DST_W}
+SERVE_A = {"tenant": "lab-a", "database": "P2STR01", "srcs": ["SRC001", "SRC002"],
+           "hrcs": ["HRC001", "HRC002"], "params": SERVE_GEO}
+SERVE_B = {"tenant": "lab-b", "database": "P2STR01", "srcs": ["SRC002"],
+           "hrcs": ["HRC002", "HRC003"], "params": SERVE_GEO}
+SERVE_PLANS = 5  # A's 4 units and B's 2 share SRC002_HRC002
+SERVE_BLOCK = 8  # the wave executor's chunk
+
+
+def _http(url: str, payload=None, timeout: float = 120.0):
+    """(status, body bytes) of one GET, or of one POST of `payload`."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def _http_sha256(url: str) -> tuple:
+    """(status, sha256 hex, bytes) of one streamed GET."""
+    h = hashlib.sha256()
+    n = 0
+    with urllib.request.urlopen(url, timeout=600) as resp:
+        while True:
+            block = resp.read(1 << 22)
+            if not block:
+                break
+            h.update(block)
+            n += len(block)
+        return resp.status, h.hexdigest(), n
+
+
+def _metric_sum(name: str, labels=None) -> float:
+    """Sum of a port telemetry metric's series matching `labels`."""
+    return serve_tm.REGISTRY.sum_series(name, labels) or 0.0
+
+
+def _wait_done(url: str, req_id: str, timeout: float) -> tuple:
+    """Poll one request until it leaves `active`: (doc, client seconds)."""
+    t0 = time.perf_counter()
+    while True:
+        code, body = _http(f"{url}/v1/requests/{req_id}")
+        require(code == 200, f"serve: GET {req_id} -> {code}")
+        doc = json.loads(body)
+        if doc["state"] != "active":
+            return doc, time.perf_counter() - t0
+        require(time.perf_counter() - t0 < timeout, f"serve: {req_id} still active")
+        time.sleep(0.01)
+
+
+def serve_reference(dev, executor, unit) -> str:
+    """sha256 of one unit's artifact by the plain route on the card: its
+    seeded YUV through the plain bicubic resize (quantized to u8), Y then
+    U then V, in frame order."""
+    h = hashlib.sha256()
+    geo = SERVE_GEO
+    dims = [(geo["dst_h"], geo["dst_w"]), (geo["dst_h"] // 2, geo["dst_w"] // 2),
+            (geo["dst_h"] // 2, geo["dst_w"] // 2)]
+    for plane, (dh, dw) in zip(executor.source_planes(unit), dims):
+        out = ck.resize_frames_plain(torch.from_numpy(plane).to(dev), dh, dw, "bicubic")
+        h.update(out.cpu().numpy().tobytes())
+        del out
+    return h.hexdigest()
+
+
+def run_serve(dev, workdir: str) -> dict:
+    """Phase 11: the serve path at full width (see the module doc)."""
+    root = os.path.join(workdir, "serve")
+    shutil.rmtree(root, ignore_errors=True)
+    svc = ChainServeService(root=root, port=0, executor="wave", workers=1,
+                            wave_width=4, device=dev)
+    try:
+        svc.start()
+        return _drive_serve(dev, svc)
+    finally:
+        svc.stop()
+        meshobs.detach_journal()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _drive_serve(dev, svc) -> dict:
+    url = svc.server.url
+    frames = SERVE_GEO["frames"]
+    planned0 = _metric_sum("chain_jobs_planned_total", {"runner": "serve"})
+    waves0 = _metric_sum("chain_serve_waves_total")
+    serve_tm.EVENTS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    code, body = _http(url + "/v1/requests", SERVE_A)
+    require(code == 202, f"serve: POST A -> {code} {body[:300]!r}")
+    acc_a = json.loads(body)
+    # B goes in while A's wave runs: wait until one of A's units runs
+    while True:
+        doc = json.loads(_http(url + acc_a["url"])[1])
+        if doc["state"] != "active" or any(
+                u["state"] in ("running", "done") for u in doc["units"].values()):
+            break
+        require(time.perf_counter() - t0 < 120, "serve: A never started running")
+        time.sleep(0.005)
+    a_running = doc["state"] == "active"
+    t_b = time.perf_counter()
+    code, body = _http(url + "/v1/requests", SERVE_B)
+    require(code == 202, f"serve: POST B -> {code} {body[:300]!r}")
+    acc_b = json.loads(body)
+    doc_a, _ = _wait_done(url, acc_a["request"], 600)
+    t_a = time.perf_counter() - t0
+    doc_b, _ = _wait_done(url, acc_b["request"], 600)
+    t_all = time.perf_counter() - t0
+    t_b = time.perf_counter() - t_b
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(doc_a["state"] == "done" and doc_b["state"] == "done",
+            f"serve: A {doc_a['state']} {doc_a.get('error')}, B {doc_b['state']} "
+            f"{doc_b.get('error')}")
+    planned = int(_metric_sum("chain_jobs_planned_total", {"runner": "serve"}) - planned0)
+    waves = int(_metric_sum("chain_serve_waves_total") - waves0)
+    events = serve_tm.EVENTS.records()
+    batches = [e["units"] for e in events if e.get("event") == "serve_wave"]
+    # run_batch seconds of each unit's job (Job.run times its fn, the
+    # wave's run_batch; the store commit follows it)
+    job_s = sorted(e["duration_s"] for e in events
+                   if e.get("event") == "job_end" and e.get("status") == "ok")
+    log(f"serve: A done in {t_a:.3f} s (server {doc_a['latency_ms']} ms), B in {t_b:.3f} s "
+        f"(server {doc_b['latency_ms']} ms); B posted while A ran: {a_running}, B's units "
+        f"{acc_b['outcomes']}; planned {planned}, waves {waves}, batches {batches}, "
+        f"launches {launches}")
+    require(planned == SERVE_PLANS, f"serve: {planned} plans executed, not {SERVE_PLANS}")
+    require(sum(batches) == SERVE_PLANS and len(batches) == waves,
+            f"serve: batches {batches} for {waves} waves")
+    blocks = SERVE_PLANS * -(-frames // SERVE_BLOCK)  # one lane a wave slot (pvs=1)
+    want = launches_want(resize_frames_fused=3 * blocks, siti_frames_fused_batch=blocks)
+    require(launches == want, f"serve: launches {launches} != {want}")
+
+    # the warm re-POST: answered at submit, no new wave, no new plan
+    t1 = time.perf_counter()
+    code, body = _http(url + "/v1/requests", SERVE_A)
+    warm_ms = (time.perf_counter() - t1) * 1e3
+    acc_w = json.loads(body)
+    require(code == 202 and acc_w["state"] == "done"
+            and acc_w["outcomes"]["warm"] == len(doc_a["units"]),
+            f"serve: warm re-POST -> {code} {acc_w}")
+    require(_metric_sum("chain_serve_waves_total") - waves0 == waves
+            and _metric_sum("chain_jobs_planned_total", {"runner": "serve"}) - planned0 == planned,
+            "serve: the warm re-POST ran a wave")
+    log(f"serve: warm re-POST of A answered in {warm_ms:.3f} ms (server "
+        f"{acc_w['latency_ms']} ms)")
+
+    # the wave journal: valid + pads == dispatched on every record
+    records = [r for r in meshobs.read_journals(meshobs.mesh_dir(svc.root))
+               if r.get("kind") == "wave"]
+    require(len(records) == blocks, f"serve: {len(records)} wave records, not {blocks}")
+    for r in records:
+        require(r["valid"] + r["pad_tail"] + r["pad_exhausted"] + r["pad_mesh"]
+                == r["dispatched"], f"serve: wave record {r}")
+    step_s = sum(r["step_s"] for r in records)
+
+    # every artifact, over HTTP, against the plain route on the card
+    units = {}
+    for doc in (doc_a, doc_b):
+        for pvs, u in doc["units"].items():
+            units[u["plan"]] = (pvs, u)
+    require(len(units) == SERVE_PLANS, f"serve: {len(units)} distinct plans")
+    size = frames * SERVE_GEO["dst_h"] * SERVE_GEO["dst_w"] * 3 // 2
+    written = 0
+    t_fetch = t_ref = 0.0
+    seed_s = []
+    for plan, (pvs, u) in sorted(units.items()):
+        require(u["state"] == "done", f"serve: unit {pvs} {u['state']}")
+        t2 = time.perf_counter()
+        code, digest, n = _http_sha256(url + u["artifact"])
+        t_fetch += time.perf_counter() - t2
+        require(code == 200 and n == size, f"serve: {pvs}: GET -> {code}, {n} bytes, not {size}")
+        _, src, hrc = pvs.split("_")
+        unit = serve_api.Unit("P2STR01", src, hrc, dict(SERVE_GEO))
+        require(svc.store.plan_hash(svc.executor.plan(unit)) == plan,
+                f"serve: {pvs}: plan hash differs")
+        t2 = time.perf_counter()
+        svc.executor.source_planes(unit)
+        seed_s.append(time.perf_counter() - t2)
+        t2 = time.perf_counter()
+        ref = serve_reference(dev, svc.executor, unit)
+        t_ref += time.perf_counter() - t2
+        require(digest == ref, f"serve: {pvs}: artifact differs from the plain route")
+        written += n
+    log(f"serve: {len(units)} artifacts of {size} bytes equal the plain route "
+        f"(fetch {t_fetch:.2f} s, reference {t_ref:.2f} s)")
+
+    # kernel vs plain at the serve path's wave-block shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    yb = random_frames(gen, (1, SERVE_BLOCK, DST_H, DST_W), 255, torch.uint8, dev)
+    prevb = random_frames(gen, (1, DST_H, DST_W), 255, torch.uint8, dev)
+    got = ck.siti_frames_fused_batch(yb, prevb)
+    want_siti = ck.siti_frames_batch_plain(yb, prevb)
+    siti_err = max(max_abs(a, b) for a, b in zip(got, want_siti))
+    require(all(torch.allclose(a, b, rtol=1e-4, atol=1e-3) for a, b in zip(got, want_siti)),
+            f"serve: siti_frames_fused_batch [1,8] off plain by {siti_err}")
+    # device ms of one wave block: the wave step on [1, 8] planes, queued
+    step = p03_batch._wave_step(DST_H, DST_W, "bicubic", 2, 2, False)
+    planes = [random_frames(gen, (1, SERVE_BLOCK) + s[1:], 255, torch.uint8, dev)
+              for s in plane_shapes(SERVE_BLOCK)]
+    block_ms, block_host_ms = time_ms_queued(lambda: step(*planes, prevb, False), reps=20)
+    del yb, prevb, got, want_siti, planes
+    ck.reset_launches()
+
+    rendered = SERVE_PLANS * frames
+    result = {
+        "cold_a_s": t_a, "cold_b_s": t_b, "cold_both_s": t_all,
+        "server_latency_ms": {"a": doc_a["latency_ms"], "b": doc_b["latency_ms"],
+                              "warm": acc_w["latency_ms"]},
+        "warm_ms": warm_ms, "b_posted_while_a_ran": a_running,
+        "b_outcomes": acc_b["outcomes"],
+        "served_frames_per_s": rendered / t_all,
+        "requested_frames_per_s": (len(doc_a["units"]) + len(doc_b["units"])) * frames / t_all,
+        "plans_executed": planned, "waves": waves, "lanes_per_batch": batches,
+        "launches": launches, "wave_blocks": blocks, "step_s_sum": step_s,
+        "job_run_batch_s": job_s, "seed_s_per_unit": seed_s,
+        "device_ms_per_block": block_ms, "host_enqueue_ms_per_block": block_host_ms,
+        # an estimate, not a reading of the window: wave blocks times the
+        # event-timed device ms of one block (timed after the window)
+        "device_busy_share_est": blocks * block_ms / 1e3 / t_all,
+        "peak_device_bytes": peak, "bytes_written": written,
+        "siti_batch_max_err": siti_err,
+    }
+    log(f"serve: {result['served_frames_per_s']:.2f} rendered frames/s "
+        f"({rendered} frames in {t_all:.3f} s; {result['requested_frames_per_s']:.2f} "
+        f"requested frames/s), device {block_ms:.4f} ms per {SERVE_BLOCK}-frame block "
+        f"(card busy ~{100 * result['device_busy_share_est']:.2f}% est. from blocks x block ms), "
+        f"peak {peak} B, "
+        f"{written} bytes written")
+    log(f"serve: where the time goes: run_batch per job {job_s} s (waves of "
+        f"{batches} units; seeding a unit's YUV {min(seed_s):.3f}-{max(seed_s):.3f} s, "
+        f"wave steps {step_s:.3f} s in all), the rest of {t_all:.3f} s is store "
+        f"commits (sha256 of each artifact), HTTP and queue settles")
+    return result
+
+
 def libav_probe() -> str:
     """Whether the native media layer's libav could load here: does
     libavcodec.so.59 open, and which libav headers exist. Printed for the
@@ -1529,6 +1794,11 @@ def main() -> int:
     del sources
     priors = run_priors(dev)
     log(f"phases 9-10: {time.perf_counter() - t9:.1f} s")
+    t11 = time.perf_counter()
+    serve = run_serve(dev, workdir)
+    err["siti_frames_fused_batch"] = max(err["siti_frames_fused_batch"],
+                                         serve["siti_batch_max_err"])
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -1537,7 +1807,8 @@ def main() -> int:
              **{f"staged_stall_{k}": v["staged_launches"] for k, v in downstream.items()},
              **{f"p01_ladder_{k}": v["launches"] for k, v in ladder.items()},
              **{f"quality_metrics_{k}": v["launches"] for k, v in quality.items()},
-             **{f"src_analysis_{k}": v["launches"] for k, v in src_summary.items()}}
+             **{f"src_analysis_{k}": v["launches"] for k, v in src_summary.items()},
+             "serve_wave": serve["launches"]}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
@@ -1561,7 +1832,7 @@ def main() -> int:
     log(json.dumps({"main_path": [main8, main10], "flagship": flagship,
                     "waves": waves, "downstream": downstream, "p01_ladder": ladder,
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
-                    "card": smi}))
+                    "serve": serve, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

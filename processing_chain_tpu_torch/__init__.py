@@ -10,7 +10,13 @@ Ported so far: the p03 AVPVS device render (canvas resize of Y/U/V,
 container-depth quantize, per-frame SI/TI sidecar), the batched wave
 render on one device (parallel/p03_batch.run_bucket), the flagship step
 (parallel/pipeline.avpvs_siti_step), the stalling pass and the device
-half of p04 (ops/overlay, models/cpvs, models/fused), with a
-hand-written CUDA kernel for each of the five TPU kernels
-(ops/cuda_kernels.py).
+half of p04 (ops/overlay, models/cpvs, models/fused), the device halves
+of p01 and the tools, and the chain-serve daemon with its wave executor
+(serve/, store/, `python -m processing_chain_tpu_torch tools
+chain-serve`), with a hand-written CUDA kernel for each of the five TPU
+kernels (ops/cuda_kernels.py).
 """
+
+#: the fallback chain version when neither `git describe` nor VERSION
+#: answers (the reference package's, so plan hashes agree)
+__version__ = "0.1.0"

@@ -7,7 +7,7 @@ time ("time", sequence parallelism with a one-frame TI halo) over a 2-D
 device slots, all on that device, whose "pvs" lanes share it as one
 [n_pvs, T, H, W] batch. A list may repeat a device (`["cpu"] * 4`, the
 counterpart of the JAX tests' forced 8-device CPU host). Several distinct
-devices and `time_parallel > 1` are multi-GPU work (ROADMAP Queue A 14)
+devices and `time_parallel > 1` are multi-GPU work (ROADMAP Queue A 12)
 and raise.
 """
 
@@ -44,7 +44,7 @@ def make_mesh(devices: Optional[Sequence] = None, time_parallel: int = 1) -> Mes
     if time_parallel > 1:
         raise NotImplementedError(
             f"time_parallel={time_parallel}: the time split with its TI halo "
-            "exchange is multi-GPU work, not ported yet (ROADMAP Queue A 14)"
+            "exchange is multi-GPU work, not ported yet (ROADMAP Queue A 12)"
         )
     if devices is None:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -56,6 +56,6 @@ def make_mesh(devices: Optional[Sequence] = None, time_parallel: int = 1) -> Mes
     if len(set(devs)) > 1:
         raise NotImplementedError(
             f"make_mesh over {len(set(devs))} distinct devices: multi-GPU "
-            "meshes are not ported yet (ROADMAP Queue A 14)"
+            "meshes are not ported yet (ROADMAP Queue A 12)"
         )
     return Mesh(tuple(devs))

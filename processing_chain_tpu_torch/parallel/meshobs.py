@@ -307,3 +307,8 @@ def aggregate(root: str) -> dict:
     totals["compile_s"] = round(totals["compile_s"], 4)
     return {"buckets": buckets, "totals": totals, "schedule": schedule,
             "invariant_violations": violations}
+
+
+def mesh_dir(root: str) -> str:
+    """The journal directory convention of one serve root."""
+    return os.path.join(os.path.abspath(root), "meshobs")

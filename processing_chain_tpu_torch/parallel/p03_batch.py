@@ -5,7 +5,7 @@ The JAX package batches the per-PVS rescale (device resize + bit-depth
 quantize + SI/TI of the quantized luma) over a (pvs x time) mesh. The
 port's mesh (parallel/mesh.py) is one device whose "pvs" slots share it
 as one [n_pvs, t_step, H, W] batch; the time split is not ported (ROADMAP
-Queue A 14). The padding and bucketing policy is the JAX package's:
+Queue A 12). The padding and bucketing policy is the JAX package's:
 
   * Lanes (PVS streams) batch together only when their full geometry
     matches, (src_h, src_w, dst_h, dst_w, pix_fmt): the bucket key.

@@ -1,8 +1,10 @@
-"""Filesystem write discipline (copy of `atomic_write` from
+"""Filesystem write discipline (copy of `atomic_write`, `atomic_write_text`
+and `atomic_write_json` from
 processing_chain_tpu/utils/fsio.py)."""
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from typing import Callable
@@ -50,3 +52,26 @@ def atomic_write(path: str, write_fn: Callable[[str], None],
         raise
     if durable:
         _fsync_path(os.path.dirname(os.path.abspath(path)))
+
+
+def atomic_write_text(path: str, text: str, durable: bool = False) -> None:
+    """atomic_write of one pre-rendered string: owns the open/close so no
+    caller can forget the flush before the replace."""
+    def _write(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            f.write(text)
+
+    atomic_write(path, _write, durable=durable)
+
+
+def atomic_write_json(path: str, obj, durable: bool = False,
+                      **json_kw) -> None:
+    """atomic_write of one JSON document (indent=1 by default, the chain's
+    artifact style)."""
+    json_kw.setdefault("indent", 1)
+
+    def _write(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            json.dump(obj, f, **json_kw)
+
+    atomic_write(path, _write, durable=durable)

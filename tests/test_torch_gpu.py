@@ -592,3 +592,70 @@ def test_score_chunks_on_the_card_equals_the_cpu_route(cuda):
     atol = {"psnr_y": 1e-3, "psnr_u": 1e-3, "psnr_v": 1e-3, "si": 1e-3, "ti": 1e-3}
     for k in list(got)[1:]:
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol.get(k, 1e-4), err_msg=k)
+
+
+# the serve path's wave executor: an upscale (resize_ring) and a downscale
+# (resize_stream), lanes of unequal length in one batch
+SERVE_GEOMETRIES = [
+    {"src_h": 36, "src_w": 64, "dst_h": 72, "dst_w": 128},
+    {"src_h": 72, "src_w": 128, "dst_h": 36, "dst_w": 64},
+    {"src_h": 270, "src_w": 480, "dst_h": 540, "dst_w": 960},
+]
+
+
+@pytest.mark.parametrize("geo", SERVE_GEOMETRIES,
+                         ids=lambda g: f"{g['src_h']}x{g['src_w']}-{g['dst_h']}x{g['dst_w']}")
+def test_wave_executor_on_the_card_writes_the_cpu_bytes(cuda, tmp_path, geo):
+    from processing_chain_tpu_torch.serve import api
+    from processing_chain_tpu_torch.serve.executors import DeviceWaveExecutor
+
+    units = [api.Unit("P2STR01", "SRC001", "HRC001", {**geo, "frames": 12}),
+             api.Unit("P2STR01", "SRC002", "HRC001", {**geo, "frames": 21})]
+    out = {}
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        d = tmp_path / name
+        d.mkdir()
+        paths = [str(d / f"{u.pvs_id}.bin") for u in units]
+        DeviceWaveExecutor(device=dev).run_batch(units, paths)
+        out[name] = [open(p, "rb").read() for p in paths]
+    blocks = sum(-(-u.params["frames"] // 8) for u in units)
+    assert ck.LAUNCHES["resize_frames_fused"] == 3 * blocks
+    assert ck.LAUNCHES["siti_frames_fused_batch"] == blocks
+    assert out["card"] == out["cpu"]
+
+
+def test_wave_service_on_the_card_serves_the_cpu_bytes(cuda, tmp_path):
+    import json
+    import urllib.request
+
+    from processing_chain_tpu_torch import telemetry as ptm
+    from processing_chain_tpu_torch.serve.api import Unit
+    from processing_chain_tpu_torch.serve.executors import DeviceWaveExecutor
+    from processing_chain_tpu_torch.serve.service import ChainServeService
+    from processing_chain_tpu_torch.store import runtime as store_runtime
+
+    geo = {"frames": 20, **SERVE_GEOMETRIES[2]}
+    body = {"tenant": "lab-a", "database": "P2STR01", "srcs": ["SRC001", "SRC002"],
+            "hrcs": ["HRC001"], "params": geo}
+    svc = ChainServeService(root=str(tmp_path / "serve"), port=0, executor="wave",
+                            workers=1, device=cuda).start()
+    try:
+        req = urllib.request.Request(svc.server.url + "/v1/requests",
+                                     data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req) as resp:
+            acc = json.load(resp)
+        assert svc.wait_request(acc["request"], timeout=120.0) == "done"
+        units = svc.request_status(acc["request"])["units"]
+        assert ck.LAUNCHES["siti_frames_fused_batch"] == 2 * 3
+        cpu = DeviceWaveExecutor(device="cpu")
+        for pvs, u in units.items():
+            with urllib.request.urlopen(svc.server.url + u["artifact"]) as resp:
+                served = resp.read()
+            _, src, hrc = pvs.split("_")
+            path = str(tmp_path / f"{pvs}.bin")
+            cpu.run_batch([Unit("P2STR01", src, hrc, dict(geo))], [path])
+            assert served == open(path, "rb").read()
+    finally:
+        svc.stop()
+        store_runtime.configure(None)
+        ptm.disable()

@@ -71,7 +71,27 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.ops.metrics",
                 "processing_chain_tpu_torch.tools.quality_metrics",
                 "processing_chain_tpu_torch.tools.src_analysis",
-                "processing_chain_tpu_torch.priors.features", "tune_resize"):
+                "processing_chain_tpu_torch.priors.features", "tune_resize",
+                "processing_chain_tpu_torch.serve.service",
+                "processing_chain_tpu_torch.serve.queue",
+                "processing_chain_tpu_torch.serve.scheduler",
+                "processing_chain_tpu_torch.serve.executors",
+                "processing_chain_tpu_torch.serve.spans",
+                "processing_chain_tpu_torch.serve.api",
+                "processing_chain_tpu_torch.store.store",
+                "processing_chain_tpu_torch.store.keys",
+                "processing_chain_tpu_torch.store.runtime",
+                "processing_chain_tpu_torch.store.backends.local",
+                "processing_chain_tpu_torch.engine.jobs",
+                "processing_chain_tpu_torch.telemetry.live",
+                "processing_chain_tpu_torch.telemetry.catalog",
+                "processing_chain_tpu_torch.telemetry.heartbeat",
+                "processing_chain_tpu_torch.utils.runner",
+                "processing_chain_tpu_torch.utils.lockdebug",
+                "processing_chain_tpu_torch.utils.version",
+                "processing_chain_tpu_torch.config.ids",
+                "processing_chain_tpu_torch.tools.chain_serve",
+                "processing_chain_tpu_torch.__main__"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -118,3 +138,38 @@ def test_default_device_raises_without_cuda(monkeypatch):
         tdev.select_device(0)
     assert tdev.device_count() == 0
     assert str(tdev.resolve_device("cpu")) == "cpu"
+
+
+def test_serve_refuses_to_run_without_cuda(tmp_path):
+    """The wave executor of the service and of `tools chain-serve` runs
+    on `cuda:0` unless a device is given: without CUDA both refuse, and
+    nothing drops to the CPU on its own."""
+    if tdev.torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default device resolves")
+    from processing_chain_tpu_torch.serve import executors as texec
+    from processing_chain_tpu_torch.serve.service import ChainServeService
+    from processing_chain_tpu_torch.store import runtime as store_runtime
+    from processing_chain_tpu_torch import telemetry as ttm
+    from processing_chain_tpu_torch.tools import chain_serve
+
+    try:
+        with pytest.raises(tdev.DeviceError, match="CUDA is not available"):
+            ChainServeService(root=str(tmp_path / "svc"), port=0, executor="wave")
+        with pytest.raises(tdev.DeviceError, match="CUDA is not available"):
+            texec.DeviceWaveExecutor()
+        with pytest.raises(tdev.DeviceError, match="CUDA is not available"):
+            chain_serve.main(["--root", str(tmp_path / "cli"), "--port", "0",
+                              "--executor", "wave"])
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run(
+            [sys.executable, "-m", "processing_chain_tpu_torch", "tools",
+             "chain-serve", "--root", str(tmp_path / "cli2"), "--port", "0",
+             "--executor", "wave"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode != 0
+        assert "CUDA is not available" in proc.stderr
+        assert not os.path.exists(tmp_path / "cli2" / "serve-info.json")
+    finally:
+        store_runtime.configure(None)
+        ttm.disable()

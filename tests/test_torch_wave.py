@@ -302,9 +302,9 @@ def test_bufpool_recycles_exact_blocks_only():
 def test_make_mesh_shapes_and_refusals():
     mesh = tmesh.make_mesh(["cpu"] * 4)
     assert mesh.shape == {"pvs": 4, "time": 1} and mesh.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
+    with pytest.raises(NotImplementedError, match="Queue A 12"):
         tmesh.make_mesh(["cpu"] * 4, time_parallel=2)
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
+    with pytest.raises(NotImplementedError, match="Queue A 12"):
         tmesh.make_mesh(["cpu", "meta"])
     with pytest.raises(ValueError):
         tmesh.make_mesh([])

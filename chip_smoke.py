@@ -82,6 +82,24 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      dispatched on every record; cold seconds of A and B, warm ms, served
      frames/s, batches and lanes, launches, device ms per 8-frame wave
      block, peak device bytes, bytes written; the serve root is removed
+ 12. the (pvs, time) mesh: (a) run_bucket on make_mesh([cuda:0] * 4,
+     time_parallel=2) (pvs=2, time=2, the one-frame TI halo between the
+     64-frame block's two 32-frame halves) with lanes of 600, 250, 200 and
+     130 frames, 1920x1080 yuv420p -> 3840x2160 bicubic: every emitted
+     block equal to the plain resize on the card, SI/TI within 1e-3 of
+     the plain route chained across chunks and of the same lanes on the
+     pvs-only 4-slot mesh (4x1), the journal's valid + pads ==
+     dispatched and mesh "2x2" on every record, 3 resize + 1
+     siti_frames_fused_batch launches a block; then both meshes unchecked
+     for frames/s, and the wave step's device ms a resident block;
+     (b) parallel.pipeline.make_sharded_step on seeded u8 [2, 64, 1080,
+     1920] -> 2160x3840 lanczos over the 2x2 mesh against avpvs_siti_step
+     per lane with prev_last chained across the time halves; (c) the stall
+     compositor sharded over the 4 slots on phase 7's first stalled chunk
+     (spinner) and a freeze chunk, identical to one device, and
+     make_batch_metrics_step on the mesh equal to one slot; (d) with two
+     or more cards, (a) again on distinct cards, else one line saying that
+     route was not run
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -1686,9 +1704,11 @@ def _drive_serve(dev, svc) -> dict:
             f"serve: siti_frames_fused_batch [1,8] off plain by {siti_err}")
     # device ms of one wave block: the wave step on [1, 8] planes, queued
     step = p03_batch._wave_step(DST_H, DST_W, "bicubic", 2, 2, False)
-    planes = [random_frames(gen, (1, SERVE_BLOCK) + s[1:], 255, torch.uint8, dev)
+    lay = pmesh.BlockLayout(pmesh.make_mesh([dev]), 1, SERVE_BLOCK)
+    planes = [lay.split(random_frames(gen, (1, SERVE_BLOCK) + s[1:], 255, torch.uint8, dev))
               for s in plane_shapes(SERVE_BLOCK)]
-    block_ms, block_host_ms = time_ms_queued(lambda: step(*planes, prevb, False), reps=20)
+    block_ms, block_host_ms = time_ms_queued(lambda: step(lay, planes, [prevb[0]], False),
+                                             reps=20)
     del yb, prevb, got, want_siti, planes
     ck.reset_launches()
 
@@ -1721,6 +1741,290 @@ def _drive_serve(dev, svc) -> dict:
         f"{batches} units; seeding a unit's YUV {min(seed_s):.3f}-{max(seed_s):.3f} s, "
         f"wave steps {step_s:.3f} s in all), the rest of {t_all:.3f} s is store "
         f"commits (sha256 of each artifact), HTTP and queue settles")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the (pvs, time) mesh
+# ---------------------------------------------------------------------------
+
+MESH_LANES = (600, 250, 200, 130)
+MESH_STEP_LANES, MESH_STEP_FRAMES = 2, 64
+PLANE_DIMS = ((DST_H, DST_W), (DST_H // 2, DST_W // 2), (DST_H // 2, DST_W // 2))
+
+
+class PlainCheckedSink:
+    """A lane's emit end in phase 12: every emitted block goes back to the
+    card and must equal the plain resize of its source chunk (blocks and
+    the clip's chunks are both 64 frames from the lane's start); frames
+    and features are kept. The plain SI/TI of the lane, chained across its
+    chunks, is computed on the first run and kept in `plain_feats`."""
+
+    def __init__(self, dev, clip, plain_feats: dict, key) -> None:
+        self.dev, self.clip = dev, clip
+        self.plain_feats, self.key = plain_feats, key
+        self.frames = 0
+        self.si, self.ti = [], []
+        self._plain = [] if key not in plain_feats else None
+        self._prev = None
+
+    def emit(self, planes) -> None:
+        k = self.frames // avpvs.CHUNK
+        n = planes[0].shape[0]
+        for got, src, (h, w) in zip(planes, self.clip[k], PLANE_DIMS):
+            want = ck.resize_frames_plain(torch.from_numpy(src).to(self.dev), h, w, "bicubic")
+            require(n == want.shape[0] and torch.equal(torch.from_numpy(got).to(self.dev), want),
+                    f"mesh {self.key}: block {k} differs from the plain resize")
+            if self._plain is not None and h == DST_H:
+                if self._prev is None:
+                    si, ti = ck.siti_frames_plain(want)
+                else:
+                    si, ti = (f[0] for f in ck.siti_frames_batch_plain(want[None], self._prev[None]))
+                self._plain.append((si.cpu().numpy(), ti.cpu().numpy()))
+                self._prev = want[-1].clone()
+            del want
+        self.frames += n
+
+    def features(self, si, ti) -> None:
+        self.si.append(np.asarray(si).copy())
+        self.ti.append(np.asarray(ti).copy())
+
+    def finish(self) -> tuple:
+        if self._plain is not None:
+            self.plain_feats[self.key] = tuple(
+                np.concatenate([p[i] for p in self._plain]) for i in range(2))
+        return np.concatenate(self.si), np.concatenate(self.ti)
+
+
+class CountSink:
+    def __init__(self) -> None:
+        self.frames = 0
+
+    def emit(self, planes) -> None:
+        self.frames += planes[0].shape[0]
+
+
+def mesh_wave(dev, mesh, clips, sinks, label: str, workdir: str) -> dict:
+    """run_bucket over `mesh` with the journal attached: launches, seconds,
+    the journal's records."""
+    lanes = [p03_batch.Lane(chunks=iter(c), emit=s.emit, n_frames_hint=n,
+                            emit_features=getattr(s, "features", None), name=f"{label}{i}")
+             for i, (c, s, n) in enumerate(zip(clips, sinks, MESH_LANES))]
+    journal = os.path.join(workdir, f"meshobs_{label}")
+    shutil.rmtree(journal, ignore_errors=True)
+    meshobs.attach_journal(journal)
+    bucket = p03_batch.bucket_label(DST_H, DST_W, False, SRC_H, SRC_W)
+    try:
+        _, launches, seconds = counted(lambda: p03_batch.run_bucket(
+            lanes, mesh, DST_H, DST_W, "bicubic", (2, 2), False, chunk=avpvs.CHUNK,
+            bucket=bucket))
+    finally:
+        meshobs.detach_journal()
+    records = [r for r in meshobs.read_journals(journal) if r.get("kind") == "wave"]
+    shutil.rmtree(journal, ignore_errors=True)
+    return {"launches": launches, "seconds": seconds, "records": records}
+
+
+def wave_blocks(n_pvs: int) -> int:
+    order = sorted(MESH_LANES, reverse=True)
+    return sum(-(-max(order[w:w + n_pvs]) // avpvs.CHUNK) for w in range(0, len(order), n_pvs))
+
+
+def run_mesh_waves(dev, devices, label: str, workdir: str) -> dict:
+    """Phase 12 (a), or (d) on distinct cards: the lanes on a (pvs=2,
+    time=2) mesh of `devices`, against the plain route and against a
+    pvs-only mesh of the same slots; then an unchecked run for frames/s and
+    the wave step's device ms a block."""
+    clips = [synthetic_clip(n, avpvs.CHUNK, False, SEED + 77 * i + n)
+             for i, n in enumerate(MESH_LANES)]
+    frames = sum(MESH_LANES)
+    plain_feats: dict = {}
+    feats = {}
+    runs = {}
+    for tag, tp in (("2x2", 2), ("4x1", 1)):
+        mesh = pmesh.make_mesh(devices, time_parallel=tp)
+        sinks = [PlainCheckedSink(dev, c, plain_feats, i) for i, c in enumerate(clips)]
+        run = mesh_wave(dev, mesh, clips, sinks, f"{label}_{tag}", workdir)
+        n_pvs = mesh.shape["pvs"]
+        blocks = wave_blocks(n_pvs)
+        n_dev = len(set(devices))
+        log(f"mesh {label} {tag}: {frames} frames in {run['seconds']:.3f} s (checked), "
+            f"launches {run['launches']}, {len(run['records'])} wave records")
+        for i, (sink, n) in enumerate(zip(sinks, MESH_LANES)):
+            require(sink.frames == n, f"mesh {label} {tag} lane {i}: {sink.frames} frames")
+            feats[(tag, i)] = sink.finish()
+        if n_dev == 1:
+            want = launches_want(resize_frames_fused=3 * blocks, siti_frames_fused_batch=blocks)
+            require(run["launches"] == want, f"mesh {label} {tag}: launches {run['launches']} != {want}")
+        else:
+            require(run["launches"]["siti_frames_fused_batch"] == blocks * n_dev
+                    and run["launches"]["resize_frames_fused"] == 3 * blocks * n_dev,
+                    f"mesh {label} {tag}: launches {run['launches']}")
+        require(len(run["records"]) == blocks
+                and all(r["valid"] + r["pad_tail"] + r["pad_exhausted"] + r["pad_mesh"]
+                        == r["dispatched"] and r["mesh"] == mesh_label(mesh)
+                        for r in run["records"]),
+                f"mesh {label} {tag}: journal records {run['records'][:2]}")
+        runs[tag] = {"launches": run["launches"], "blocks": blocks,
+                     "checked_seconds": run["seconds"],
+                     "slots": {k: sum(r[k] for r in run["records"])
+                               for k in ("valid", "pad_tail", "pad_exhausted", "pad_mesh",
+                                         "dispatched")}}
+    err = {"plain": 0.0, "4x1": 0.0}
+    for i in range(len(MESH_LANES)):
+        si, ti = feats[("2x2", i)]
+        for ref_name, (rsi, rti) in (("plain", plain_feats[i]), ("4x1", feats[("4x1", i)])):
+            e = max(float(np.abs(si - rsi).max()), float(np.abs(ti - rti).max()))
+            err[ref_name] = max(err[ref_name], e)
+            require(np.allclose(si, rsi, rtol=1e-4, atol=1e-3)
+                    and np.allclose(ti, rti, rtol=1e-4, atol=1e-3),
+                    f"mesh {label} lane {i}: SI/TI off the {ref_name} reference by {e}")
+        require(ti[0] == 0.0, f"mesh {label} lane {i}: TI[0] = {ti[0]}")
+    # unchecked runs: frames/s end to end, copies included
+    for tag, tp in (("2x2", 2), ("4x1", 1)):
+        mesh = pmesh.make_mesh(devices, time_parallel=tp)
+        run = mesh_wave(dev, mesh, clips, [CountSink() for _ in clips], f"{label}_{tag}_t",
+                        workdir)
+        runs[tag]["seconds"] = run["seconds"]
+        runs[tag]["frames_per_s"] = frames / run["seconds"]
+        runs[tag]["step_s_sum"] = sum(r["step_s"] for r in run["records"])
+        # the wave step on one resident block of this mesh, calls queued
+        n_pvs = mesh.shape["pvs"]
+        lay = pmesh.BlockLayout(mesh, n_pvs, avpvs.CHUNK)
+        step = p03_batch._wave_step(DST_H, DST_W, "bicubic", 2, 2, False)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        planes = [lay.split(random_frames(gen, (n_pvs, avpvs.CHUNK) + sh[1:], 255,
+                                          torch.uint8, dev))
+                  for sh in plane_shapes(avpvs.CHUNK)]
+        carry = [random_frames(gen, (DST_H, DST_W), 255, torch.uint8, dev)
+                 for _ in range(n_pvs)]
+        ms, host_ms = time_ms_queued(lambda: step(lay, planes, carry, False), reps=3)
+        runs[tag]["device_ms_per_block"] = ms
+        runs[tag]["host_enqueue_ms_per_block"] = host_ms
+        runs[tag]["frames_per_block"] = n_pvs * avpvs.CHUNK
+        log(f"mesh {label} {tag}: {runs[tag]['frames_per_s']:.2f} frames/s end to end, "
+            f"device {ms:.4f} ms per {n_pvs}x{avpvs.CHUNK}-frame block "
+            f"({ms / (n_pvs * avpvs.CHUNK):.5f} ms a frame), slots {runs[tag]['slots']}")
+        del planes, carry
+    del clips
+    torch.cuda.empty_cache()
+    return {"label": label, "devices": [str(d) for d in devices], "lanes": list(MESH_LANES),
+            "frames": frames, "runs": runs, "siti_max_err": err}
+
+
+def mesh_label(mesh) -> str:
+    return "x".join(str(v) for v in mesh.shape.values())
+
+
+def run_mesh_step(dev, mesh) -> dict:
+    """Phase 12 (b): make_sharded_step over the 2x2 mesh against
+    avpvs_siti_step lane by lane, prev_last chained across the halves."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, t = MESH_STEP_LANES, MESH_STEP_FRAMES
+    planes = [random_frames(gen, (b, t) + s[1:], 255, torch.uint8, dev) for s in plane_shapes(t)]
+    step = pipeline.make_sharded_step(mesh, DST_H, DST_W, "lanczos")
+    out, launches, _ = counted(lambda: step(*planes))
+    want = launches_want(resize_frames_fused=3, siti_frames_fused_batch=1)
+    require(launches == want, f"sharded step: launches {launches} != {want}")
+    half = t // mesh.shape["time"]
+    err = 0.0
+    for lane in range(b):
+        prev = None
+        for lo in range(0, t, half):
+            ref = pipeline.avpvs_siti_step(*(p[lane, lo:lo + half] for p in planes),
+                                           DST_H, DST_W, prev_last=prev)
+            for k in range(3):
+                require(torch.equal(out[k][lane, lo:lo + half], ref[k]),
+                        f"sharded step: lane {lane} frames {lo}+ plane {k} differ")
+            for k in (3, 4):
+                e = max_abs(out[k][lane, lo:lo + half], ref[k])
+                err = max(err, e)
+                require(e <= 1e-3, f"sharded step: lane {lane} SI/TI off by {e}")
+            prev = ref[0][-1].clone()
+            del ref
+    require(float(out[4][0, half]) > 0.0, "sharded step: no TI at the time boundary")
+    del out
+    ms = time_ms(lambda: step(*planes), reps=3)
+    log(f"mesh sharded step: {b}x{t} frames 1080p -> 2160p lanczos, launches {launches}, "
+        f"SI/TI max err {err}, {ms:.4f} ms a call on the device")
+    del planes
+    torch.cuda.empty_cache()
+    return {"launches": launches, "siti_max_err": err, "device_ms_per_call": ms,
+            "frames": b * t}
+
+
+def run_mesh_stall(dev, mesh) -> dict:
+    """Phase 12 (c): the sharded stall renderer over the mesh's 4 slots on
+    phase 7's first stalled chunk (its AVPVS frames rebuilt from phase 4's
+    clip), spinner and skipping mode, against the single-device
+    compositor; then make_batch_metrics_step on the mesh against one
+    slot."""
+    chunk = avpvs.CHUNK
+    events = [[2.0, 1.0], [7.5, 0.5]]
+    src = synthetic_clip(CLIP_FRAMES, chunk, False, SEED + CLIP_FRAMES)  # phase 4's clip
+    rgba = synthetic_spinner(SEED + 5)
+    result = {}
+    outs = {}
+    for skipping in (False, True):
+        plan = ov.plan_stalling(CLIP_FRAMES, CANVAS_FPS, events, skipping=skipping)
+        first = int(np.flatnonzero(plan.stall_mask)[0]) // chunk if not skipping else 1
+        lo = first * chunk
+        sel = plan.src_idx[lo: lo + chunk]
+        gathered = []
+        for p, (h, w) in enumerate(PLANE_DIMS):
+            frames = np.stack([src[k // chunk][p][k % chunk] for k in sel])
+            gathered.append(ck.resize_frames_fused(torch.from_numpy(frames).to(dev), h, w, "bicubic"))
+        masks = [m[lo: lo + len(sel)] for m in (plan.stall_mask, plan.black_mask, plan.phase)]
+        single = avpvs.make_stall_compositor("yuv420p", rgba, skipping, 64, device=dev)
+        sharded = avpvs.make_stall_compositor("yuv420p", rgba, skipping, 64, mesh=mesh)
+        ref = single(gathered, *masks)
+        got, launches, _ = counted(lambda: sharded(gathered, *masks))
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"sharded stall ({'freeze' if skipping else 'spinner'}): differs from one device")
+        require(launches == launches_want(), f"sharded stall: launches {launches}")
+        ms = time_ms(lambda: sharded(gathered, *masks), reps=3)
+        single_ms = time_ms(lambda: single(gathered, *masks), reps=3)
+        tag = "skipping" if skipping else "spinner"
+        result[tag] = {"chunk": first, "frames": len(sel), "device_ms": ms,
+                       "single_device_ms": single_ms}
+        log(f"mesh stall {tag}: chunk {first} ({len(sel)} frames) identical to one device; "
+            f"{ms:.3f} ms sharded over {len(mesh.devices)} slots, {single_ms:.3f} ms single")
+        outs[tag] = (gathered[0], got[0])
+        del gathered, got, ref
+    # the batch metrics step on the mesh and on one slot: 2 lanes of the
+    # chunks' last 16 luma frames, against the spinner composite and against
+    # the freeze chunk in reverse order
+    ref = torch.stack([outs["spinner"][0][-16:], outs["skipping"][0][-16:]])
+    deg = torch.stack([outs["spinner"][1][-16:], outs["skipping"][1][-16:].flip(0)])
+    on_mesh = pipeline.make_batch_metrics_step(mesh)(ref, deg)
+    one = pipeline.make_batch_metrics_step(pmesh.make_mesh([dev]))(ref, deg)
+    require(all(torch.equal(a, b) for a, b in zip(on_mesh, one)),
+            "batch metrics step: the mesh differs from one slot")
+    require(bool(torch.isfinite(on_mesh[1]).all()), "batch metrics step: SSIM not finite")
+    result["batch_metrics_equal_one_slot"] = True
+    log(f"mesh batch metrics step: [2, 16] PSNR/SSIM equal on the 2x2 mesh and one slot "
+        f"(PSNR min {float(on_mesh[0].min()):.3f})")
+    del outs, ref, deg, src
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_mesh(dev, workdir: str) -> dict:
+    """Phase 12: the (pvs, time) mesh on the card (see the module doc)."""
+    mesh = pmesh.make_mesh([dev] * 4, time_parallel=2)
+    require(mesh.shape == {"pvs": 2, "time": 2}, f"mesh: shape {mesh.shape}")
+    result = {"waves": run_mesh_waves(dev, [dev] * 4, "one_card", workdir),
+              "sharded_step": run_mesh_step(dev, mesh),
+              "stall": run_mesh_stall(dev, mesh)}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cards = [torch.device("cuda", i) for i in range(min(n, 4) // 2 * 2)]
+        result["distinct_cards"] = run_mesh_waves(dev, cards * (4 // len(cards)),
+                                                  "distinct", workdir)
+    else:
+        log("mesh (d): the distinct-card route was not run (one card visible); the NCCL "
+            "halo needs two cards as well")
+        result["distinct_cards"] = None
     return result
 
 
@@ -1799,6 +2103,9 @@ def main() -> int:
     err["siti_frames_fused_batch"] = max(err["siti_frames_fused_batch"],
                                          serve["siti_batch_max_err"])
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    mesh = run_mesh(dev, workdir)
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -1808,7 +2115,9 @@ def main() -> int:
              **{f"p01_ladder_{k}": v["launches"] for k, v in ladder.items()},
              **{f"quality_metrics_{k}": v["launches"] for k, v in quality.items()},
              **{f"src_analysis_{k}": v["launches"] for k, v in src_summary.items()},
-             "serve_wave": serve["launches"]}
+             "serve_wave": serve["launches"],
+             **{f"mesh_wave_{k}": v["launches"] for k, v in mesh["waves"]["runs"].items()},
+             "mesh_sharded_step": mesh["sharded_step"]["launches"]}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
@@ -1832,7 +2141,7 @@ def main() -> int:
     log(json.dumps({"main_path": [main8, main10], "flagship": flagship,
                     "waves": waves, "downstream": downstream, "p01_ladder": ladder,
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
-                    "serve": serve, "card": smi}))
+                    "serve": serve, "mesh": mesh, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,7 @@ from __future__ import annotations
 import sys
 from typing import Optional, Sequence
 
-_TOOLS = ("chain-serve",)
+_TOOLS = ("chain-serve", "mesh-report")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -17,6 +17,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             f"usage: python -m processing_chain_tpu_torch tools "
             f"{{{','.join(_TOOLS)}}} …\n")
         return 2
+    if argv[1] == "mesh-report":
+        from .tools import mesh_report
+
+        return mesh_report.main(argv[2:])
     from .tools import chain_serve
 
     return chain_serve.main(argv[2:])

@@ -182,7 +182,7 @@ def insert_stall_silence(audio: np.ndarray, srate: int, events) -> np.ndarray:
 
 
 def make_stall_compositor(pix_fmt: str, spinner, skipping: bool,
-                          n_rotations: int, device=None):
+                          n_rotations: int, device=None, mesh=None):
     """`fn(gathered_planes, stall, black, phase) -> quantized planes` —
     the per-chunk stall composite shared by the staged loop
     (`pump_stalled`) and the fused fan-out (models/fused), on `device`
@@ -192,9 +192,13 @@ def make_stall_compositor(pix_fmt: str, spinner, skipping: bool,
     planes of one output chunk (container dtype, [T, H, W], tensors on
     the device or numpy) and its per-frame plan slices; the planes are
     composited one at a time in f32 and quantized to the container depth.
-    Running on several devices (the reference's sharded branch) is not
-    ported."""
-    device = resolve_device(device)
+
+    With a `mesh` of several slots (parallel/mesh.py; the reference shards
+    over every visible device) each chunk is padded to a multiple of the
+    slot count by repeating its last frame, composited frame-parallel by
+    ops/overlay.make_sharded_stall_renderer and trimmed: the result is the
+    single-device route's, and lands on the mesh's first device."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     ten_bit = "10" in pix_fmt
     depth_scale = 4.0 if ten_bit else 1.0
     sub_h, sub_w = fr.chroma_subsampling(pix_fmt)
@@ -223,7 +227,26 @@ def make_stall_compositor(pix_fmt: str, spinner, skipping: bool,
         (sp_v, sa_c, black_values[2], chroma),
     )
 
+    sharded = None
+    if mesh is not None and len(mesh.devices) > 1:
+        sharded = ov.make_sharded_stall_renderer(mesh, banks, black_values, ten_bit, chroma)
+        grain = len(mesh.devices)
+
+    def composite_sharded(gathered, stall, black, phase):
+        n = gathered[0].shape[0]
+        pad = -n % grain
+
+        def padded(a):
+            a = ov.to_device(a, device)
+            return torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))]) if pad else a
+
+        outs = sharded(*(padded(g) for g in gathered),
+                       *(padded(np.asarray(m)) for m in (stall, black, phase)))
+        return [o[:n] for o in outs]
+
     def composite(gathered, stall, black, phase):
+        if sharded is not None:
+            return composite_sharded(gathered, stall, black, phase)
         masks = [ov.to_device(m, device) for m in (stall, black, phase)]
         out = []
         for g, (sp, alpha, bv, gs) in zip(gathered, per_plane):

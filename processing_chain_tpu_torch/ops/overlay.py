@@ -1,7 +1,8 @@
 """Stalling / freeze rendering (port of processing_chain_tpu/ops/overlay.py:
 `StallPlan` :58-75, `plan_stalling` :78-156, `prepare_spinner` :159-193,
 `_blend_plane` :201-212, `_clip_crop_origin` :215-235, `render_core`
-:238-305, `render_stalled_plane` :308-331, `downsample_alpha` :378-381).
+:238-305, `render_stalled_plane` :308-331, `make_sharded_stall_renderer`
+:334-375, `downsample_alpha` :378-381).
 
 A host-side timeline plan (numpy, copied unchanged) plus a device-side
 gather and alpha blend in plain torch ops on the frames' own device:
@@ -16,8 +17,10 @@ gather and alpha blend in plain torch ops on the frames' own device:
 The spinner kinematics (1 rev/s clockwise, phase continuous across
 events) are the reference package's assumptions, not measurements of
 `bufferer`. The blend is a separate f32 multiply and add per term, as the
-reference's single-device (eager) route computes it. The mesh-sharded
-renderer and `estimate_spinner_rps` are not ported.
+reference's single-device (eager) route computes it, on every route of
+the port: the mesh-sharded renderer too (where the reference's jitted
+sharded route fuses it into an FMA). `estimate_spinner_rps` is not
+ported.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import BlockLayout
 
 # ---------------------------------------------------------------------------
 # Host: timeline planning (copied from the reference package)
@@ -316,3 +321,55 @@ def render_stalled_plane(
         gathered, plan.stall_mask, plan.black_mask, plan.phase,
         spinner, spinner_alpha, black_value, crop_align, grid_scale,
     )
+
+
+def make_sharded_stall_renderer(mesh, banks: tuple, black_values: tuple, ten_bit: bool,
+                                chroma_sub: tuple[int, int] = (1, 1)):
+    """The stall composite sharded frame-parallel over every slot of `mesh`
+    (parallel/mesh.py): `step(y, u, v, stall, black, phase)` → the three
+    planes quantized to container depth, joined on the mesh's first
+    device. The blend is frame-local: the frames (whose count must be a
+    multiple of the mesh's local slot count; callers pad by repeating the
+    last frame) are dealt to the slots in row-major order, and each device
+    composites its slots' frames as one batch, a plane at a time in f32.
+    `banks` = (sp_y, sa_y, sp_u, sp_v, sa_c) or Nones (skipping mode): U
+    and V carry distinct banks; `black_values` are per-plane background
+    levels. Rounding is the single-device route's: separate f32 multiplies
+    and an add, then floor(x + 0.5) and a clip."""
+    hi, dt = (1023.0, torch.uint16) if ten_bit else (255.0, torch.uint8)
+    p0, p1, _, _ = mesh.local_box()
+    n_rows = p1 - p0
+    n_slots = len(mesh.devices)
+    dev_banks = {d: tuple(None if b is None else to_device(b, d) for b in banks)
+                 for d in dict.fromkeys(mesh.devices)}
+    planes_of = (  # (bank index, alpha index, grid scale) per plane
+        (0, 1, (1, 1)), (2, 4, chroma_sub), (3, 4, chroma_sub))
+
+    def step(y, u, v, stall, black, phase):
+        t = y.shape[0]
+        if t % n_slots:
+            raise ValueError(
+                f"sharded stall renderer: {t} frames do not split over {n_slots} slots; "
+                "pad them by repeating the last frame")
+        lay = BlockLayout(mesh, n_rows, t // n_rows)
+        masks = [lay.split((m if isinstance(m, torch.Tensor)
+                            else torch.from_numpy(np.ascontiguousarray(m))).reshape(n_rows, -1))
+                 for m in (stall, black, phase)]
+        outs = []
+        for plane, bv, (ib, ia, gs) in zip((y, u, v), black_values, planes_of):
+            size = tuple(plane.shape[1:])
+            parts = lay.split(plane.reshape((n_rows, -1) + size))
+            res = {}
+            for dev, part in parts.items():
+                f = part.reshape((-1,) + size).to(torch.float32)
+                r = render_core(f, *(m[dev].reshape(-1) for m in masks),
+                                dev_banks[dev][ib], dev_banks[dev][ia], bv, chroma_sub, gs)
+                # a plane's f32 copies go before the next plane is lifted
+                del f
+                q = torch.clamp(torch.floor(r + 0.5), 0, hi).to(torch.int32).to(dt)
+                del r
+                res[dev] = q.reshape(tuple(part.shape))
+            outs.append(lay.join(res).reshape((t,) + size))
+        return tuple(outs)
+
+    return step

@@ -22,7 +22,8 @@ its `chain_mesh_*` metrics and /status provider).
     degrades to a logged warning.
 
 Record fields are those of the JAX package, so the two journals compare
-field by field.
+field by field; a wave record also names its mesh ("{pvs}x{time}").
+`journal_stats` is the tail-sampled summary for frequent readers.
 """
 
 from __future__ import annotations
@@ -132,10 +133,10 @@ class MeshRecorder:
     def record_wave(self, bucket: str, *, wave: int, block: int,
                     lanes: list, n_pvs: int, t_step: int, valid: int,
                     pad_tail: int, pad_exhausted: int, pad_mesh: int,
-                    step_s: float, first: bool = False) -> None:
+                    step_s: float, first: bool = False, mesh: str = "") -> None:
         """One dispatched wave step with its full slot breakdown. `lanes`
         is the lane names in wave order; `first` flags the first dispatch
-        of the bucket's step."""
+        of the bucket's step; `mesh` is the step's "{pvs}x{time}" grid."""
         dispatched = n_pvs * t_step
         record = {
             "kind": "wave", "bucket": bucket, "wave": wave,
@@ -144,6 +145,8 @@ class MeshRecorder:
             "pad_exhausted": pad_exhausted, "pad_mesh": pad_mesh,
             "dispatched": dispatched, "step_s": round(step_s, 6),
         }
+        if mesh:
+            record["mesh"] = mesh
         if first:
             record["first"] = True
         with self._lock:
@@ -307,6 +310,49 @@ def aggregate(root: str) -> dict:
     totals["compile_s"] = round(totals["compile_s"], 4)
     return {"buckets": buckets, "totals": totals, "schedule": schedule,
             "invariant_violations": violations}
+
+
+def journal_stats(root: str, tail_bytes: int = 1 << 19) -> dict:
+    """Cheap summary for frequent readers: total size from stat, counts
+    parsed from each journal's TAIL; `sampled: true` flags a journal larger
+    than the tail window (the counts then cover the recent window)."""
+    stats = {"files": 0, "bytes": 0, "waves": 0, "compiles": 0,
+             "valid": 0, "padded": 0, "sampled": False}
+    try:
+        names = sorted(os.listdir(root))
+    except OSError:
+        return stats
+    for name in names:
+        if not name.endswith(".jsonl"):
+            continue
+        path = os.path.join(root, name)
+        try:
+            size = os.stat(path).st_size
+            with open(path) as f:
+                if size > tail_bytes:
+                    stats["sampled"] = True
+                    f.seek(size - tail_bytes)
+                    f.readline()  # discard the mid-record partial
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        record = json.loads(line)
+                    except ValueError:
+                        continue  # torn tail (or mid-window garbage)
+                    if record.get("kind") == "wave":
+                        stats["waves"] += 1
+                        stats["valid"] += int(record.get("valid") or 0)
+                        stats["padded"] += sum(int(record.get(k) or 0)
+                                               for k in SLOT_KINDS if k != "valid")
+                    elif record.get("kind") == "compile":
+                        stats["compiles"] += 1
+        except OSError:
+            continue
+        stats["files"] += 1
+        stats["bytes"] += size
+    return stats
 
 
 def mesh_dir(root: str) -> str:

@@ -1,11 +1,12 @@
-"""Batched wave render of p03's AVPVS rescale on one device (port of
+"""Batched wave render of p03's AVPVS rescale (port of
 processing_chain_tpu/parallel/p03_batch.py).
 
-The JAX package batches the per-PVS rescale (device resize + bit-depth
-quantize + SI/TI of the quantized luma) over a (pvs x time) mesh. The
-port's mesh (parallel/mesh.py) is one device whose "pvs" slots share it
-as one [n_pvs, t_step, H, W] batch; the time split is not ported (ROADMAP
-Queue A 12). The padding and bucketing policy is the JAX package's:
+The per-PVS rescale (device resize + bit-depth quantize + SI/TI of the
+quantized luma) runs batched over a (pvs x time) mesh of one process
+(parallel/mesh.py): lanes over "pvs", each block's frames over "time"
+with a one-frame TI halo between time slots (parallel/halo.py). Each
+device runs its slots' rows as one flattened batch. The padding and
+bucketing policy is the JAX package's:
 
   * Lanes (PVS streams) batch together only when their full geometry
     matches, (src_h, src_w, dst_h, dst_w, pix_fmt): the bucket key.
@@ -33,7 +34,8 @@ from ..engine.prefetch import Prefetcher
 from ..io import bufpool
 from ..models import frames as fr
 from ..ops import siti as siti_ops
-from . import meshobs
+from . import halo, meshobs
+from .mesh import BlockLayout
 
 
 @dataclass
@@ -108,26 +110,41 @@ def _rechunk(
 def _wave_step(dst_h: int, dst_w: int, kernel: str,
                sub_h: int, sub_w: int, ten_bit: bool):
     """The wave step of one geometry (counterpart of the JAX package's
-    `_sharded_resize_step`): [B, T, H, W] u8/u16 planes on one device ->
-    scaled + quantized planes [B, T, ...] plus SI/TI [B, T] of the
-    quantized luma. The planes are flattened to [B*T, H, W], so each plane
-    is one resize launch; the features are one fused SI+TI launch, with
-    TI[b, 0] against `prev[b]` (the lane's carried last frame) and set to 0
-    on the lane's first block (`first`). Cached per geometry: the step's
-    identity is the step ledger's key."""
+    `_sharded_resize_step`): `step(layout, planes, carry, first)` takes
+    the Y, U and V device blocks of a [B, T, H, W] u8/u16 block
+    (`planes[k]` is {device: [rows, ts, H, W]}, parallel/mesh.BlockLayout)
+    and returns {device: [qy, qu, qv, si, ti]}: the scaled and quantized
+    planes of its rows plus SI/TI [rows, ts] of the quantized luma.
 
-    def step(y, u, v, prev, first: bool):
-        b, t = y.shape[0], y.shape[1]
-        scaled = fr.scale_yuv_frames(
-            [p.reshape((-1,) + tuple(p.shape[2:])) for p in (y, u, v)],
-            dst_h, dst_w, kernel, (sub_h, sub_w),
-        )
-        quant = fr.quantize_device(scaled, ten_bit)
-        qy, qu, qv = (q.reshape((b, t) + tuple(q.shape[1:])) for q in quant)
-        si, ti = siti_ops.siti_batch(qy, prev)
-        if first:
-            ti[:, 0] = 0.0  # the lane's first frame has no predecessor
-        return qy, qu, qv, si, ti
+    Each device runs its rows as one flattened batch: one resize launch a
+    plane, then, once every device has quantized, the halo (parallel/halo)
+    gives each row its predecessor frame (the previous time slot's last
+    frame; `carry[lane]`, the lane's last frame of the previous block, for
+    the first time slot), and one fused SI+TI launch a device. TI of the
+    lane's first frame is 0 on its first block (`first`). Cached per
+    geometry: the step's identity is the step ledger's key."""
+
+    def step(layout, planes, carry, first: bool):
+        out = {}
+        for dev in layout.devices:
+            y, u, v = (p[dev] for p in planes)
+            rows, t = y.shape[0], y.shape[1]
+            scaled = fr.scale_yuv_frames(
+                [p.reshape((-1,) + tuple(p.shape[2:])) for p in (y, u, v)],
+                dst_h, dst_w, kernel, (sub_h, sub_w),
+            )
+            out[dev] = [q.reshape((rows, t) + tuple(q.shape[1:]))
+                        for q in fr.quantize_device(scaled, ten_bit)]
+        prev = halo.prev_frames(layout, {d: q[0][:, -1] for d, q in out.items()},
+                                lambda lane: carry[lane])
+        for dev, q in out.items():
+            si, ti = siti_ops.siti_batch(q[0], prev[dev])
+            if first:
+                for i, (_, k) in enumerate(layout.rows[dev]):
+                    if layout.global_time(k) == 0:
+                        ti[i, 0] = 0.0  # the lane's first frame has no predecessor
+            q += [si, ti]
+        return out
 
     return step
 
@@ -243,9 +260,15 @@ def run_bucket(
     bucket: Optional[str] = None,
 ) -> None:
     """Drive one geometry bucket of lanes through the wave step in waves
-    of the mesh's "pvs" size, on the mesh's device. `chunk` is the frame
+    of the mesh's "pvs" size, on the mesh's devices. `chunk` is the frame
     budget per step across the time axis (t_step = t_loc x n_time, as in
-    the JAX package). `bucket` labels the wave journal."""
+    the JAX package). `bucket` labels the wave journal. The mesh is one
+    process's: across processes, each takes its shard of the lanes
+    (parallel/distributed.local_shard) onto a mesh of its own."""
+    if mesh.group is not None:
+        raise ValueError(
+            "run_bucket drives one process's mesh; shard the lanes across "
+            "ranks (parallel/distributed.local_shard) and give each its own mesh")
     n_pvs = mesh.shape["pvs"]
     n_time = mesh.shape["time"]
     t_loc = max(1, chunk // n_time)
@@ -279,7 +302,7 @@ def run_bucket(
                     Prefetcher(_rechunk(ln.chunks, t_step), depth=2)))
                 for ln in wave
             ]
-            _drive_wave(wave, iters, n_pvs, step, mesh.device, dst_h,
+            _drive_wave(wave, iters, mesh, step, dst_h,
                         dst_w, ten_bit, bucket=bucket,
                         wave_index=w0 // n_pvs, t_step=t_step,
                         compile_state=compile_state,
@@ -291,30 +314,33 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
-def _drive_wave(wave, iters, n_pvs, step, device,
+def _drive_wave(wave, iters, mesh, step,
                 dst_h: int, dst_w: int, ten_bit: bool, *, bucket: str,
                 wave_index: int, t_step: int, compile_state: dict,
                 lane_names: list) -> None:
     """Overlapped wave loop: while the step for block k runs on the
-    device, the next block is pulled from the lane prefetchers, assembled
-    into the OTHER of two [n_pvs, t_step, H, W] staging buffers (pinned on
-    CUDA) and copied to the device on a copy stream; the compute stream
-    waits on that copy's event before the step for block k+1.
+    devices, the next block is pulled from the lane prefetchers, assembled
+    into the OTHER of two [n_pvs, t_step, H, W] staging buffers (pinned
+    when the mesh has a card) and each device's rows are copied to it on
+    that device's copy stream; each device's compute stream waits on its
+    copy's event before the step for block k+1.
 
     Stream and event discipline (as parallel/pipeline.iter_device_ahead):
-    device planes are allocated on the compute stream and each copy first
+    device blocks are allocated on the compute streams and each copy first
     waits for the work already queued there, so the allocator cannot hand
     a copy memory that earlier compute still reads; a staging buffer is
-    refilled only after the event recorded after the copy that read it has
-    completed; lane blocks go back to the pool once they are copied into
-    staging. Outputs are fetched into fresh host memory per block (pinned
-    on CUDA), so an emitted array is never overwritten. The TI carry
-    `prev` stays on the device at container depth."""
+    refilled only after the events recorded after every copy that read it
+    have completed; lane blocks go back to the pool once they are copied
+    into staging. Outputs are fetched into fresh host memory per block
+    (pinned on a card), so an emitted array is never overwritten. The TI
+    carry (each lane's last quantized luma frame) stays on the devices at
+    container depth."""
     pool = bufpool.DEFAULT_POOL
-    device = torch.device(device)
-    cuda = device.type == "cuda"
-    compute = torch.cuda.current_stream(device) if cuda else None
-    copy = torch.cuda.Stream(device) if cuda else None
+    n_pvs = mesh.shape["pvs"]
+    layout = BlockLayout(mesh, n_pvs, t_step)
+    cards = [d for d in layout.devices if d.type == "cuda"]
+    compute = {d: torch.cuda.current_stream(d) for d in cards}
+    copy = {d: torch.cuda.Stream(d) for d in cards}
     done = [False] * len(wave)
     notified = [False] * len(wave)
 
@@ -328,18 +354,18 @@ def _drive_wave(wave, iters, n_pvs, step, device,
                 if ln.on_done is not None:
                     ln.on_done()
 
-    prev = torch.zeros((n_pvs, dst_h, dst_w),
-                       dtype=torch.uint16 if ten_bit else torch.uint8,
-                       device=device)
+    dtype = torch.uint16 if ten_bit else torch.uint8
+    carry = [torch.zeros((dst_h, dst_w), dtype=dtype, device=layout.index[(lane, 0)][0])
+             for lane in range(n_pvs)]
     first = True
-    staging: dict = {}  # parity -> (staging planes, event after their copy)
+    staging: dict = {}  # parity -> (staging planes, events after their copies)
     state = {"parity": 0}
 
     def gather_put():
         """Pull one block per live lane, assemble it into this parity's
-        staging buffer and issue the copy to the device. Returns
-        (device planes, valids, ready event or None) or None once every
-        lane is exhausted."""
+        staging buffer and issue each device's copy. Returns (device
+        blocks, valids, ready events) or None once every lane is
+        exhausted."""
         blocks: list[Optional[list]] = []
         valids: list[int] = []
         for i, it in enumerate(iters):
@@ -356,13 +382,13 @@ def _drive_wave(wave, iters, n_pvs, step, device,
         tmpl = next(b for b in blocks if b is not None)
         parity = state["parity"]
         state["parity"] ^= 1
-        bufs, released = staging.get(parity, (None, None))
+        bufs, released = staging.get(parity, (None, []))
         if bufs is None:
             bufs = [torch.empty((n_pvs,) + tuple(p.shape),
-                                dtype=_torch_dtype(p.dtype), pin_memory=cuda)
+                                dtype=_torch_dtype(p.dtype), pin_memory=bool(cards))
                     for p in tmpl]
-        elif released is not None:
-            released.synchronize()  # the copy that last read bufs is done
+        for ev in released:
+            ev.synchronize()  # the copies that last read bufs are done
         for p in range(3):
             dst = bufs[p]
             for i in range(n_pvs):
@@ -375,23 +401,27 @@ def _drive_wave(wave, iters, n_pvs, step, device,
         for blk in blocks:
             if blk is not None:
                 pool.release(*blk)
-        dev = [torch.empty(b.shape, dtype=b.dtype, device=device) for b in bufs]
-        ready = None
-        if cuda:
+        planes = [{d: torch.empty((len(rows), layout.ts) + tuple(b.shape[2:]),
+                                  dtype=b.dtype, device=d)
+                   for d, rows in layout.rows.items()} for b in bufs]
+        ready = {}
+        for d in layout.devices:
+            if d.type != "cuda":
+                for b, part in zip(bufs, planes):
+                    layout.scatter(b, {d: part[d]})
+                continue
             queued = torch.cuda.Event()
-            queued.record(compute)
-            ready = torch.cuda.Event()
-            with torch.cuda.stream(copy):
-                copy.wait_event(queued)
-                for d, b in zip(dev, bufs):
-                    d.copy_(b, non_blocking=True)
-                ready.record(copy)
-        else:
-            for d, b in zip(dev, bufs):
-                d.copy_(b)
-        staging[parity] = (bufs, ready)
-        return dev, valids, ready
+            queued.record(compute[d])
+            ready[d] = torch.cuda.Event()
+            with torch.cuda.stream(copy[d]):
+                copy[d].wait_event(queued)
+                for b, part in zip(bufs, planes):
+                    layout.scatter(b, {d: part[d]})
+                ready[d].record(copy[d])
+        staging[parity] = (bufs, list(ready.values()))
+        return planes, valids, ready
 
+    mesh_label = "x".join(str(v) for v in mesh.shape.values())
     block = 0
     nxt = gather_put()
     while nxt is not None:
@@ -401,20 +431,22 @@ def _drive_wave(wave, iters, n_pvs, step, device,
         pad_exhausted = t_step * sum(1 for v in valids if not v)
         pad_mesh = (n_pvs - len(wave)) * t_step
         t0 = time.perf_counter()
-        if ready is not None:
-            compute.wait_event(ready)
-        out = step(*planes, prev, first)
-        # inter-block TI carry: the tail-repeat padding means [:, -1] is
-        # the lane's last REAL frame even on a partial block; a copy, so
-        # the block's output can be freed
-        prev = out[0][:, -1].clone(memory_format=torch.contiguous_format)
-        host, fetched = _fetch(out, compute)
+        for d, ev in ready.items():
+            compute[d].wait_event(ev)
+        out = step(layout, planes, carry, first)
+        # inter-block TI carry: the tail-repeat padding means the last
+        # time slot's last frame is the lane's last REAL frame even on a
+        # partial block; a copy, so the block's output can be freed
+        for lane in range(n_pvs):
+            d, i = layout.index[(lane, layout.n_time - 1)]
+            carry[lane] = out[d][0][i, -1].clone()
+        host, fetched = _fetch(layout, out, compute)
         # overlap: assemble and upload block k+1 while block k runs
         t_gather0 = time.perf_counter()
         nxt = gather_put()
         t_gather1 = time.perf_counter()
-        if fetched is not None:
-            fetched.synchronize()
+        for ev in fetched:
+            ev.synchronize()
         host = [h.numpy() for h in host]
         si_h, ti_h = host[3], host[4]
         # dispatch -> outputs-on-host wall seconds, the overlapped host
@@ -425,7 +457,7 @@ def _drive_wave(wave, iters, n_pvs, step, device,
             bucket, wave=wave_index, block=block, lanes=lane_names,
             n_pvs=n_pvs, t_step=t_step, valid=valid, pad_tail=pad_tail,
             pad_exhausted=pad_exhausted, pad_mesh=pad_mesh,
-            step_s=step_s, first=first_dispatch)
+            step_s=step_s, first=first_dispatch, mesh=mesh_label)
         if first_dispatch:
             compile_state["pending"] = False
             meshobs.RECORDER.record_compile(
@@ -450,19 +482,25 @@ def _drive_wave(wave, iters, n_pvs, step, device,
     notify_done()
 
 
-def _fetch(out, compute):
-    """(host tensors of the step's five outputs, event after their copy or
-    None). On CUDA (`compute` is the step's stream) the copies go into
-    fresh pinned memory on that stream; on the CPU the outputs already are
-    fresh host tensors."""
-    if compute is None:
-        return list(out), None
-    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in out]
-    with torch.cuda.stream(compute):
-        for h, o in zip(host, out):
-            h.copy_(o, non_blocking=True)
-    fetched = torch.cuda.Event()
-    fetched.record(compute)
+def _fetch(layout, out, compute):
+    """(host tensors [B, T, ...] of the step's five outputs, events after
+    their copies). Each card copies its rows into fresh pinned memory on
+    its compute stream; CPU rows are joined on the host (a view where one
+    CPU device holds the whole block)."""
+    if not compute:
+        return [layout.join({d: o[k] for d, o in out.items()}, "cpu")
+                for k in range(5)], []
+    first = next(iter(out.values()))
+    host = [torch.empty((layout.b, layout.t) + tuple(o.shape[2:]), dtype=o.dtype,
+                        pin_memory=True) for o in first]
+    fetched = []
+    for d, outs in out.items():
+        for h, o in zip(host, outs):
+            layout.gather({d: o}, h)
+        if d in compute:
+            ev = torch.cuda.Event()
+            ev.record(compute[d])
+            fetched.append(ev)
     return host, fetched
 
 

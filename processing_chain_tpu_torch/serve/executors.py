@@ -307,8 +307,10 @@ class DeviceWaveExecutor(SyntheticExecutor):
         src_h/src_w       source geometry (default 36x64)
         dst_h/dst_w       target geometry (default 72x128)
 
-    `device=None` means `cuda:0` and raises where CUDA is absent (the
-    executor never moves to the CPU on its own); tests pass "cpu".
+    `device=None` means every visible card (the wave mesh spans them,
+    `cuda:0` holding the staging) and raises where CUDA is absent (the
+    executor never moves to the CPU on its own); a pinned device (tests
+    pass "cpu") gives a one-slot mesh on it.
     """
 
     kind = "wave"
@@ -321,6 +323,7 @@ class DeviceWaveExecutor(SyntheticExecutor):
         from ..utils.device import resolve_device
 
         self.device = resolve_device(device)
+        self._pinned = device is not None
         if self.device.type == "cuda":
             # build the wave step's kernels now, so a first-use nvcc run
             # never sits inside a job's execution lease
@@ -375,7 +378,7 @@ class DeviceWaveExecutor(SyntheticExecutor):
     def _mesh(self):
         from ..parallel.mesh import make_mesh
 
-        return make_mesh([self.device])
+        return make_mesh([self.device] if self._pinned else None)
 
     def source_planes(self, unit: Unit) -> list:
         """The unit's seeded synthetic YUV ([T, H, W] u8 Y, U, V), the

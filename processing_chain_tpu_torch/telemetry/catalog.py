@@ -50,6 +50,11 @@ METRICS: dict[str, str] = {
     "chain_serve_e2e_seconds": "histogram",
     "chain_serve_read_ttfb_seconds": "histogram",
     "chain_serve_read_seconds": "histogram",
+    # parallel/pipeline.py — instrumented device steps
+    "chain_device_step_seconds": "histogram",
+    # parallel/distributed.py + parallel/halo.py — multi-process visibility
+    "chain_dist_collective_bytes_total": "counter",
+    "chain_dist_barrier_seconds_total": "counter",
 }
 
 #: structured event-log record names
@@ -72,6 +77,11 @@ EVENTS: frozenset = frozenset({
     "serve_quarantined",   # serve/queue.py — permanent failure parked
     "serve_src_poisoned",  # serve/queue.py — SRC digest quarantined
     "serve_wave",          # serve/scheduler.py — one wave dispatched
+    "device_step",         # parallel/pipeline.py — first call of a step
+    "dist_init",           # parallel/distributed.py — process group joined
+    "dist_collective",     # parallel/distributed.py — one cross-process
+                           # collective with its payload bytes
+    "barrier_wait",        # parallel/distributed.py — stage barrier wait
 })
 
 #: bucket layout of the serve SLO phase histograms (queue wait,

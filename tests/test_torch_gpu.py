@@ -659,3 +659,87 @@ def test_wave_service_on_the_card_serves_the_cpu_bytes(cuda, tmp_path):
         svc.stop()
         store_runtime.configure(None)
         ptm.disable()
+
+
+def _wave_outputs(mesh, srcs, ten_bit):
+    from processing_chain_tpu_torch.parallel import p03_batch
+
+    planes = {i: [] for i in range(len(srcs))}
+    feats = {i: [] for i in range(len(srcs))}
+    lanes = [p03_batch.Lane(
+        chunks=iter([[p[:3] for p in yuv], [p[3:] for p in yuv]]),
+        emit=planes[i].append, n_frames_hint=yuv[0].shape[0],
+        emit_features=lambda s, t, i=i: feats[i].append((s, t)))
+        for i, yuv in enumerate(srcs)]
+    p03_batch.run_bucket(lanes, mesh, 72, 128, "bicubic", (2, 2), ten_bit, chunk=4)
+    return ([[np.concatenate([b[p] for b in planes[i]]) for p in range(3)] for i in planes],
+            [[np.concatenate([f[k] for f in feats[i]]) for k in range(2)] for i in feats])
+
+
+@pytest.mark.parametrize("ten_bit", [False, True])
+def test_run_bucket_2x2_on_the_card_equals_plain(cuda, ten_bit):
+    """The (pvs=2, time=2) wave on one card: planes equal to the same mesh on
+    the CPU (the plain versions), features within tolerance, the halo at
+    every time boundary; 3 resize + 1 fused SI/TI launch a block."""
+    from processing_chain_tpu_torch.parallel import mesh
+
+    hi, dtype = (1023, np.uint16) if ten_bit else (255, np.uint8)
+    rng = np.random.default_rng(19)
+    lengths = [11, 4, 2, 7, 5]
+    srcs = [[rng.integers(0, hi + 1, s).astype(dtype)
+             for s in ((n, 36, 64), (n, 18, 32), (n, 18, 32))] for n in lengths]
+    got = _wave_outputs(mesh.make_mesh([cuda] * 4, time_parallel=2), srcs, ten_bit)
+    # t_step 4; waves [11, 7], [5, 4], [2]: 3 + 2 + 1 blocks
+    assert ck.LAUNCHES == {"resize_frames_fused": 18, "si_frames_fused": 0,
+                           "ti_frames_fused": 0, "siti_frames_fused": 0,
+                           "siti_frames_fused_batch": 6}
+    want = _wave_outputs(mesh.make_mesh(["cpu"] * 4, time_parallel=2), srcs, ten_bit)
+    lanes = _wave_outputs(mesh.make_mesh([cuda] * 4), srcs, ten_bit)
+    atol = 1e-2 if ten_bit else 1e-3
+    for (gp, gf), (wp, wf), (lp, lf) in zip(zip(*got), zip(*want), zip(*lanes)):
+        for a, b, c in zip(gp, wp, lp):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+        for a, b, c in zip(gf, wf, lf):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=atol)
+            np.testing.assert_allclose(a, c, rtol=1e-4, atol=atol)
+        assert gf[1][0] == 0.0
+
+
+def test_sharded_step_2x2_on_the_card_equals_cpu(cuda):
+    from processing_chain_tpu_torch.parallel import mesh
+    from processing_chain_tpu_torch.parallel.pipeline import make_sharded_step
+
+    planes = [_rand(s, 255, torch.uint8, "cpu", 30 + k)
+              for k, s in enumerate(((2, 8, 36, 64), (2, 8, 18, 32), (2, 8, 18, 32)))]
+    ours = make_sharded_step(mesh.make_mesh([cuda] * 4, time_parallel=2), 72, 128)(
+        *(p.to(cuda) for p in planes))
+    assert ck.LAUNCHES["resize_frames_fused"] == 3
+    assert ck.LAUNCHES["siti_frames_fused_batch"] == 1
+    ref = make_sharded_step(mesh.make_mesh(["cpu"] * 4, time_parallel=2), 72, 128)(*planes)
+    for a, b in zip(ours[:3], ref[:3]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(ours[3:], ref[3:]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-3)
+
+
+def test_halo_refuses_a_cuda_tensor_on_a_gloo_group(cuda, tmp_path):
+    """A time split across ranks over gloo: the card's halo frame is refused,
+    never staged through the host."""
+    import torch.distributed as dist
+
+    from processing_chain_tpu_torch.parallel import mesh
+    from processing_chain_tpu_torch.parallel.pipeline import make_sharded_step
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        # rank 0's half of a (1, 2) grid whose second time slot is rank 1's
+        grid = ((mesh.Slot(0, cuda), mesh.Slot(1, cuda)),)
+        m = mesh.Mesh(grid, 0, dist.group.WORLD)
+        planes = [_rand(s, 255, torch.uint8, cuda, k)
+                  for k, s in enumerate(((1, 4, 36, 64), (1, 4, 18, 32), (1, 4, 18, 32)))]
+        with pytest.raises(ValueError, match="CUDA tensor on a gloo"):
+            make_sharded_step(m, 72, 128)(*planes)
+    finally:
+        dist.destroy_process_group()

@@ -11,8 +11,10 @@ import pytest
 
 from processing_chain_tpu_torch.models import avpvs as ta
 from processing_chain_tpu_torch.models import segments as tseg
+from processing_chain_tpu_torch.parallel import distributed as tdist
 from processing_chain_tpu_torch.parallel import mesh as tmesh
 from processing_chain_tpu_torch.priors import features as tfeat
+from processing_chain_tpu_torch.tools import mesh_report as tmr
 from processing_chain_tpu_torch.tools import quality_metrics as tqm
 from processing_chain_tpu_torch.tools import src_analysis as tsa
 from processing_chain_tpu_torch.utils import device as tdev
@@ -59,6 +61,10 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.engine.prefetch",
                 "processing_chain_tpu_torch.parallel.mesh",
                 "processing_chain_tpu_torch.parallel.meshobs",
+                "processing_chain_tpu_torch.parallel.distributed",
+                "processing_chain_tpu_torch.parallel.halo",
+                "processing_chain_tpu_torch.parallel.pipeline",
+                "processing_chain_tpu_torch.tools.mesh_report",
                 "processing_chain_tpu_torch.parallel.p03_batch",
                 "processing_chain_tpu_torch.ops.overlay",
                 "processing_chain_tpu_torch.ops.pad",
@@ -122,6 +128,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
         ta.chunk_frames()
     with pytest.raises(tdev.DeviceError):
         tmesh.make_mesh()
+    with pytest.raises(tdev.DeviceError):
+        tmesh.make_mesh(None, time_parallel=2)
+    with pytest.raises(tdev.DeviceError):
+        tdist.initialize("tcp://127.0.0.1:1", 1, 0)
+    with pytest.raises(tdev.DeviceError):
+        tmr.main(["sweep"])
     with pytest.raises(tdev.DeviceError):
         tseg.scaled_chunks(iter([]), 60.0, 30.0, 8, 8, "yuv420p")
     with pytest.raises(tdev.DeviceError):

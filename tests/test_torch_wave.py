@@ -302,10 +302,15 @@ def test_bufpool_recycles_exact_blocks_only():
 def test_make_mesh_shapes_and_refusals():
     mesh = tmesh.make_mesh(["cpu"] * 4)
     assert mesh.shape == {"pvs": 4, "time": 1} and mesh.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        tmesh.make_mesh(["cpu"] * 4, time_parallel=2)
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        tmesh.make_mesh(["cpu", "meta"])
+    grid = tmesh.make_mesh(["cpu"] * 4, time_parallel=2)
+    assert grid.shape == {"pvs": 2, "time": 2}
+    assert [[s.device for s in row] for row in grid.grid] == [[torch.device("cpu")] * 2] * 2
+    assert {s.rank for row in grid.grid for s in row} == {0}
+    distinct = tmesh.make_mesh(["cpu", "meta"])
+    assert distinct.shape == {"pvs": 2, "time": 1}
+    assert distinct.devices == (torch.device("cpu"), torch.device("meta"))
+    with pytest.raises(ValueError, match="does not divide"):
+        tmesh.make_mesh(["cpu"] * 4, time_parallel=3)
     with pytest.raises(ValueError):
         tmesh.make_mesh([])
 

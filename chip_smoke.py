@@ -100,6 +100,30 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      make_batch_metrics_step on the mesh equal to one slot; (d) with two
      or more cards, (a) again on distinct cards, else one line saying that
      route was not run
+ 13. the profiling plane on the card: (a) one window under
+     telemetry.profiling.Profiler with the torch.profiler device trace,
+     in a stage_span: a 128-frame u8 pump_ready seam (kernels 1-3), wave
+     (a)'s lanes of 600 and 250 through run_bucket on make_mesh()
+     (kernels 1 and 4) and one instrumented flagship avpvs_siti_step
+     call (kernel 5); the profile's three artifacts must be written, the
+     device trace must hold each kernel family's launches of the window
+     (symbols read from the trace, mapped by ops.cuda_kernels.
+     launch_names), the merged host trace the device:<step>,
+     transfer:device_put/get and wave spans, attribute_run a verdict with
+     transfer and compute measured, and the chain_device_memory_bytes
+     gauges must equal torch.cuda.memory_stats of the same sample;
+     (b) the kernel and copy busy shares of the seam's and the wave's
+     windows, read from the trace, beside the estimates phases 4, 6 and 8
+     give (kernel ms x launches / host window); wave (a)'s frames/s
+     unprofiled with telemetry off and on in turns (the wave loop's
+     instrumentation), and profiled beside the last unprofiled run just
+     before the window (the capture); (c) `tools run-report` and `tools
+     chain-profile` over the window's directory, as processes; (d) on
+     phase 11's service before it stops: GET /status's resources
+     (cuda:0's memory), counters and serve.stalls, a watchdog with a
+     0.5 s soft limit flagging a held heartbeat within 2 s (in
+     active_stalls and in /status) and clearing it on a beat, and the
+     status-file writer of `--status-file` rewriting its file
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -138,6 +162,10 @@ from processing_chain_tpu_torch.parallel import mesh as pmesh
 from processing_chain_tpu_torch.parallel import meshobs, p03_batch, pipeline
 from processing_chain_tpu_torch.priors import features as prior_features
 from processing_chain_tpu_torch import telemetry as serve_tm
+from processing_chain_tpu_torch.telemetry import live as serve_live
+from processing_chain_tpu_torch.telemetry import profiling
+from processing_chain_tpu_torch.telemetry import watchdog
+from processing_chain_tpu_torch.utils import tracing
 from processing_chain_tpu_torch.serve import api as serve_api
 from processing_chain_tpu_torch.serve.service import ChainServeService
 from processing_chain_tpu_torch.tools import quality_metrics as qm
@@ -1575,7 +1603,9 @@ def run_serve(dev, workdir: str) -> dict:
                             wave_width=4, device=dev)
     try:
         svc.start()
-        return _drive_serve(dev, svc)
+        result = _drive_serve(dev, svc)
+        result["observed"] = observe_serve(svc, workdir)
+        return result
     finally:
         svc.stop()
         meshobs.detach_journal()
@@ -1741,6 +1771,65 @@ def _drive_serve(dev, svc) -> dict:
         f"{batches} units; seeding a unit's YUV {min(seed_s):.3f}-{max(seed_s):.3f} s, "
         f"wave steps {step_s:.3f} s in all), the rest of {t_all:.3f} s is store "
         f"commits (sha256 of each artifact), HTTP and queue settles")
+    return result
+
+
+def observe_serve(svc, workdir: str) -> dict:
+    """Phase 13 (d), on phase 11's service before it stops: /status's
+    resources, counters and serve.stalls; a watchdog over a held heartbeat;
+    the status-file writer `tools chain-serve --status-file` runs."""
+    url = svc.server.url
+    code, body = _http(url + "/status")
+    require(code == 200, f"status: GET /status -> {code}")
+    doc = json.loads(body)
+    mem = doc.get("resources", {}).get("device_memory_by_device", {}).get("cuda:0")
+    require(mem is not None and mem["bytes_in_use"] > 0 and mem["bytes_limit"] > 0,
+            f"status: resources.device_memory_by_device {doc.get('resources')}")
+    require(set(doc.get("counters", {})) == {"frames_decoded", "frames_encoded", "bytes_encoded"},
+            f"status: counters {doc.get('counters')}")
+    require(doc.get("serve", {}).get("stalls") == [], f"status: serve.stalls {doc.get('serve')}")
+
+    status_path = os.path.join(workdir, "status.json")
+    writer = serve_live.StatusFileWriter(status_path, interval_s=0.25).start()
+    hb = serve_tm.HEARTBEATS.register("smoke-held", kind="task")
+    dog = watchdog.Watchdog(soft_s=0.5, poll_s=0.1).start()
+    try:
+        t0 = time.perf_counter()
+        stalls = []
+        while time.perf_counter() - t0 < 2.0 and "smoke-held" not in stalls:
+            time.sleep(0.05)
+            stalls = [s["task"] for s in watchdog.active_stalls()]
+        flagged_s = time.perf_counter() - t0
+        require("smoke-held" in stalls, f"watchdog: held heartbeat not flagged in 2 s: {stalls}")
+        served = json.loads(_http(url + "/status")[1])["serve"]["stalls"]
+        require("smoke-held" in [s["task"] for s in served], f"status: stalls {served}")
+        hb.beat()
+        require("smoke-held" not in [s["task"] for s in watchdog.active_stalls()],
+                "watchdog: the stall outlived a beat")
+        cleared = json.loads(_http(url + "/status")[1])["serve"]["stalls"]
+        require("smoke-held" not in [s["task"] for s in cleared],
+                f"status: stalls after the beat {cleared}")
+        stamps = set()
+        t1 = time.perf_counter()
+        while len(stamps) < 3 and time.perf_counter() - t1 < 5.0:
+            with open(status_path) as f:
+                stamps.add(json.load(f)["generated_at"])
+            time.sleep(0.1)
+    finally:
+        dog.stop()
+        hb.finish("ok")
+        writer.stop()
+    require(len(stamps) >= 2, f"status file rewritten {len(stamps)} time(s) in 5 s")
+    with open(status_path) as f:
+        final = json.load(f)
+    require(final["serve"]["stalls"] == [] and "cuda:0" in final["resources"].get(
+        "device_memory_by_device", {}), "status file: serve.stalls or cuda:0 memory missing")
+    os.unlink(status_path)
+    result = {"cuda0_memory": mem, "stall_flagged_s": flagged_s,
+              "status_file_versions": len(stamps)}
+    log(f"phase 13 (d): /status resources cuda:0 {mem}, counters {doc['counters']}, "
+        f"serve.stalls []; a held heartbeat flagged after {flagged_s:.2f} s (soft 0.5 s) "
+        f"and cleared on a beat; status file rewritten {len(stamps)} times")
     return result
 
 
@@ -2028,6 +2117,246 @@ def run_mesh(dev, workdir: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the profiling plane on the card
+# ---------------------------------------------------------------------------
+
+PROFILE_SEAM_FRAMES = 128
+UNPROFILED_TURNS = 3  # wave (a) runs with telemetry off and on, each, before the window
+
+
+def trace_launches(trace: dict) -> tuple:
+    """({LAUNCHES names: kernel events}, {symbol: events}) of the device
+    trace's kernels that csrc/*.cu launches, by the names the trace gives."""
+    counts, symbols = {}, {}
+    for ev in profiling.device_events(trace, "kernel"):
+        names = ck.launch_names(ev["name"])
+        if names:
+            counts[names] = counts.get(names, 0) + 1
+            symbols[ev["name"]] = symbols.get(ev["name"], 0) + 1
+    return counts, symbols
+
+
+def window_shares(trace: dict, annotation: str) -> dict:
+    """Kernel and copy busy shares of the card inside one record_function
+    range of the trace: the union of each kind's intervals over the span
+    from the range's first device event to its last (all on the trace's
+    own clock)."""
+    rng = profiling.annotation_range(trace, annotation)
+    require(rng is not None, f"profile: no {annotation} range in the device trace")
+    lo, hi = rng
+    inside = {kind: [e for e in profiling.device_events(trace, kind) if lo <= float(e["ts"]) <= hi]
+              for kind in profiling.DEVICE_EVENT_KINDS}
+    every = [e for evs in inside.values() for e in evs]
+    require(every, f"profile: no device event inside {annotation}")
+    start = min(float(e["ts"]) for e in every)
+    end = max(float(e["ts"]) + float(e.get("dur", 0)) for e in every)
+    return {"window_ms": (end - start) / 1e3,
+            "kernel_share": profiling.busy_share(inside["kernel"], start, end),
+            "copy_share": profiling.busy_share(inside["copy"], start, end),
+            "kernel_events": len(inside["kernel"]), "copy_events": len(inside["copy"]),
+            "copy_bytes": sum(int(e.get("args", {}).get("bytes", 0)) for e in inside["copy"])}
+
+
+def run_profiled(dev, workdir: str, wave_a: dict, seam: dict, timing: dict) -> dict:
+    """Phase 13 (a)-(c): one profiled window on the card (see the module doc)."""
+    out = os.path.join(workdir, "profile")
+    shutil.rmtree(out, ignore_errors=True)
+    seam_chunks = synthetic_clip(PROFILE_SEAM_FRAMES, avpvs.CHUNK, False, SEED + 13)
+    lengths = WAVE_CASES[0][1]
+    clips = [synthetic_clip(n, avpvs.CHUNK, False, SEED + 31 * i + n)
+             for i, n in enumerate(lengths)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    planes = [random_frames(gen, s, 255, torch.uint8, dev) for s in plane_shapes(FLAGSHIP_FRAMES)]
+    flagship = pipeline._instrument_step(pipeline.avpvs_siti_step, "avpvs_siti_step")
+    mesh = pmesh.make_mesh()
+    bucket = p03_batch.bucket_label(DST_H, DST_W, False, SRC_H, SRC_W)
+
+    def wave_lanes(tag):
+        sinks = [LaneSink() for _ in lengths]
+        return sinks, [p03_batch.Lane(chunks=iter(c), emit=s.emit, n_frames_hint=n,
+                                      emit_features=s.feat.extend, name=f"{tag}{i}")
+                       for i, (c, s, n) in enumerate(zip(clips, sinks, lengths))]
+
+    # wave (a) unprofiled, in turns with telemetry off and on (a journal
+    # attached to both), just before the profiled window and in its warm
+    # state: the turns price the wave loop's metrics and spans, the last
+    # run with telemetry on beside the profiled one prices the capture
+    unprofiled_fps = {"off": [], "on": []}
+    journal = os.path.join(workdir, "meshobs_unprofiled")
+    for mode in ("off", "on") * UNPROFILED_TURNS:
+        serve_tm.reset()
+        (serve_tm.enable if mode == "on" else serve_tm.disable)()
+        unprof_sinks, lanes = wave_lanes(f"unprofiled_{mode}")
+        meshobs.attach_journal(journal)
+        try:
+            torch.cuda.synchronize()
+            t_wave = time.perf_counter()
+            p03_batch.run_bucket(lanes, mesh, DST_H, DST_W, "bicubic", (2, 2), False,
+                                 chunk=avpvs.CHUNK, bucket=bucket)
+            torch.cuda.synchronize()
+            unprofiled_fps[mode].append(sum(lengths) / (time.perf_counter() - t_wave))
+        finally:
+            meshobs.detach_journal()
+            shutil.rmtree(journal, ignore_errors=True)
+        require(all(s.frames == n for s, n in zip(unprof_sinks, lengths)),
+                f"profile: the unprofiled wave (telemetry {mode}) lost frames")
+        del unprof_sinks, lanes
+    serve_tm.reset()
+    serve_tm.enable()
+    tracing.get_tracer().clear()
+    stamp = serve_tm.unique_stamp()
+    meshobs.attach_journal(os.path.join(out, f"meshobs_{stamp}"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launches()
+    prof = profiling.Profiler(out, interval_s=0.25, device_trace=True).start(stamp)
+    t0 = time.perf_counter()
+    try:
+        with serve_tm.stage_span("p03"):
+            with torch.profiler.record_function("smoke:seam"):
+                t_seam = time.perf_counter()
+                sink = HostSink(dev)
+                try:
+                    avpvs.pump_ready(iter(seam_chunks), sink, avpvs.SiTiAccumulator(),
+                                     DST_H, DST_W, "yuv420p", device=dev)
+                finally:
+                    sink.close()
+                torch.cuda.synchronize()
+                seam_s = time.perf_counter() - t_seam
+            sinks, lanes = wave_lanes("profiled")
+            with torch.profiler.record_function("smoke:wave"):
+                t_wave = time.perf_counter()
+                p03_batch.run_bucket(lanes, mesh, DST_H, DST_W, "bicubic", (2, 2), False,
+                                     chunk=avpvs.CHUNK, bucket=bucket)
+                torch.cuda.synchronize()
+                wave_s = time.perf_counter() - t_wave
+            with torch.profiler.record_function("smoke:flagship"):
+                flagship(*planes, DST_H, DST_W)
+                torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        window_peak = torch.cuda.max_memory_allocated(dev)
+        sample = profiling.sample_resources()
+        stats = torch.cuda.memory_stats(dev)
+    finally:
+        paths = prof.stop(stamp)
+        meshobs.detach_journal()
+    window_s = time.perf_counter() - t0
+    metrics = serve_tm.REGISTRY.snapshot()
+    events = serve_tm.EVENTS.records()
+    serve_tm.write_outputs(out, stamp)
+    tracing.get_tracer().write_report(out, stamp)
+    serve_tm.disable()
+    del clips, lanes, planes
+
+    require(all(s.frames == n for s, n in zip(sinks, lengths)) and sink.frames == PROFILE_SEAM_FRAMES,
+            "profile: a lane or the seam lost frames")
+    require("device_trace_error" not in paths,
+            f"profile: the device trace was asked for and not written: {paths.get('device_trace_error')}")
+    for key in ("trace", "resources", "device_trace_dir"):
+        require(key in paths and os.path.exists(paths[key]), f"profile: no {key} artifact: {paths}")
+
+    # (a) the device trace's kernels against the launch counters
+    trace = profiling.load_device_trace(paths["device_trace_dir"])
+    kernels = profiling.device_events(trace, "kernel")
+    require(kernels, "profile: the device trace holds no kernel events (CUDA activity was "
+            "not recorded: is CUPTI missing from this install?)")
+    counts, symbols = trace_launches(trace)
+    families = {}
+    for names in {ck.launch_names(sym) for sym in symbols} | {
+            ("resize_frames_fused",), ("si_frames_fused",), ("ti_frames_fused",),
+            ("siti_frames_fused", "siti_frames_fused_batch")}:
+        want = sum(launches[n] for n in names)
+        got = counts.get(names, 0)
+        families["+".join(names)] = {"trace": got, "launches": want}
+        require(want > 0 and got == want,
+                f"profile: {'+'.join(names)}: {got} kernel events in the trace, "
+                f"{want} launches counted")
+    log(f"phase 13 (a): device trace {len(kernels)} kernel events, ours by family "
+        f"{families}; symbols {json.dumps(symbols)}")
+
+    with open(paths["trace"]) as f:
+        host = json.load(f)
+    spans = {(e.get("cat"), e.get("name")) for e in host["traceEvents"] if e.get("ph") == "X"}
+    for want_span in (("device", "wave_step"), ("device", "avpvs_siti_step"),
+                      ("transfer", "device_put"), ("transfer", "device_get"),
+                      ("decode", "decode")):
+        require(want_span in spans, f"profile: merged trace lacks the {want_span} span")
+    verdicts = profiling.attribute_run(metrics, events)
+    verdict = verdicts.get("p03", {})
+    require(verdict.get("verdict") in profiling.VERDICTS
+            and {"transfer", "compute"}.isdisjoint(verdict.get("missing", ["?"])),
+            f"profile: attribution {verdicts}")
+
+    gauge = {tuple(sorted(s["labels"].items())): s["value"]
+             for s in metrics["chain_device_memory_bytes"]["series"]}
+    mem = sample["device_memory_by_device"]["cuda:0"]
+    want_mem = {"bytes_in_use": stats["allocated_bytes.all.current"],
+                "peak_bytes_in_use": stats["allocated_bytes.all.peak"],
+                "bytes_limit": torch.cuda.mem_get_info(dev)[1]}
+    for kind, val in want_mem.items():
+        require(mem[kind] == val == gauge[(("device", "cuda:0"), ("kind", kind))],
+                f"profile: chain_device_memory_bytes{{cuda:0,{kind}}} "
+                f"{gauge.get((('device', 'cuda:0'), ('kind', kind)))} != memory_stats {val}")
+    require(mem["peak_bytes_in_use"] >= window_peak,
+            f"profile: peak {mem['peak_bytes_in_use']} below the window's {window_peak}")
+    log(f"phase 13 (a): verdict {verdict['verdict']} ({verdict['contributors']}), "
+        f"memory gauges {mem} equal memory_stats; artifacts {sorted(os.listdir(out))}")
+
+    # (b) busy shares read from the trace, beside the event-timed estimates
+    shares = {"seam": window_shares(trace, "smoke:seam"),
+              "wave": window_shares(trace, "smoke:wave")}
+    seam_chunk_ms = timing["resize_frames_fused"]["ms"] + timing["si_frames_fused"]["ms"] \
+        + timing["ti_frames_fused"]["ms"]
+    wave_block_ms = timing["resize_frames_fused"]["ms"] + timing["siti_frames_fused_batch"]["ms"]
+    n_chunks = -(-PROFILE_SEAM_FRAMES // avpvs.CHUNK)
+    estimates = {
+        "seam": {"phase4_device_busy_share": seam["device_busy_share"],
+                 "kernel_ms_x_launches_over_window": n_chunks * seam_chunk_ms / 1e3 / seam_s},
+        "wave": {"kernel_ms_x_launches_over_phase6_window":
+                 wave_a["blocks"] * wave_block_ms / 1e3 / wave_a["seconds"],
+                 "kernel_ms_x_launches_over_window": wave_a["blocks"] * wave_block_ms / 1e3 / wave_s},
+    }
+    wave_fps = sum(lengths) / wave_s
+    unprof_fps = unprofiled_fps["on"][-1]
+    off_med, on_med = (float(np.median(unprofiled_fps[m])) for m in ("off", "on"))
+    for name in ("seam", "wave"):
+        sh = shares[name]
+        log(f"phase 13 (b): {name}: kernels busy {100 * sh['kernel_share']:.2f}%, copies "
+            f"{100 * sh['copy_share']:.2f}% of its {sh['window_ms']:.3f} ms on the card "
+            f"(trace: {sh['kernel_events']} kernels, {sh['copy_events']} copies, "
+            f"{sh['copy_bytes']} bytes); estimates {json.dumps(estimates[name])}")
+    log(f"phase 13 (b): wave (a) unprofiled, telemetry off / on in turns: median "
+        f"{off_med:.2f} / {on_med:.2f} frames/s (instrumentation cost "
+        f"{100 * (off_med / on_med - 1):.1f}%; runs {json.dumps(unprofiled_fps)})")
+    log(f"phase 13 (b): wave (a) profiled {wave_fps:.2f} frames/s beside {unprof_fps:.2f} "
+        f"frames/s unprofiled just before it (capture overhead "
+        f"{100 * (unprof_fps / wave_fps - 1):.1f}%); window {window_s:.2f} s")
+
+    # (c) the readers over the window's directory, as a user runs them
+    readers = {}
+    for tool, marks in (("run-report", ("bottleneck attribution:", "resources:", "mesh efficiency:")),
+                        ("chain-profile", ("lanes (busy seconds", "bottleneck verdicts:"))):
+        # chainlint: disable=subprocess-hygiene (the port's own reader on a directory this run wrote, with a timeout; its exit code and output are checked)
+        proc = subprocess.run([sys.executable, "-m", "processing_chain_tpu_torch", "tools", tool, out],
+                              cwd=ROOT, capture_output=True, text=True, timeout=120)
+        require(proc.returncode == 0, f"profile: tools {tool} exited {proc.returncode}: "
+                f"{proc.stderr[-1000:]}")
+        for mark in marks:
+            require(mark in proc.stdout, f"profile: tools {tool} printed no '{mark}'")
+        readers[tool] = proc.stdout
+    log("phase 13 (c): tools run-report:\n" + readers["run-report"].rstrip())
+    log("phase 13 (c): tools chain-profile:\n" + readers["chain-profile"].rstrip())
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "families": families, "symbols": symbols,
+            "verdict": verdict, "memory": mem, "window_peak_bytes": window_peak,
+            "shares": shares, "estimates": estimates, "seam_s": seam_s,
+            "wave_s": wave_s, "wave_frames_per_s_profiled": wave_fps,
+            "wave_frames_per_s_unprofiled": unprof_fps,
+            "wave_frames_per_s_unprofiled_turns": unprofiled_fps, "window_s": window_s}
+
+
 def libav_probe() -> str:
     """Whether the native media layer's libav could load here: does
     libavcodec.so.59 open, and which libav headers exist. Printed for the
@@ -2106,6 +2435,10 @@ def main() -> int:
     t12 = time.perf_counter()
     mesh = run_mesh(dev, workdir)
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    profiled = run_profiled(dev, workdir, waves["production"], main8, timing)
+    profiled["serve"] = serve.pop("observed")
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -2141,7 +2474,7 @@ def main() -> int:
     log(json.dumps({"main_path": [main8, main10], "flagship": flagship,
                     "waves": waves, "downstream": downstream, "p01_ladder": ladder,
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
-                    "serve": serve, "mesh": mesh, "card": smi}))
+                    "serve": serve, "mesh": mesh, "profiled": profiled, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,19 @@ not ported yet)."""
 
 from __future__ import annotations
 
+import importlib
 import sys
 from typing import Optional, Sequence
 
-_TOOLS = ("chain-serve", "mesh-report")
+#: tool name -> module whose `main(argv)` runs it
+_TOOLS = {
+    "chain-serve": ".tools.chain_serve",
+    "mesh-report": ".tools.mesh_report",
+    "run-report": ".telemetry.report",
+    "chain-profile": ".tools.chain_profile",
+    "chain-top": ".tools.chain_top",
+    "mesh-top": ".tools.mesh_top",
+}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -17,13 +26,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             f"usage: python -m processing_chain_tpu_torch tools "
             f"{{{','.join(_TOOLS)}}} …\n")
         return 2
-    if argv[1] == "mesh-report":
-        from .tools import mesh_report
-
-        return mesh_report.main(argv[2:])
-    from .tools import chain_serve
-
-    return chain_serve.main(argv[2:])
+    return importlib.import_module(_TOOLS[argv[1]], __package__).main(argv[2:])
 
 
 if __name__ == "__main__":

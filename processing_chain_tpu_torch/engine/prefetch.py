@@ -1,20 +1,115 @@
 """Decode-ahead on a worker thread and the streaming frame gathers
 (trimmed copies of `Prefetcher`, processing_chain_tpu/engine/prefetch.py:
-130-253, without heartbeats, profiling spans or queue-depth telemetry,
-and of `stream_monotonic_gather` / `stream_fps_resample` :531-623,
-without the decoded-frame counter)."""
+40-253, without heartbeats, and of `stream_monotonic_gather` /
+`stream_fps_resample` :531-623, without the decoded-frame counter).
+
+The prefetch queue registers in the live-queue registry the resource
+monitor samples (`live_queue_depths`), and each consumer pull records the
+queue depth (`chain_queue_depth`) and the time the consumer sat blocked
+(`chain_pipeline_wait_seconds_total{side="consumer"}`, the attribution
+engine's decode component) while telemetry is on; under a profile
+capture each decode lands in the timeline as a `prefetch:decode` span."""
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
+import weakref
 from typing import Any, Callable, Iterable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import telemetry as tm
+from ..telemetry import profiling
+from ..utils import lockdebug
+
 _SENTINEL = object()
 _EXHAUSTED = object()
+
+# Live bounded-queue registry: the resource monitor samples current
+# depths by NAME (telemetry/profiling.sample_resources) without holding
+# any pipeline object alive. Entries self-prune via the weakref callback
+# when their queue dies.
+_QUEUE_REGISTRY: dict[int, tuple[str, "weakref.ref"]] = {}
+_QUEUE_REG_LOCK = lockdebug.make_lock("queue_registry")
+
+
+def _register_queue(name: str, q: queue.Queue) -> None:
+    key = id(q)
+
+    def _gone(_ref, *, _key=key):
+        # lock-free like bufpool's weakref callback: a GC sweep can fire
+        # this on a thread already holding the registry lock, and a
+        # single-key dict.pop is GIL-atomic
+        _QUEUE_REGISTRY.pop(_key, None)
+
+    with _QUEUE_REG_LOCK:
+        _QUEUE_REGISTRY[key] = (name, weakref.ref(q, _gone))
+
+
+def live_queue_depths() -> dict[str, dict]:
+    """{queue name: {"queues": live instances, "depth": summed qsize}} of
+    every registered pipeline queue still alive."""
+    out: dict[str, dict] = {}
+    with _QUEUE_REG_LOCK:
+        # the lock-free callback can pop mid-iteration: retry the (rare)
+        # race instead of excluding it
+        for _ in range(4):
+            try:
+                entries = list(_QUEUE_REGISTRY.values())
+                break
+            except RuntimeError:
+                continue
+        else:
+            entries = []
+    for name, ref in entries:
+        q = ref()
+        if q is None:
+            continue  # the callback will prune it
+        entry = out.setdefault(name, {"queues": 0, "depth": 0})
+        entry["queues"] += 1
+        entry["depth"] += q.qsize()
+    return out
+
+
+# Telemetry handles, bound once at import; the consumer loop guards with
+# `tm.enabled()` so a disabled run never calls qsize() or perf_counter().
+# Granularity is per chunk, never per frame.
+_Q_DEPTH = tm.histogram(
+    "chain_queue_depth",
+    "bounded-queue depth sampled at each consumer pull / producer push",
+    ("queue",),
+    buckets=tm.DEFAULT_DEPTH_BUCKETS,
+)
+_Q_DECODE = _Q_DEPTH.labels(queue="decode")
+_WAIT = tm.counter(
+    "chain_pipeline_wait_seconds_total",
+    "time the pipeline spent blocked on a bounded queue, by side",
+    ("side",),
+)
+_WAIT_CONSUMER = _WAIT.labels(side="consumer")
+_EVENT_SAMPLE_EVERY = 64  # every Nth depth sample also lands in the event log
+
+
+class _DepthSampler:
+    """Per-pipeline-object sampling helper: histogram every sample, event
+    log every Nth (events are for forensics; the histogram carries the
+    distribution)."""
+
+    __slots__ = ("_bound", "_queue_name", "_n")
+
+    def __init__(self, bound, queue_name: str) -> None:
+        self._bound = bound
+        self._queue_name = queue_name
+        self._n = 0
+
+    def sample(self, depth: int) -> None:
+        self._bound.observe(depth)
+        self._n += 1
+        if self._n % _EVENT_SAMPLE_EVERY == 1:
+            tm.emit("queue_depth", queue=self._queue_name, depth=depth)
 
 
 def _put_until_stop(q: queue.Queue, item: Any, stop: threading.Event) -> bool:
@@ -51,14 +146,19 @@ class Prefetcher:
 
     def __init__(self, source: Iterable[Any], depth: int = 2) -> None:
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        _register_queue("decode", self._q)
         self._stop = threading.Event()
         self._err: Optional[BaseException] = None
+        self._depth_sampler = _DepthSampler(_Q_DECODE, "decode")
 
         def worker() -> None:
             try:
                 src = iter(source)
                 while True:
-                    item = next(src, _EXHAUSTED)
+                    # under a profile capture each pull (the decode of one
+                    # chunk) lands in the span timeline as the decode lane
+                    with profiling.maybe_span("prefetch:decode"):
+                        item = next(src, _EXHAUSTED)
                     if item is _EXHAUSTED or self._stop.is_set():
                         break
                     _put_until_stop(self._q, item, self._stop)
@@ -72,7 +172,13 @@ class Prefetcher:
 
     def __iter__(self) -> Iterator[Any]:
         while True:
-            item = self._q.get()
+            if tm.enabled():
+                self._depth_sampler.sample(self._q.qsize())
+                t0 = time.perf_counter()
+                item = self._q.get()
+                _WAIT_CONSUMER.inc(time.perf_counter() - t0)
+            else:
+                item = self._q.get()
             if item is _SENTINEL:
                 if self._err is not None:
                     err, self._err = self._err, None

@@ -89,6 +89,30 @@ class BufferPool:
             ref = self._outstanding.get(id(arr))
             return ref is not None and ref() is arr
 
+    def stats(self) -> dict:
+        """Blocks and bytes parked on the free lists and held by the
+        pipeline (the resource monitor's pool numbers)."""
+        with self._lock:
+            # outstanding bytes resolve the weakrefs on demand (a ~1 Hz
+            # resource-monitor call, never a hot path): refs whose arrays
+            # were dropped without release count as gone. The lock-free
+            # weakref callback can still pop concurrently, so retry the
+            # iteration the (rare) time it mutates the dict under us.
+            for _ in range(4):
+                try:
+                    live = [ref() for ref in list(self._outstanding.values())]
+                    break
+                except RuntimeError:
+                    continue
+            else:
+                live = []
+            return {
+                "free_blocks": sum(len(v) for v in self._free.values()),
+                "free_bytes": sum(a.nbytes for v in self._free.values() for a in v),
+                "outstanding": len(self._outstanding),
+                "outstanding_bytes": sum(a.nbytes for a in live if a is not None),
+            }
+
 
 #: process-wide default pool, shared by the decode and compute stages
 DEFAULT_POOL = BufferPool()

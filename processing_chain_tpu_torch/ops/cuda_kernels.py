@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import numpy as np
 import torch
@@ -79,6 +80,29 @@ _SITI_BLOCK_BYTES = 4096  # owned bytes of each row per block: 256 threads x 16
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# The CUDA symbols of csrc/*.cu as a profiler trace names them, demangled
+# ("void (anonymous namespace)::siti_partials<unsigned char, true>(...)")
+# or mangled ("_ZN12_GLOBAL__N_113siti_partialsIhLb1EEEv..."), and the
+# LAUNCHES names whose wrappers launch each: one launch a wrapper call.
+# siti_frames_fused and siti_frames_fused_batch launch one symbol.
+_SYMBOL_LAUNCHES = (
+    (re.compile(r"resize_(ring|stream)\b|\d+resize_(ring|stream)I"), ("resize_frames_fused",)),
+    (re.compile(r"siti_partials<[^>]*,\s*false>|13siti_partialsI[th]Lb0E"), ("si_frames_fused",)),
+    (re.compile(r"siti_partials<[^>]*,\s*true>|13siti_partialsI[th]Lb1E"),
+     ("siti_frames_fused", "siti_frames_fused_batch")),
+    (re.compile(r"(?<![A-Za-z_])ti_partials<|11ti_partialsI"), ("ti_frames_fused",)),
+)
+
+
+def launch_names(symbol: str) -> tuple:
+    """The LAUNCHES names whose wrappers launch the kernel a profiler trace
+    names `symbol` (empty for a kernel that is not one of csrc/*.cu's)."""
+    for pattern, names in _SYMBOL_LAUNCHES:
+        if pattern.search(symbol):
+            return names
+    return ()
 
 
 def _check_frames(x, name: str, dtypes, layout: str = "[T, H, W]") -> None:

@@ -1,6 +1,5 @@
 """Device-plane flight recorder: wave occupancy accounting and the step
-ledger (trimmed copy of processing_chain_tpu/parallel/meshobs.py, without
-its `chain_mesh_*` metrics and /status provider).
+ledger (copy of processing_chain_tpu/parallel/meshobs.py).
 
   * **Per-wave occupancy.** Every dispatched wave step (one [n_pvs,
     t_step] block through the wave step) records its bucket, lanes and
@@ -24,6 +23,11 @@ its `chain_mesh_*` metrics and /status provider).
 Record fields are those of the JAX package, so the two journals compare
 field by field; a wave record also names its mesh ("{pvs}x{time}").
 `journal_stats` is the tail-sampled summary for frequent readers.
+
+Metrics (`chain_mesh_*`, the reference catalog's names) and the
+`mesh_wave` / `mesh_compile` events update whether or not a journal is
+attached, and the /status "mesh" section serves the in-memory aggregate
+(`tools mesh-top` reads either).
 """
 
 from __future__ import annotations
@@ -35,7 +39,50 @@ import threading
 import time
 from typing import Optional
 
+from .. import telemetry as tm
+from ..telemetry import live as _live
 from ..utils.log import get_logger
+
+WAVES = tm.counter(
+    "chain_mesh_waves_total",
+    "dispatched device wave-steps (one [n_pvs, t_step] block through the "
+    "wave step), per geometry bucket",
+    ("bucket",),
+)
+SLOTS = tm.counter(
+    "chain_mesh_wave_slots_total",
+    "frame-slots of dispatched wave-steps by occupancy kind (valid = real "
+    "frames; pad_tail = tail-repeat padding; pad_exhausted = exhausted "
+    "lanes riding the wave; pad_mesh = batch-axis padding) — the kinds "
+    "sum to the dispatched slot count",
+    ("bucket", "kind"),
+)
+WAVE_SECONDS = tm.histogram(
+    "chain_mesh_wave_seconds",
+    "wall seconds per dispatched wave-step, dispatch to outputs on the host "
+    "(the overlapped next-block host assembly is excluded)",
+    ("bucket",),
+)
+WASTE = tm.gauge(
+    "chain_mesh_waste_fraction",
+    "running padded-slot fraction of all dispatched slots per bucket "
+    "(0 = every slot carried a real frame)",
+    ("bucket",),
+)
+RECOMPILES = tm.counter(
+    "chain_mesh_recompiles_total",
+    "first dispatches of device steps per geometry bucket: no XLA compile "
+    "exists on the card, so this counts each (mesh, geometry) step's first "
+    "dispatch, which builds its kernels on their first use (the step is "
+    "cached per geometry; revisiting a bucket adds none)",
+    ("bucket",),
+)
+COMPILE_SECONDS = tm.counter(
+    "chain_mesh_compile_seconds_total",
+    "seconds of those first dispatches per bucket (kernel builds on first "
+    "use + the first step's compute)",
+    ("bucket",),
+)
 
 #: occupancy kinds of one dispatched frame-slot, in render order
 SLOT_KINDS = ("valid", "pad_tail", "pad_exhausted", "pad_mesh")
@@ -149,6 +196,10 @@ class MeshRecorder:
             record["mesh"] = mesh
         if first:
             record["first"] = True
+        WAVES.labels(bucket=bucket).inc()
+        for kind in SLOT_KINDS:
+            SLOTS.labels(bucket=bucket, kind=kind).inc(record[kind])
+        WAVE_SECONDS.labels(bucket=bucket).observe(step_s)
         with self._lock:
             agg = self._buckets.setdefault(bucket, _new_agg())
             agg["waves"] += 1
@@ -156,11 +207,19 @@ class MeshRecorder:
                 agg[kind] += record[kind]
             agg["dispatched"] += dispatched
             agg["step_s"] += step_s
+            waste = waste_fraction(agg)
             self._append_locked(record)
+        WASTE.labels(bucket=bucket).set(waste)
+        tm.emit("mesh_wave", bucket=bucket, wave=wave, block=block,
+                lanes=len(lanes), valid=valid, pad_tail=pad_tail,
+                pad_exhausted=pad_exhausted, pad_mesh=pad_mesh,
+                step_s=round(step_s, 6))
 
     def record_compile(self, bucket: str, *, step: str, geometry: dict,
                        seconds: float) -> None:
         """The first dispatch of a new step, with its geometry."""
+        RECOMPILES.labels(bucket=bucket).inc()
+        COMPILE_SECONDS.labels(bucket=bucket).inc(seconds)
         record = {
             "kind": "compile", "bucket": bucket, "step": step,
             "geometry": dict(geometry), "seconds": round(seconds, 6),
@@ -170,6 +229,11 @@ class MeshRecorder:
             agg["recompiles"] += 1
             agg["compile_s"] += seconds
             self._append_locked(record)
+        tm.emit("mesh_compile", bucket=bucket, step=step,
+                seconds=round(seconds, 6), **{
+                    k: v for k, v in geometry.items()
+                    if isinstance(v, (str, int, float, bool))
+                })
 
     # --------------------------------------------------------- reads
 
@@ -358,3 +422,12 @@ def journal_stats(root: str, tail_bytes: int = 1 << 19) -> dict:
 def mesh_dir(root: str) -> str:
     """The journal directory convention of one serve root."""
     return os.path.join(os.path.abspath(root), "meshobs")
+
+
+# the /status "mesh" section: registered at import so every surface that
+# imports the wave loop (runs, serve, tools) exposes it
+def _status_section(query) -> Optional[dict]:
+    return RECORDER.summary()
+
+
+_live.STATUS_PROVIDERS.setdefault("mesh", _status_section)

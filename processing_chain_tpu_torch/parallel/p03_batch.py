@@ -16,6 +16,12 @@ bucketing policy is the JAX package's:
   * A lane that exhausts keeps riding the wave as a zero-filled slot whose
     outputs are discarded, until every lane of the wave finishes.
   * The batch axis pads up to the mesh's "pvs" size with zero lanes.
+
+While telemetry is on, the wave loop counts its host<->device transfer
+seconds and bytes (`chain_device_transfer_*{direction}`, the attribution
+engine's transfer component) and, under a profile capture, records the
+`transfer:device_put`, `device:wave_step` and `transfer:device_get` spans
+of every block.
 """
 
 from __future__ import annotations
@@ -30,12 +36,31 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from .. import telemetry as tm
 from ..engine.prefetch import Prefetcher
 from ..io import bufpool
 from ..models import frames as fr
 from ..ops import siti as siti_ops
+from ..telemetry import profiling
 from . import halo, meshobs
 from .mesh import BlockLayout
+
+_XFER_SECONDS = tm.counter(
+    "chain_device_transfer_seconds_total",
+    "host<->device transfer time in the wave loop (put = assembly into "
+    "the staging buffer + issuing the copies, which overlap the in-flight "
+    "step; get = fetch of ready outputs: issuing their copies and waiting "
+    "for them after the step)", ("direction",),
+)
+_XFER_BYTES = tm.counter(
+    "chain_device_transfer_bytes_total",
+    "host<->device bytes moved by the wave loop (put: the staged input "
+    "planes; get: the five outputs)", ("direction",),
+)
+_XFER_PUT_S = _XFER_SECONDS.labels(direction="put")
+_XFER_GET_S = _XFER_SECONDS.labels(direction="get")
+_XFER_PUT_B = _XFER_BYTES.labels(direction="put")
+_XFER_GET_B = _XFER_BYTES.labels(direction="get")
 
 
 @dataclass
@@ -383,41 +408,46 @@ def _drive_wave(wave, iters, mesh, step,
         parity = state["parity"]
         state["parity"] ^= 1
         bufs, released = staging.get(parity, (None, []))
-        if bufs is None:
-            bufs = [torch.empty((n_pvs,) + tuple(p.shape),
-                                dtype=_torch_dtype(p.dtype), pin_memory=bool(cards))
-                    for p in tmpl]
-        for ev in released:
-            ev.synchronize()  # the copies that last read bufs are done
-        for p in range(3):
-            dst = bufs[p]
-            for i in range(n_pvs):
-                blk = blocks[i] if i < len(blocks) else None
-                if blk is None:
-                    dst[i].zero_()  # exhausted lane / batch-axis padding
-                else:
-                    dst[i].copy_(torch.from_numpy(blk[p]))
-        # lane blocks are copied out: recycle them for the decoders
-        for blk in blocks:
-            if blk is not None:
-                pool.release(*blk)
-        planes = [{d: torch.empty((len(rows), layout.ts) + tuple(b.shape[2:]),
-                                  dtype=b.dtype, device=d)
-                   for d, rows in layout.rows.items()} for b in bufs]
-        ready = {}
-        for d in layout.devices:
-            if d.type != "cuda":
-                for b, part in zip(bufs, planes):
-                    layout.scatter(b, {d: part[d]})
-                continue
-            queued = torch.cuda.Event()
-            queued.record(compute[d])
-            ready[d] = torch.cuda.Event()
-            with torch.cuda.stream(copy[d]):
-                copy[d].wait_event(queued)
-                for b, part in zip(bufs, planes):
-                    layout.scatter(b, {d: part[d]})
-                ready[d].record(copy[d])
+        t_put = time.perf_counter() if tm.enabled() else 0.0
+        with profiling.maybe_span("transfer:device_put"):
+            if bufs is None:
+                bufs = [torch.empty((n_pvs,) + tuple(p.shape),
+                                    dtype=_torch_dtype(p.dtype), pin_memory=bool(cards))
+                        for p in tmpl]
+            for ev in released:
+                ev.synchronize()  # the copies that last read bufs are done
+            for p in range(3):
+                dst = bufs[p]
+                for i in range(n_pvs):
+                    blk = blocks[i] if i < len(blocks) else None
+                    if blk is None:
+                        dst[i].zero_()  # exhausted lane / batch-axis padding
+                    else:
+                        dst[i].copy_(torch.from_numpy(blk[p]))
+            # lane blocks are copied out: recycle them for the decoders
+            for blk in blocks:
+                if blk is not None:
+                    pool.release(*blk)
+            planes = [{d: torch.empty((len(rows), layout.ts) + tuple(b.shape[2:]),
+                                      dtype=b.dtype, device=d)
+                       for d, rows in layout.rows.items()} for b in bufs]
+            ready = {}
+            for d in layout.devices:
+                if d.type != "cuda":
+                    for b, part in zip(bufs, planes):
+                        layout.scatter(b, {d: part[d]})
+                    continue
+                queued = torch.cuda.Event()
+                queued.record(compute[d])
+                ready[d] = torch.cuda.Event()
+                with torch.cuda.stream(copy[d]):
+                    copy[d].wait_event(queued)
+                    for b, part in zip(bufs, planes):
+                        layout.scatter(b, {d: part[d]})
+                    ready[d].record(copy[d])
+        if tm.enabled():
+            _XFER_PUT_S.inc(time.perf_counter() - t_put)
+            _XFER_PUT_B.inc(sum(b.nbytes for b in bufs))
         staging[parity] = (bufs, list(ready.values()))
         return planes, valids, ready
 
@@ -440,14 +470,36 @@ def _drive_wave(wave, iters, mesh, step,
         for lane in range(n_pvs):
             d, i = layout.index[(lane, layout.n_time - 1)]
             carry[lane] = out[d][0][i, -1].clone()
+        stepped = []  # with telemetry on: events after the step, before its fetch
+        for d in compute if tm.enabled() else ():
+            ev = torch.cuda.Event()
+            ev.record(compute[d])
+            stepped.append(ev)
+        t_get = time.perf_counter()
         host, fetched = _fetch(layout, out, compute)
+        get_s = time.perf_counter() - t_get
         # overlap: assemble and upload block k+1 while block k runs
         t_gather0 = time.perf_counter()
         nxt = gather_put()
         t_gather1 = time.perf_counter()
-        for ev in fetched:
-            ev.synchronize()
-        host = [h.numpy() for h in host]
+        if tm.enabled():
+            with profiling.maybe_span(
+                    "device:wave_step", bucket=bucket, wave=wave_index,
+                    valid=valid, pad_tail=pad_tail,
+                    pad_exhausted=pad_exhausted, pad_mesh=pad_mesh):
+                for ev in stepped:
+                    ev.synchronize()
+            t_get = time.perf_counter()
+            with profiling.maybe_span("transfer:device_get"):
+                for ev in fetched:
+                    ev.synchronize()
+                host = [h.numpy() for h in host]
+            _XFER_GET_S.inc(get_s + time.perf_counter() - t_get)
+            _XFER_GET_B.inc(sum(h.nbytes for h in host))
+        else:
+            for ev in fetched:
+                ev.synchronize()
+            host = [h.numpy() for h in host]
         si_h, ti_h = host[3], host[4]
         # dispatch -> outputs-on-host wall seconds, the overlapped host
         # assembly of block k+1 excluded

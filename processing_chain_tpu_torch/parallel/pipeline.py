@@ -25,6 +25,7 @@ from .. import telemetry as tm
 from ..ops import metrics as metrics_ops
 from ..ops import resize as resize_ops
 from ..ops import siti as siti_ops
+from ..telemetry import profiling
 from ..telemetry.heartbeat import HEARTBEATS
 from ..utils.device import resolve_device
 from . import halo, meshobs
@@ -173,8 +174,14 @@ def _instrument_step(fn, step: str):
         hb = HEARTBEATS.register(step, kind="device_step")
         t0 = time.perf_counter()
         try:
-            out = fn(*args, **kwargs)
-            _sync_outputs(out)
+            # under a profile capture, the device:<step> span lands in the
+            # merged timeline on the tracer's clock, and record_function
+            # labels the step's launches in the torch.profiler trace; both
+            # no-op otherwise
+            with profiling.maybe_span(f"device:{step}"), \
+                    profiling.device_annotation(step):
+                out = fn(*args, **kwargs)
+                _sync_outputs(out)
         except BaseException:
             hb.finish("fail")
             raise

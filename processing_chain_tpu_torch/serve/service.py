@@ -60,6 +60,7 @@ from ..parallel import meshobs
 from ..store import runtime as store_runtime
 from ..store.store import StoreCorruption
 from ..telemetry import catalog as tm_catalog
+from ..telemetry import watchdog as tm_watchdog
 from ..telemetry import live
 from ..utils import lockdebug
 from ..utils.fsio import atomic_write_json
@@ -792,6 +793,8 @@ class ChainServeService:
             "pid": os.getpid(),
             "queue": self.queue.counts(),
             "requests": {},
+            # live stall/hard-timeout episodes from the heartbeat registry
+            "stalls": tm_watchdog.active_stalls(),
         }
         with self._lock:
             for doc in self._requests.values():

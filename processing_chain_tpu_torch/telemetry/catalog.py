@@ -15,6 +15,17 @@ from __future__ import annotations
 
 #: metric name -> prometheus kind
 METRICS: dict[str, str] = {
+    # telemetry/__init__.py — cross-layer counters and stage spans
+    "chain_frames_decoded_total": "counter",
+    "chain_frames_encoded_total": "counter",
+    "chain_bytes_encoded_total": "counter",
+    "chain_stage_wall_seconds": "gauge",
+    # engine/prefetch.py — bounded-queue pipeline
+    "chain_queue_depth": "histogram",
+    "chain_pipeline_wait_seconds_total": "counter",
+    # parallel/p03_batch.py — the wave loop's host<->device copies
+    "chain_device_transfer_seconds_total": "counter",
+    "chain_device_transfer_bytes_total": "counter",
     # engine/jobs.py — job accounting
     "chain_jobs_planned_total": "counter",
     "chain_jobs_skipped_total": "counter",
@@ -52,6 +63,21 @@ METRICS: dict[str, str] = {
     "chain_serve_read_seconds": "histogram",
     # parallel/pipeline.py — instrumented device steps
     "chain_device_step_seconds": "histogram",
+    # telemetry/profiling.py — resource monitor
+    "chain_resource_rss_bytes": "gauge",
+    "chain_resource_open_fds": "gauge",
+    "chain_resource_cpu_percent": "gauge",
+    "chain_resource_queue_depth": "gauge",
+    "chain_bufpool_free_bytes": "gauge",
+    "chain_bufpool_outstanding_bytes": "gauge",
+    "chain_device_memory_bytes": "gauge",
+    # parallel/meshobs.py — wave occupancy and the step ledger
+    "chain_mesh_waves_total": "counter",
+    "chain_mesh_wave_slots_total": "counter",
+    "chain_mesh_wave_seconds": "histogram",
+    "chain_mesh_waste_fraction": "gauge",
+    "chain_mesh_recompiles_total": "counter",
+    "chain_mesh_compile_seconds_total": "counter",
     # parallel/distributed.py + parallel/halo.py — multi-process visibility
     "chain_dist_collective_bytes_total": "counter",
     "chain_dist_barrier_seconds_total": "counter",
@@ -59,6 +85,15 @@ METRICS: dict[str, str] = {
 
 #: structured event-log record names
 EVENTS: frozenset = frozenset({
+    "log_meta",        # head record of every events_<ts>.jsonl
+    "stage_start",     # telemetry.stage_span
+    "stage_end",
+    "queue_depth",     # engine/prefetch.py — every 64th depth sample
+    "task_stalled",    # telemetry/watchdog.py — soft threshold crossed
+    "task_hard_timeout",  # telemetry/watchdog.py — hard threshold crossed
+    "mesh_wave",       # parallel/meshobs.py — one wave step dispatched
+    "mesh_compile",    # parallel/meshobs.py — first dispatch of a step
+    "log",             # a profile's missing device trace
     "job_planned",
     "job_skip",
     "job_redo",

@@ -1,9 +1,11 @@
-"""Structured run-event log: an append-only list of records (trimmed copy
-of processing_chain_tpu/telemetry/events.py: the in-memory log, without
-the reference's file stream and JSONL writer).
+"""Structured run-event log: an append-only list of JSON records (copy of
+processing_chain_tpu/telemetry/events.py).
 
-One record per interesting state transition — per-job planned/start/
-end/skip/redo/fail, serve request, queue and wave transitions.
+One record per interesting state transition — stage start/end, per-job
+planned/start/end/skip/redo/fail, prefetch queue samples, device step
+timings, serve request, queue and wave transitions — written out by
+`telemetry.write_outputs` as events_<ts>.jsonl and consumed by
+telemetry/report.py (`tools run-report`).
 
 Same enablement contract as the metrics registry: `emit()` starts with
 one attribute check and allocates nothing while telemetry is off, so the
@@ -22,6 +24,8 @@ serve layer and stay valid without them.
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from ..utils import lockdebug
 
@@ -69,8 +73,46 @@ class EventLog:
         self._t0 = time.time()
         self._t0_perf = time.perf_counter()
 
+    def write_jsonl(self, path: str) -> str:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with self._lock:
+            events = list(self._events)
+            drops = self.drops
+            t0 = self._t0
+        from ..utils.fsio import atomic_write
+
+        def _write(tmp: str) -> None:
+            with open(tmp, "w") as f:
+                f.write(json.dumps({
+                    "event": "log_meta", "t": 0.0, "epoch_t0": round(t0, 3),
+                    "n_events": len(events), "dropped": drops,
+                }) + "\n")
+                for record in events:
+                    f.write(json.dumps(record) + "\n")
+
+        atomic_write(path, _write)
+        return path
+
+
+def read_jsonl(path: str) -> list[dict]:
+    """Inverse of write_jsonl (used by telemetry/report.py); tolerates a
+    truncated final line from an interrupted writer."""
+    out: list[dict] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                break
+    return out
+
+
 EVENTS = EventLog()
 
 
 def emit(event: str, **fields) -> None:
     EVENTS.emit(event, **fields)  # chainlint: disable=telemetry-name (registry plumbing: the name is the caller's declared literal)
+

@@ -1,7 +1,5 @@
-"""Live status surface: the HTTP endpoint (copy of
-processing_chain_tpu/telemetry/live.py; /status carries the heartbeat
-snapshot and the provider sections, without the reference's frame
-counters, resource sampling and status-file writer).
+"""Live status surface: HTTP endpoint + atomically-rewritten status file
+(copy of processing_chain_tpu/telemetry/live.py).
 
 `LiveServer` is a stdlib `ThreadingHTTPServer` (no new dependencies)
 exposing read-only endpoints while a run is in flight — and, since the
@@ -11,7 +9,7 @@ serve daemon (serve/), a *route registry* so every HTTP surface of the chain sha
     /metrics   MetricsRegistry.render_prometheus(), LIVE — the same
                format the post-run metrics_<ts>.prom persists
     /status    JSON: per-stage progress + ETA, in-flight tasks with
-               beat ages (schema below)
+               beat ages, chain counters, resources (schema below)
 
 Additional routes (e.g. chain-serve's `/v1/requests`,
 `/v1/artifacts/<key>`) register on a `RouteRegistry` — exact paths or
@@ -20,12 +18,20 @@ port, thread and shutdown story. Handlers receive a `WebRequest`
 (method/path/query/body) and return `(code, content_type, body)` where
 body may be `str` or `bytes`.
 
+`StatusFileWriter` rewrites the same /status JSON to a file every
+`interval_s` atomically (utils/fsio), so a reader (tools chain-top, a
+cron probe) never observes a torn write — the headless twin of the
+endpoint for hosts with no reachable port.
+
 Status document schema (docs/TELEMETRY.md "Live monitoring"):
 
     {"schema": 1, "pid": ..., "generated_at": epoch, "uptime_s": ...,
+     "run": {...},                        # run meta set by the caller
      "stages": {stage: {state, jobs_done, jobs_planned?, progress?,
                         eta_s?, wall_s, items?}},
-     "current_stage": ..., "tasks": [...], "recent": [...]}
+     "current_stage": ..., "tasks": [...], "recent": [...],
+     "counters": {frames_decoded, frames_encoded, bytes_encoded},
+     "resources": {...}}                  # profiling.sample_resources()
 
 Subsystems can contribute their own top-level sections through
 `STATUS_PROVIDERS` (name -> callable(query) -> dict): chain-serve adds a
@@ -47,6 +53,7 @@ from typing import BinaryIO, Callable, Dict, Optional, Tuple, Union
 from urllib.parse import parse_qsl, urlsplit
 
 from ..utils import lockdebug
+from ..utils.fsio import atomic_write_json
 from ..utils.log import get_logger
 from .heartbeat import HEARTBEATS
 from .metrics import REGISTRY
@@ -63,6 +70,25 @@ STATUS_PROVIDERS: Dict[str, Callable[[dict], Optional[dict]]] = {}
 _MAX_BODY = 1 << 20
 
 
+#: Mutable run metadata merged into /status. Guarded by _RUN_META_LOCK:
+#: the caller replaces it via set_run_meta() while a StatusFileWriter tick
+#: or an HTTP /status handler may be snapshotting it from another thread.
+RUN_META: dict = {}
+_RUN_META_LOCK = threading.Lock()
+
+
+def set_run_meta(**meta) -> None:
+    """Replace the run metadata atomically."""
+    with _RUN_META_LOCK:
+        RUN_META.clear()
+        RUN_META.update(meta)
+
+
+def _run_meta_snapshot() -> dict:
+    with _RUN_META_LOCK:
+        return dict(RUN_META)
+
+
 def build_status(query: Optional[dict] = None) -> dict:
     """One JSON-able status document from the live registries."""
     doc = {
@@ -70,8 +96,26 @@ def build_status(query: Optional[dict] = None) -> dict:
         "pid": os.getpid(),
         "generated_at": round(time.time(), 3),
         "uptime_s": round(time.monotonic() - _T0, 3),
+        "run": _run_meta_snapshot(),
     }
     doc.update(HEARTBEATS.snapshot())
+    from . import BYTES_ENCODED, FRAMES_DECODED, FRAMES_ENCODED
+
+    doc["counters"] = {
+        "frames_decoded": FRAMES_DECODED.get(),
+        "frames_encoded": FRAMES_ENCODED.get(),
+        "bytes_encoded": BYTES_ENCODED.get(),
+    }
+    # current resources (RSS, pool bytes, queue depths, card memory) ride
+    # every status document even when the full profile monitor is off, so
+    # chain-top can show memory on any live run; one cheap /proc + stats()
+    # sweep that never initialises CUDA
+    try:
+        from . import profiling
+
+        doc["resources"] = profiling.sample_resources()
+    except Exception:  # noqa: BLE001 - /status must render on every platform
+        pass
     for name, provider in list(STATUS_PROVIDERS.items()):
         try:
             section = provider(query or {})
@@ -404,3 +448,49 @@ class LiveServer:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+def write_status_file(path: str) -> str:
+    """One atomic rewrite (utils/fsio): readers see the old document or the
+    new one, never a torn half-write."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    atomic_write_json(path, build_status(), sort_keys=True)
+    return path
+
+
+class StatusFileWriter:
+    """Periodic atomic status-file rewriter for headless runs (no port
+    reachable). `stop()` writes one final snapshot so the file's last
+    state reflects the run's end, not its second-to-last tick."""
+
+    def __init__(self, path: str, interval_s: float = 2.0) -> None:
+        self.path = path
+        self.interval_s = max(0.2, float(interval_s))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                write_status_file(self.path)
+            except OSError:  # a transiently-full disk must not kill the run
+                pass
+
+    def start(self) -> "StatusFileWriter":
+        if self._thread is None:
+            write_status_file(self.path)  # visible immediately, not at t+interval
+            self._thread = threading.Thread(
+                target=self._loop, name="chain-status-file", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        try:
+            write_status_file(self.path)
+        except OSError:
+            pass

@@ -1,6 +1,5 @@
 """Process-wide metrics registry: counters, gauges, histograms with labels
-(copy of processing_chain_tpu/telemetry/metrics.py without its file
-writers).
+(copy of processing_chain_tpu/telemetry/metrics.py).
 
 The chain's quantitative observability layer (docs/TELEMETRY.md). Design
 constraints, in order:
@@ -15,9 +14,10 @@ constraints, in order:
      encode / pool worker threads; one registry lock serializes updates
      (mutation frequency is per-chunk, not per-frame, so a coarse lock
      costs nothing measurable).
-  3. Self-describing exports: `snapshot()` (JSON-able dict) and
-     `render_prometheus()` (the Prometheus text format, served at
-     /metrics).
+  3. Self-describing exports: `snapshot()` (JSON-able dict, written by
+     `telemetry.write_outputs` as metrics_<ts>.json) and
+     `render_prometheus()` (the Prometheus text format, served at /metrics
+     and written as metrics_<ts>.prom).
 
 Metric names follow Prometheus conventions: `chain_<noun>_<unit>_total`
 for counters, `_seconds` histograms for latencies.
@@ -25,6 +25,7 @@ for counters, `_seconds` histograms for latencies.
 
 from __future__ import annotations
 
+import os
 from bisect import bisect_left
 from typing import Iterable, Optional, Sequence
 from ..utils import lockdebug
@@ -262,6 +263,13 @@ class MetricsRegistry:
                 }
         return out
 
+    def write_json(self, path: str) -> str:
+        from ..utils.fsio import atomic_write_json
+
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        atomic_write_json(path, self.snapshot(), sort_keys=True)
+        return path
+
     def render_prometheus(self) -> str:
         """node_exporter textfile-collector format."""
         def fmt_labels(labels: dict, extra: Optional[tuple] = None) -> str:
@@ -290,6 +298,14 @@ class MetricsRegistry:
                 else:
                     lines.append(f"{name}{fmt_labels(s['labels'])} {_num(s['value'])}")
         return "\n".join(lines) + ("\n" if lines else "")
+
+    def write_prometheus(self, path: str) -> str:
+        from ..utils.fsio import atomic_write_text
+
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        atomic_write_text(path, self.render_prometheus())
+        return path
+
 
 def _escape(value: str) -> str:
     return str(value).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")

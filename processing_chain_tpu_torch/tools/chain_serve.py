@@ -5,13 +5,14 @@ processing_chain_tpu/tools/chain_serve.py).
         [--port 8790] [--host 127.0.0.1]
         [--executor synthetic|wave] [--workers N] [--wave-width N]
         [--store DIR] [--max-attempts N] [--tenant-weight NAME=W ...]
-        [--device cuda:0]
+        [--device cuda:0] [--status-file FILE]
 
 The daemon binds ONE HTTP server (observability + /v1 API), recovers
 its durable queue from --root, and runs until SIGTERM/SIGINT.
 `--root/serve-info.json` records {pid, port, url} the moment the server
 is up: scripts that started the daemon with `--port 0` read the bound
-port from there. The `wave` executor runs on `--device` (default
+port from there. `--status-file FILE` also rewrites the /status JSON to
+FILE every 2 s (atomically) and once more at shutdown. The `wave` executor runs on `--device` (default
 `cuda:0`) and refuses to start where CUDA is absent; `--device cpu` runs
 its plain CPU route.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import signal
+import sys
 import threading
 from typing import Optional, Sequence
 
@@ -67,9 +69,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--device", default="cuda:0",
                         help="device of the wave executor (default cuda:0; "
                              "'cpu' runs its plain CPU route)")
-    args = parser.parse_args(list(argv) if argv is not None else None)
+    parser.add_argument("--status-file", default=None,
+                        help="also rewrite the /status JSON to this file")
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    args = parser.parse_args(argv)
 
     from ..serve.service import ChainServeService
+    from ..telemetry.live import StatusFileWriter, set_run_meta
+
+    # /status's `run` section: which daemon this is and how it was started
+    set_run_meta(name="chain-serve", argv=argv)
 
     service = ChainServeService(
         root=args.root,
@@ -108,10 +117,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if hasattr(signal, "SIGUSR1"):
         signal.signal(signal.SIGUSR1, _on_drain_signal)
     service.start()
+    status_writer = None
+    if args.status_file:
+        status_writer = StatusFileWriter(args.status_file).start()
     try:
         while not stop.wait(0.5):
             pass
     finally:
+        if status_writer is not None:
+            status_writer.stop()
         service.stop()
     return 0
 

@@ -17,14 +17,17 @@ with the wave journal (parallel/meshobs.py) attached:
     one bucket; the padded share must rise with the spread;
   * the step ledger: three distinct geometries, then the first again:
     new steps == distinct geometries, and the revisit adds none;
-  * a resource sample after each throughput point (process RSS, and the
-    card's allocated bytes on a card): the double-buffered wave driver
-    must not grow host memory with the lane count.
+  * a resource sample after each throughput point
+    (telemetry/profiling.sample_resources: process RSS, and the card's
+    allocated bytes on a card): the double-buffered wave loop must not
+    grow host memory with the lane count;
+  * the journal against the recorder's `chain_mesh_*` metrics: the
+    metrics' padded-slot fraction is present and equals the one the
+    journals of the whole sweep give.
 
 The device defaults to `cuda:0` and raises without CUDA; `--device cpu`
-runs the sweep on the CPU. The reference's cross-check against its
-`chain_mesh_*` metrics has no counterpart: the port's recorder keeps no
-metrics. Prints one JSON report line and exits 1 when a check fails.
+runs the sweep on the CPU. Telemetry is on for the sweep. Prints one JSON
+report line and exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -39,27 +42,6 @@ from typing import Optional, Sequence
 
 from ..utils.fsio import atomic_write_text
 from ..utils.log import get_logger
-
-
-def sample_resources(device) -> dict:
-    """RSS of this process (from /proc) and, on a card, its allocated
-    bytes (trimmed from the reference's telemetry/profiling
-    `sample_resources`)."""
-    import torch
-
-    sample: dict = {"rss_bytes": None}
-    try:
-        with open("/proc/self/statm") as f:
-            sample["rss_bytes"] = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-    except (OSError, ValueError, IndexError):
-        pass
-    if device.type == "cuda":
-        stats = torch.cuda.memory_stats(device)
-        sample["device_memory"] = {
-            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
-            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
-        }
-    return sample
 
 
 def _run_lanes(mesh, lengths, dh, dw, journal_dir, *, ten_bit=False,
@@ -111,15 +93,30 @@ def _check_point(tag: str, agg: dict, want_valid: int, failures: list) -> None:
                         "dispatched")
 
 
+def _slot_totals(snapshot: dict) -> tuple:
+    """(valid, padded) frame-slots of chain_mesh_wave_slots_total."""
+    valid = padded = 0
+    for series in snapshot.get("chain_mesh_wave_slots_total", {}).get("series", []):
+        n = int(series.get("value", 0))
+        if series["labels"].get("kind") == "valid":
+            valid += n
+        else:
+            padded += n
+    return valid, padded
+
+
 def _cmd_sweep(args) -> int:
     import torch
 
+    from .. import telemetry as tm
     from ..parallel import meshobs
     from ..parallel.mesh import make_mesh
+    from ..telemetry import profiling
     from ..utils.device import resolve_device
 
     log = get_logger()
     device = resolve_device(args.device)
+    tm.enable()
     journal_root = args.journal or tempfile.mkdtemp(prefix="mesh-report-")
     time_parallel = 2 if args.slots % 2 == 0 else 1
     mesh = make_mesh([device] * args.slots, time_parallel=time_parallel)
@@ -135,6 +132,7 @@ def _cmd_sweep(args) -> int:
         "journal_root": journal_root,
     }
     failures: list[str] = []
+    before = _slot_totals(tm.REGISTRY.snapshot())
 
     # warm-up first, so that no sweep point carries the kernel build
     _run_lanes(mesh, [t_step] * n_pvs, 72, 128, os.path.join(journal_root, "warmup"),
@@ -148,7 +146,7 @@ def _cmd_sweep(args) -> int:
         _check_point(f"scale x{mult}", agg, sum(lengths), failures)
         if emitted != sum(lengths):
             failures.append(f"scale x{mult}: {emitted} frames emitted, {sum(lengths)} fed")
-        sample = sample_resources(device)
+        sample = profiling.sample_resources()
         scaling.append({
             "lanes": len(lengths),
             "frames": sum(lengths),
@@ -208,6 +206,26 @@ def _cmd_sweep(args) -> int:
     report["ledger_journal"] = stats
     if not stats["waves"]:
         failures.append("the step-ledger journal holds no wave records")
+
+    # the metrics side of the recorder against every journal of the sweep
+    # (the metrics are process-wide: the sweep's share is their change)
+    after = _slot_totals(tm.REGISTRY.snapshot())
+    valid, padded = after[0] - before[0], after[1] - before[1]
+    journals = [meshobs.aggregate(os.path.join(journal_root, d))["totals"]
+                for d in sorted(os.listdir(journal_root))
+                if os.path.isdir(os.path.join(journal_root, d))]
+    j_valid = sum(t["valid"] for t in journals)
+    j_dispatched = sum(t["dispatched"] for t in journals)
+    report["metrics_waste_fraction"] = profiling.mesh_waste_from_metrics(
+        tm.REGISTRY.snapshot())
+    report["metrics_vs_journal_slots"] = {
+        "metrics": [valid, valid + padded], "journals": [j_valid, j_dispatched]}
+    if report["metrics_waste_fraction"] is None:
+        failures.append("chain_mesh_wave_slots_total carries no series "
+                        "— the metrics side of the recorder is dark")
+    elif (valid, valid + padded) != (j_valid, j_dispatched):
+        failures.append(f"metrics count {valid} valid of {valid + padded} slots, "
+                        f"the journals {j_valid} of {j_dispatched}")
 
     report["failures"] = failures
     report["ok"] = not failures

@@ -1,20 +1,29 @@
-"""Host wall-time spans (trimmed copy of
-processing_chain_tpu/utils/tracing.py).
+"""Host wall-time spans and the device trace (copy of
+processing_chain_tpu/utils/tracing.py, the device trace on
+`torch.profiler`).
 
-`span(name)` records one per-thread-nested wall-time span; `Job.run`
-wraps every job in one. The reference's device trace (`jax.profiler`,
-tracing.py:172-198) and its report writer are not carried over.
+Usage:
+    with tracing.span("avpvs P2SXM00_SRC000_HRC000"):
+        ...
+    tracing.get_tracer().write_report(logs_dir)   # logs_dir/trace_<ts>.json
+
+`Job.run` wraps every job in one span. `DeviceProfiler(trace_dir)` captures
+a `torch.profiler` trace (CPU ops, plus the card's kernels, copies and
+memsets where CUDA is available) into `trace_dir/trace.json`, which
+chrome://tracing and Perfetto open.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Iterator
+from typing import Iterator, Optional
 
 from . import lockdebug
+from .log import get_logger
 
 
 @dataclass
@@ -97,9 +106,104 @@ class Tracer:
             entry["max_s"] = round(entry["max_s"], 4)
         return agg
 
+    def write_report(self, logs_dir: str, name: str = "") -> str:
+        """Write spans + summary as JSON into `logs_dir`. Returns the report
+        path. The default stamp is collision-safe: two runs finishing
+        within the same second (or two processes sharing a directory)
+        must not overwrite each other's report."""
+        os.makedirs(logs_dir, exist_ok=True)
+        if name:
+            stamp = name
+        else:
+            from .. import telemetry
+
+            stamp = telemetry.unique_stamp()
+        path = os.path.join(logs_dir, f"trace_{stamp}.json")
+        with self._lock:
+            dropped = self.dropped
+        payload = {
+            "summary": self.summary(),
+            **({"dropped_spans": dropped} if dropped else {}),
+            "spans": [
+                {
+                    "name": s.name,
+                    "start_s": round(s.start, 4),
+                    "duration_s": round(s.duration, 4),
+                    "thread": s.thread,
+                    "depth": s.depth,
+                    **({"meta": s.meta} if s.meta else {}),
+                }
+                for s in self.spans()
+            ],
+        }
+        from .fsio import atomic_write_json
+
+        atomic_write_json(path, payload)
+        return path
+
 
 _tracer = Tracer()
 
 
+def get_tracer() -> Tracer:
+    return _tracer
+
+
 def span(name: str, **meta):
     return _tracer.span(name, **meta)
+
+
+class DeviceProfiler:
+    """`torch.profiler` capture into `trace_dir/trace.json`: CPU ops, and
+    where CUDA is available the card's kernels, copies and memsets. A
+    profiler that cannot start or write is logged and leaves `error` set
+    (never raised): the caller decides whether a missing trace fails it."""
+
+    TRACE_FILE = "trace.json"
+
+    def __init__(self, trace_dir: Optional[str]) -> None:
+        self.trace_dir = trace_dir
+        self.error: Optional[str] = None
+        self._prof = None
+
+    def start(self) -> None:
+        if not self.trace_dir:
+            return
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+            self._prof = prof
+            get_logger().info("device trace capturing to %s", self.trace_dir)
+        except Exception as exc:  # noqa: BLE001 - reported through `error`
+            self.error = f"device trace unavailable: {exc!r}"
+            get_logger().warning(self.error)
+
+    def stop(self) -> Optional[str]:
+        """Stop and write the trace; returns its path, or None."""
+        prof, self._prof = self._prof, None
+        if prof is None:
+            return None
+        path = os.path.join(self.trace_dir, self.TRACE_FILE)
+        try:
+            prof.stop()
+            os.makedirs(self.trace_dir, exist_ok=True)
+            prof.export_chrome_trace(path)
+        except Exception as exc:  # noqa: BLE001 - reported through `error`
+            self.error = f"device trace not written: {exc!r}"
+            get_logger().warning(self.error)
+            return None
+        get_logger().info("device trace written to %s", path)
+        return path
+
+    def __enter__(self) -> "DeviceProfiler":
+        self.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

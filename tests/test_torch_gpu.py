@@ -743,3 +743,78 @@ def test_halo_refuses_a_cuda_tensor_on_a_gloo_group(cuda, tmp_path):
             make_sharded_step(m, 72, 128)(*planes)
     finally:
         dist.destroy_process_group()
+
+
+def test_profiled_wave_trace_holds_the_kernel_launches(cuda, tmp_path):
+    """A profiled run_bucket on the card: the torch.profiler trace holds one
+    kernel event a wrapper launch, by the symbols the trace names; the
+    transfer metrics, the wave and transfer spans and a verdict land."""
+    from processing_chain_tpu_torch import telemetry as ptm
+    from processing_chain_tpu_torch.parallel import mesh as pmesh
+    from processing_chain_tpu_torch.parallel import p03_batch
+    from processing_chain_tpu_torch.telemetry import profiling
+
+    rng = np.random.default_rng(4)
+    lanes = []
+    for n in (13, 6):
+        yuv = [rng.integers(0, 256, s).astype(np.uint8)
+               for s in ((n, 72, 128), (n, 36, 64), (n, 36, 64))]
+        lanes.append(p03_batch.Lane(chunks=iter([yuv]), emit=lambda p: None, n_frames_hint=n))
+    mesh = pmesh.make_mesh([cuda] * 2)
+    p03_batch.run_bucket(lanes[:1], mesh, 144, 256, chunk=4)  # build the kernels first
+    ptm.reset()
+    ptm.enable()
+    try:
+        prof = profiling.Profiler(str(tmp_path), interval_s=0.05, device_trace=True).start("s")
+        ck.reset_launches()
+        p03_batch.run_bucket(lanes[1:] + [p03_batch.Lane(
+            chunks=iter([[rng.integers(0, 256, s).astype(np.uint8)
+                          for s in ((13, 72, 128), (13, 36, 64), (13, 36, 64))]]),
+            emit=lambda p: None, n_frames_hint=13)], mesh, 144, 256, chunk=4)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        paths = prof.stop("s")
+        metrics = ptm.REGISTRY.snapshot()
+    finally:
+        ptm.disable()
+    assert "device_trace_error" not in paths, paths
+    trace = profiling.load_device_trace(paths["device_trace_dir"])
+    counts = {}
+    for ev in profiling.device_events(trace, "kernel"):
+        names = ck.launch_names(ev["name"])
+        if names:
+            counts[names] = counts.get(names, 0) + 1
+    assert launches["resize_frames_fused"] == 3 * 4 and launches["siti_frames_fused_batch"] == 4
+    assert counts == {("resize_frames_fused",): 12,
+                      ("siti_frames_fused", "siti_frames_fused_batch"): 4}
+    assert profiling.device_events(trace, "copy")
+    comps, missing = profiling.components_from_metrics(metrics)
+    assert comps["transfer"] > 0 and "decode" in comps
+    with open(paths["trace"]) as f:
+        import json
+
+        names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+    assert {"wave_step", "device_put", "device_get"} <= names
+
+
+def test_memory_gauges_equal_memory_stats(cuda):
+    from processing_chain_tpu_torch import telemetry as ptm
+    from processing_chain_tpu_torch.telemetry import profiling
+
+    keep = torch.empty(1 << 24, dtype=torch.uint8, device=cuda)
+    ptm.reset()
+    ptm.enable()
+    try:
+        sample = profiling.sample_resources()
+        stats = torch.cuda.memory_stats(cuda)
+        gauge = {tuple(sorted(s["labels"].items())): s["value"] for s in
+                 ptm.REGISTRY.snapshot()["chain_device_memory_bytes"]["series"]}
+    finally:
+        ptm.disable()
+    entry = sample["device_memory_by_device"]["cuda:0"]
+    assert entry["bytes_in_use"] == stats["allocated_bytes.all.current"] >= keep.numel()
+    assert entry["peak_bytes_in_use"] == stats["allocated_bytes.all.peak"]
+    assert entry["bytes_limit"] == torch.cuda.mem_get_info(cuda)[1]
+    for kind, val in entry.items():
+        assert gauge[(("device", "cuda:0"), ("kind", kind))] == val
+    del keep

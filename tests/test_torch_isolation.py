@@ -97,6 +97,16 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.utils.version",
                 "processing_chain_tpu_torch.config.ids",
                 "processing_chain_tpu_torch.tools.chain_serve",
+                "processing_chain_tpu_torch.telemetry",
+                "processing_chain_tpu_torch.telemetry.events",
+                "processing_chain_tpu_torch.telemetry.metrics",
+                "processing_chain_tpu_torch.telemetry.profiling",
+                "processing_chain_tpu_torch.telemetry.report",
+                "processing_chain_tpu_torch.telemetry.watchdog",
+                "processing_chain_tpu_torch.utils.tracing",
+                "processing_chain_tpu_torch.tools.chain_profile",
+                "processing_chain_tpu_torch.tools.chain_top",
+                "processing_chain_tpu_torch.tools.mesh_top",
                 "processing_chain_tpu_torch.__main__"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []

@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure (a non-zero exit, and no result line):
   1. device: CUDA must be present; prints the card's name and power limit,
-     and, for information only, whether libavcodec.so.59 loads and which
-     libav headers exist
+     and, for information only, whether libavcodec.so.59 loads, which
+     libav headers exist and whether yaml, pandas, PIL and matplotlib
+     import
   2. build: compiles csrc/*.cu with nvcc (one process per source, all at
      once) and prints each kernel's registers, shared memory and spills
   3. kernel vs plain torch version at the main paths' shapes (the fused
@@ -124,6 +125,31 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      0.5 s soft limit flagging a held heartbeat within 2 s (in
      active_stalls and in /status) and clearing it on a beat, and the
      status-file writer of `--status-file` rewriting its file
+ 14. the database: a short-test database YAML (P2STR14: SRC000 3840x2160
+     yuv420p 60 fps and SRC001 1920x1080 yuv420p10le 30 fps, 10 s each;
+     a ladder 640x360@30 .. 3840x2160; five HRCs with a mid-PVS stall, a
+     freeze and an initial stall; pc 3840x2160, tablet 2560x1440 and
+     mobile 1920x1080 post-processings; 8 PVSes) written into
+     build/chip_smoke/ with empty SRC files, loaded through the port's
+     config.TestConfig with a StaticProber. For each PVS, from its domain
+     objects: each segment of its first 4.5 s of media (the cut; full
+     width) through p01's device half (plan_segment_frames(segment),
+     scaled_chunks) from a seeded synthetic source at the SRC's
+     geometry; the p01 frames on the canvas time grid through pump_ready
+     to avpvs_dimensions(pvs) at canvas_fps(pvs); with buffering,
+     plan_stalling over get_buff_events_media_time() and pump_stalled;
+     cpvs_plan(pvs, pp, h) for each post-processing through its context
+     pipeline; _wo_buffer_plan and cpvs_plan hashed with plan_hash. Frame
+     counts against the plans, each stage's launches, each stage's first
+     chunk against the plain path on the card (the CPVS transforms with
+     the resize kernel's wrapper swapped for resize_frames_plain; the
+     stall pass also over the chunk holding its first stalled frame and
+     the 64 frames from it) and its first frame (the stall pass: its
+     first stalled frame) against the CPU route (u8 planes bit-exact, u16
+     within a code value, SI/TI within 1e-3 / 1e-2, composite and CPVS
+     frames equal);
+     one line a PVS: canvas, frames, frames/s, device ms a chunk, plan
+     hashes; its launches join `paths` as db_<pvs_id>
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -143,11 +169,12 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from processing_chain_tpu_torch.config.domain import PostProcessing
+from processing_chain_tpu_torch.config import PostProcessing, StaticProber, TestConfig
 from processing_chain_tpu_torch.engine import prefetch as pfe
 from processing_chain_tpu_torch.models import avpvs, fused, segments
 from processing_chain_tpu_torch.models import cpvs as cp
@@ -165,9 +192,10 @@ from processing_chain_tpu_torch import telemetry as serve_tm
 from processing_chain_tpu_torch.telemetry import live as serve_live
 from processing_chain_tpu_torch.telemetry import profiling
 from processing_chain_tpu_torch.telemetry import watchdog
-from processing_chain_tpu_torch.utils import tracing
+from processing_chain_tpu_torch.utils import fsio, tracing
 from processing_chain_tpu_torch.serve import api as serve_api
 from processing_chain_tpu_torch.serve.service import ChainServeService
+from processing_chain_tpu_torch.store import keys
 from processing_chain_tpu_torch.tools import quality_metrics as qm
 from processing_chain_tpu_torch.tools import src_analysis
 
@@ -402,34 +430,45 @@ def check_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+class SyntheticSrc:
+    """A seeded synthetic source of src_h x src_w yuv420p planes: frame k
+    is a gradient shifted by 4k columns plus one of 8 noise fields (the
+    (k % 8)-th), so SI and TI are non-trivial. Frames are made on demand,
+    so a long 2160p source never sits in host memory whole."""
+
+    def __init__(self, frames: int, ten_bit: bool, seed: int,
+                 src_h: int = SRC_H, src_w: int = SRC_W):
+        rng = np.random.default_rng(seed)
+        self.dtype, hi = (np.uint16, 1023) if ten_bit else (np.uint8, 255)
+        self.frames = frames
+        self.shapes = [(src_h, src_w), (src_h // 2, src_w // 2), (src_h // 2, src_w // 2)]
+        self.planes = []
+        for h, w in self.shapes:
+            xx = np.arange(w + 4 * frames)[None, :]
+            yy = np.arange(h)[:, None]
+            grad = ((xx * 3 + yy * 2) % (hi - 40)).astype(self.dtype)
+            noise = rng.integers(0, 41, (8, h, w)).astype(self.dtype)
+            self.planes.append((grad, noise))
+
+    def chunks(self, start: int, n: int, chunk: int):
+        """Host chunks (lists of [T, H, W] planes) of frames start..start+n-1."""
+        for lo in range(start, start + n, chunk):
+            t = min(chunk, start + n - lo)
+            out = []
+            for (grad, noise), (h, w) in zip(self.planes, self.shapes):
+                arr = np.empty((t, h, w), self.dtype)
+                for k in range(t):
+                    s = 4 * (lo + k)
+                    np.add(grad[:, s:s + w], noise[(lo + k) % 8], out=arr[k])
+                out.append(arr)
+            yield out
+
+
 def synthetic_clip(frames: int, chunk: int, ten_bit: bool, seed: int,
                    src_h: int = SRC_H, src_w: int = SRC_W) -> list:
-    """Host chunks of a moving gradient plus noise (yuv420p planes of a
-    src_h x src_w clip): every frame shifts the gradient by 4 columns and
-    takes one of 8 noise fields, so SI and TI are non-trivial. The first
-    n frames of a clip do not depend on its length."""
-    rng = np.random.default_rng(seed)
-    dtype, hi = (np.uint16, 1023) if ten_bit else (np.uint8, 255)
-    out = []
-    planes = []
-    shapes = [(src_h, src_w), (src_h // 2, src_w // 2), (src_h // 2, src_w // 2)]
-    for h, w in shapes:
-        xx = np.arange(w + 4 * frames)[None, :]
-        yy = np.arange(h)[:, None]
-        grad = ((xx * 3 + yy * 2) % (hi - 40)).astype(dtype)
-        noise = rng.integers(0, 41, (8, h, w)).astype(dtype)
-        planes.append((grad, noise))
-    for lo in range(0, frames, chunk):
-        n = min(chunk, frames - lo)
-        chunk_planes = []
-        for (grad, noise), (h, w) in zip(planes, shapes):
-            arr = np.empty((n, h, w), dtype)
-            for k in range(n):
-                s = 4 * (lo + k)
-                np.add(grad[:, s:s + w], noise[(lo + k) % 8], out=arr[k])
-            chunk_planes.append(arr)
-        out.append(chunk_planes)
-    return out
+    """All host chunks of a `SyntheticSrc` of `frames` frames. The first n
+    frames of a clip do not depend on its length."""
+    return list(SyntheticSrc(frames, ten_bit, seed, src_h, src_w).chunks(0, frames, chunk))
 
 
 def fold_checksum(checksum: int, host_planes) -> int:
@@ -857,12 +896,12 @@ def downstream_contexts(ten_bit: bool, pc_fps: float) -> list:
     """(name, post-processing, plan, resize launches per output chunk) of
     the two contexts: a PC one on the 3840x2160 canvas at `pc_fps` and a
     mobile one at 1920x1080."""
-    pc = PostProcessing({"type": "pc", "displayWidth": DST_W, "displayHeight": DST_H,
-                         "codingWidth": DST_W, "codingHeight": DST_H,
-                         "displayFrameRate": pc_fps})
-    mobile = PostProcessing({"type": "mobile", "displayWidth": MOBILE_W,
-                             "displayHeight": MOBILE_H, "codingWidth": MOBILE_W,
-                             "codingHeight": MOBILE_H})
+    pc = PostProcessing(None, {"type": "pc", "displayWidth": DST_W, "displayHeight": DST_H,
+                               "codingWidth": DST_W, "codingHeight": DST_H,
+                               "displayFrameRate": pc_fps})
+    mobile = PostProcessing(None, {"type": "mobile", "displayWidth": MOBILE_W,
+                                   "displayHeight": MOBILE_H, "codingWidth": MOBILE_W,
+                                   "codingHeight": MOBILE_H})
     return [("pc_v210" if ten_bit else "pc_uyvy", pc, pc_plan(pc_fps, ten_bit), 2),
             ("mobile", mobile, mobile_plan(), 3)]
 
@@ -876,30 +915,26 @@ def fps_frames(n: int, src_fps: float, dst_fps: float) -> int:
     return max(k, int(round(n / src_fps * dst_fps)))
 
 
-class ListSink:
-    """A writer that keeps what it is given (the CPU checks' pipelines)."""
+class KeepSink:
+    """A writer that keeps every chunk it is given, where it lies (on the
+    card or the host), and hands each to `forward` when one is given: a
+    fan-out's `feed`, a writeback stand-in's `put`."""
 
-    def __init__(self):
+    def __init__(self, forward=None):
+        self.forward = forward
         self.chunks = []
 
     def put(self, planes, recycle=None):
         self.chunks.append(planes)
+        if self.forward is not None:
+            self.forward(planes)
 
     def close(self):
         pass
 
-
-class Tee:
-    """pump_ready's writer here: keeps each quantized chunk on the card
-    (the staged route reads them again) and feeds it to the fan-out."""
-
-    def __init__(self, fanout):
-        self.fanout = fanout
-        self.chunks = []
-
-    def put(self, planes, recycle=None):
-        self.chunks.append(planes)
-        self.fanout.feed(planes)
+    @property
+    def frames(self) -> int:
+        return sum(c[0].shape[0] for c in self.chunks)
 
 
 def run_downstream(dev, label: str, frames: int, pix_fmt: str, events, skipping: bool,
@@ -923,7 +958,7 @@ def run_downstream(dev, label: str, frames: int, pix_fmt: str, events, skipping:
         per_chunk["preview"] = 2 if "420" in pix_fmt else 0
     fan = fused.FusedFanout(pipes, compositor=comp, stall_writer=stalled, fps=CANVAS_FPS,
                             events=events, skipping=skipping, chunk=chunk)
-    tee = Tee(fan)
+    tee = KeepSink(fan.feed)  # the staged route reads the chunks again
 
     def fused_route():
         try:
@@ -986,7 +1021,7 @@ def run_downstream(dev, label: str, frames: int, pix_fmt: str, events, skipping:
     # stalled chunks (a 30 fps context needs two)
     ctx_err = {}
     for name, pp, p, _ in contexts + ([("preview", None, None, 0)] if preview else []):
-        sink = ListSink()
+        sink = KeepSink()
         pipe = (fused._PreviewPipeline(sink, pix_fmt) if name == "preview" else
                 fused._ContextPipeline(sink, p, pp, pix_fmt, CANVAS_FPS, False, chunk))
         for k in (0, 1):
@@ -1231,10 +1266,19 @@ def ladder_sources() -> dict:
     }
 
 
+def ladder_segment(src_h: int, src_w: int, width: int, fps_spec) -> SimpleNamespace:
+    """What `plan_segment_frames` reads of a `Segment`: its SRC's geometry
+    and rate, its quality level's width and fps spec (phase 14 plans from
+    the real objects of a database)."""
+    src = SimpleNamespace(stream_info={"height": src_h, "width": src_w},
+                          get_fps=lambda: SRC_FPS)
+    return SimpleNamespace(src=src, quality_level=SimpleNamespace(width=width, fps=fps_spec))
+
+
 def run_ladder(dev, label: str, chunks, src_h: int, src_w: int, width: int, fps_spec,
                pix_fmt: str) -> dict:
     th, tw, target_fps, out_fps = segments.plan_segment_frames(
-        src_h, src_w, SRC_FPS, width, fps_spec)
+        ladder_segment(src_h, src_w, width, fps_spec))
     n_src = sum(c[0].shape[0] for c in chunks)
     state = {"checksum": 0, "frames": 0, "chunks": 0, "first": None}
 
@@ -1313,16 +1357,6 @@ TABLE_ATOL = {"psnr_y": 1e-3, "psnr_u": 1e-3, "psnr_v": 1e-3, "ssim_y": 1e-4,
               "msssim_y": 1e-4, "vif_y": 1e-4, "si": 1e-3, "ti": 1e-3}
 
 
-class DeviceKeeper:
-    """pump_ready's writer here: keeps each quantized chunk on the card."""
-
-    def __init__(self):
-        self.chunks = []
-
-    def put(self, planes, recycle=None):
-        self.chunks.append(planes)
-
-
 def table_max_err(got: dict, want: dict, rows: int) -> dict:
     return {k: float(np.abs(np.asarray(got[k][:rows], np.float64)
                             - np.asarray(want[k][:rows], np.float64)).max())
@@ -1333,7 +1367,7 @@ def run_quality(dev, label: str, frames: int, pix_fmt: str) -> dict:
     ten_bit = "10" in pix_fmt
     scale = 0.25 if ten_bit else 1.0
     src = synthetic_clip(frames, avpvs.CHUNK, ten_bit, SEED + frames)  # phase 4's clip
-    keeper = DeviceKeeper()
+    keeper = KeepSink()
     feat = avpvs.SiTiAccumulator()
     avpvs.pump_ready(iter(src), keeper, feat, DST_H, DST_W, pix_fmt, device=dev)
     deg_chunks = [[p[lo:lo + qm.CHUNK] for p in c] for c in keeper.chunks
@@ -2357,6 +2391,416 @@ def run_profiled(dev, workdir: str, wave_a: dict, seam: dict, timing: dict) -> d
             "wave_frames_per_s_unprofiled_turns": unprofiled_fps, "window_s": window_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the database
+# ---------------------------------------------------------------------------
+
+DB_ID = "P2STR14"
+DB_MEDIA_S = 4.5  # media seconds each PVS renders, of its 8-10 s: the phase's cut
+DB_CHECK_FRAMES = 1  # frames of each stage's first chunk run again on the CPU
+# the SRCs' probe records (a StaticProber stands in for the libav probe)
+DB_SRCS = {
+    "SRC000.avi": {"width": UHD_W, "height": UHD_H, "pix_fmt": "yuv420p",
+                   "r_frame_rate": "60/1", "video_duration": 10.0},
+    "SRC001.avi": {"width": SRC_W, "height": SRC_H, "pix_fmt": "yuv420p10le",
+                   "r_frame_rate": "30/1", "video_duration": 10.0},
+}
+# a short test of 4K-capable HRCs: a ladder 640x360 .. 3840x2160 (Q0 drops
+# the 60 fps SRC to 30 fps), a mid-PVS stall (HRC002, two segments), a
+# freeze (HRC003), an initial stall (HRC004); SRC001 is paired only with
+# the HRCs whose widest level fits its 1920 pixels (the upscale guard)
+DB_YAML = """\
+databaseId: {db_id}
+syntaxVersion: 6
+type: short
+qualityLevelList:
+  Q0: {{index: 0, videoCodec: h264, videoBitrate: 600, width: 640, height: 360, fps: 30}}
+  Q1: {{index: 1, videoCodec: h264, videoBitrate: 2500, width: 1280, height: 720, fps: original}}
+  Q2: {{index: 2, videoCodec: h264, videoBitrate: 6000, width: 1920, height: 1080, fps: original}}
+  Q3: {{index: 3, videoCodec: h265, videoBitrate: 16000, width: 3840, height: 2160, fps: original}}
+codingList:
+  VC01: {{type: video, encoder: libx264, passes: 2, iFrameInterval: 2, preset: medium}}
+  VC02: {{type: video, encoder: libx265, passes: 1, iFrameInterval: 2, preset: medium}}
+srcList:
+  SRC000: SRC000.avi
+  SRC001: SRC001.avi
+hrcList:
+  HRC000: {{videoCodingId: VC01, eventList: [[Q0, 10]]}}
+  HRC001: {{videoCodingId: VC01, eventList: [[Q1, 10]]}}
+  HRC002: {{videoCodingId: VC01, eventList: [[Q2, 4], [stall, 1.0], [Q2, 4]]}}
+  HRC003: {{videoCodingId: VC02, eventList: [[Q3, 8], [freeze, 0.5]]}}
+  HRC004: {{videoCodingId: VC01, segmentDuration: 8, eventList: [[stall, 0.5], [Q1, 8]]}}
+pvsList:
+  - {db_id}_SRC000_HRC000
+  - {db_id}_SRC000_HRC001
+  - {db_id}_SRC000_HRC002
+  - {db_id}_SRC000_HRC003
+  - {db_id}_SRC000_HRC004
+  - {db_id}_SRC001_HRC000
+  - {db_id}_SRC001_HRC002
+  - {db_id}_SRC001_HRC004
+postProcessingList:
+  - {{type: pc, displayWidth: 3840, displayHeight: 2160, codingWidth: 3840, codingHeight: 2160}}
+  - {{type: tablet, displayWidth: 2560, displayHeight: 1440, codingWidth: 2560, codingHeight: 1440}}
+  - {{type: mobile, displayWidth: 1920, displayHeight: 1080, codingWidth: 1920, codingHeight: 1080}}
+"""
+
+
+def write_database(root: str, db_id: str, text: str, srcs: dict) -> str:
+    """The database folder `root/db_id` with its YAML and an empty file
+    for each SRC (probed through a StaticProber); returns the YAML path."""
+    src_dir = os.path.join(root, db_id, "srcVid")
+    os.makedirs(src_dir, exist_ok=True)
+    for name in srcs:
+        fsio.atomic_write_text(os.path.join(src_dir, name), "")
+    path = os.path.join(root, db_id, db_id + ".yaml")
+    fsio.atomic_write_text(path, text.format(db_id=db_id))
+    return path
+
+
+def database_source(src, seed: int) -> SyntheticSrc:
+    """The synthetic stand-in for the decoded SRC `src` (a config `Src`):
+    its geometry, bit depth and length."""
+    info = src.stream_info
+    return SyntheticSrc(int(round(src.get_duration() * src.get_fps())), src.uses_10_bit(), seed,
+                        info["height"], info["width"])
+
+
+def media_window(pvs, media_s: float) -> list:
+    """(segment, media seconds of it rendered) of the segments that start
+    in the PVS's first `media_s` seconds of media."""
+    return [(seg, min(float(seg.duration), media_s - seg.start_time))
+            for seg in pvs.segments if seg.start_time < media_s]
+
+
+def canvas_input(p01: list, rate: float, chunk: int):
+    """p01's host chunks of each segment on the AVPVS canvas's time grid:
+    exactly round(seconds x rate) frames a segment, output k taking frame
+    floor(k / rate x fps + 0.5) of the segment (the long path's
+    `_segment_canvas_chunks`; for one segment at the 60 fps canvas, the
+    short path's -f60 resample)."""
+    for run in p01:
+        fps = run["plan"][3]
+        frames = pfe.iter_chunk_frames([torch.from_numpy(a) for a in c] for c in run["chunks"])
+        yield from pfe.stream_monotonic_gather(
+            frames, lambda k, f=fps: int(np.floor(k / rate * f + 0.5)),
+            int(round(run["seconds"] * rate)), chunk)
+
+
+def render_database_pvs(pvs, src: SyntheticSrc, device, spinner, stage, sink,
+                        media_s: float = DB_MEDIA_S, chunk: int = avpvs.CHUNK) -> dict:
+    """One PVS's device path, driven from its domain objects: each
+    segment of its first `media_s` seconds through p01's device half
+    (`plan_segment_frames`, `scaled_chunks`) from `src`'s frames; the
+    AVPVS canvas (`avpvs_dimensions`, `canvas_fps`) through `pump_ready`;
+    with buffering, `plan_stalling` over `get_buff_events_media_time()`
+    and `pump_stalled`; each post-processing's `cpvs_plan` through its
+    context pipeline (`make_cpvs_transform`). `stage(name, fn)` runs each
+    step and returns its result; `sink(name)` makes each writer."""
+    out = {"p01": []}
+    for seg, secs in media_window(pvs, media_s):
+        plan = segments.plan_segment_frames(seg)
+        th, tw, target_fps, _ = plan
+        src_fps = seg.src.get_fps()
+        first, n = int(round(seg.start_time * src_fps)), int(round(secs * src_fps))
+
+        def p01(seg=seg, src_fps=src_fps, first=first, n=n, th=th, tw=tw,
+                target_fps=target_fps):
+            return list(segments.scaled_chunks(src.chunks(first, n, chunk), src_fps, target_fps,
+                                               th, tw, seg.target_pix_fmt, device=device))
+
+        out["p01"].append({"segment": seg, "seconds": secs, "first": first, "n_src": n,
+                           "plan": plan, "chunks": stage(f"p01 {seg.filename}", p01)})
+    rate = avpvs.canvas_fps(pvs)
+    w, h = avpvs.avpvs_dimensions(pvs)
+    pix_fmt = pvs.get_pix_fmt_for_avpvs()
+    out.update(rate=rate, w=w, h=h, pix_fmt=pix_fmt, feat=avpvs.SiTiAccumulator())
+    writer = sink("canvas")
+    out["canvas"] = canvas = KeepSink(writer.put)
+
+    def render(writer=writer):
+        try:
+            avpvs.pump_ready(canvas_input(out["p01"], rate, chunk), canvas, out["feat"],
+                             h, w, pix_fmt, device=device)
+        finally:
+            writer.close()
+
+    stage("canvas", render)
+    final = canvas
+    out["stall"] = None
+    if pvs.has_buffering():
+        skipping = pvs.has_framefreeze()
+        plan = ov.plan_stalling(canvas.frames, rate, pvs.get_buff_events_media_time(),
+                                skipping=skipping, black_frame=True, n_rotations=64)
+        comp = avpvs.make_stall_compositor(pix_fmt, spinner, skipping, 64, device=device)
+        writer = sink("stalled")
+        final = stalled = KeepSink(writer.put)
+
+        def stall(writer=writer):
+            try:
+                avpvs.pump_stalled(pfe.iter_chunk_frames(canvas.chunks), plan, comp, stalled,
+                                   chunk)
+            finally:
+                writer.close()
+
+        stage("stall", stall)
+        out["stall"] = {"plan": plan, "skipping": skipping, "sink": stalled}
+    out["final"] = final
+    out["cpvs"] = []
+    for pp in pvs.test_config.post_processings:
+        plan = cp.cpvs_plan(pvs, pp, h)
+        writer = sink(f"cpvs {pp.processing_type}")
+        pipe = fused._ContextPipeline(writer, plan, pp, pix_fmt, rate, False, chunk)
+
+        def cpvs(pipe=pipe):
+            for c in final.chunks:
+                pipe.feed(c)
+            pipe.finish()
+
+        stage(f"cpvs {pp.processing_type}", cpvs)
+        out["cpvs"].append({"pp": pp, "plan": plan, "sink": writer})
+    out["wo_buffer_plan"] = avpvs._wo_buffer_plan(pvs, w, h, pix_fmt, False, True,
+                                                  device=device)
+    return out
+
+
+def chunk_rows(chunks, rows) -> list:
+    """Planes of the frames numbered `rows` of a stream of chunks."""
+    where = [(c, i) for c, planes in enumerate(chunks) for i in range(planes[0].shape[0])]
+    return [torch.stack([chunks[where[k][0]][p][where[k][1]] for k in rows]) for p in range(3)]
+
+
+def plane_err(got, want) -> float:
+    """Largest absolute difference of two lists of planes, computed where
+    `want` lies (on the card for the plain path's planes)."""
+    return max(max_abs(torch.as_tensor(a).to(b.device), b)
+               for a, b in zip(got, (torch.as_tensor(w) for w in want)))
+
+
+class plain_resize:
+    """Within it, `cuda_kernels.resize_frames_fused` is its plain version
+    (`resize_frames_plain`, on the tensors' device, no launch): a
+    transform run so is the card's plain path."""
+
+    def __enter__(self):
+        self.fused = ck.resize_frames_fused
+        ck.resize_frames_fused = lambda frames, h, w, kernel="lanczos": \
+            ck.resize_frames_plain(frames, h, w, kernel)
+        self.launches = dict(ck.LAUNCHES)
+        return self
+
+    def __exit__(self, *exc):
+        ck.resize_frames_fused = self.fused
+        if exc[0] is None:
+            require(dict(ck.LAUNCHES) == self.launches, "the plain path launched a kernel")
+
+
+def check_database_pvs(dev, pvs, src: SyntheticSrc, r: dict, launches: dict,
+                       compositors: dict) -> dict:
+    """Phase 14's checks of one PVS's run `r`: frame counts against the
+    plans, each stage's launches, each stage's first chunk against the
+    plain path on the card (the stall pass: also the chunk holding its
+    first stalled frame and a chunk's worth of frames from that frame)
+    and its first frames against the CPU route (the
+    stall pass: from its first stalled frame). `compositors` keeps the
+    card's and the CPU's stall compositor of each (pix_fmt, skipping)
+    across PVSes."""
+    chunk, check = avpvs.CHUNK, DB_CHECK_FRAMES
+    pix_fmt, rate, w, h = r["pix_fmt"], r["rate"], r["w"], r["h"]
+    ten_bit = "10" in pix_fmt
+    tol = 1 if ten_bit else 0  # u8 planes bit-exact; u16 within a code value
+    atol = 1e-2 if ten_bit else 1e-3
+    errs = {}
+    # p01: each segment's frames, launches, first chunk
+    canvas_chunks = 0
+    want_canvas_resize = 0
+    for run in r["p01"]:
+        seg, (th, tw, target_fps, _) = run["segment"], run["plan"]
+        src_fps = seg.src.get_fps()
+        name = f"p01 {seg.filename}"
+        got = sum(c[0].shape[0] for c in run["chunks"])
+        want = len(fps_ops.select_indices(run["n_src"], src_fps, target_fps or src_fps))
+        require(got == want, f"{pvs.pvs_id} {name}: {got} frames, the fps plan keeps {want}")
+        scaled = (th, tw) != tuple(src.shapes[0])
+        require(launches[name] == launches_want(
+            resize_frames_fused=3 * len(run["chunks"]) if scaled else 0),
+            f"{pvs.pvs_id} {name}: launches {launches[name]}")
+        first = next(src.chunks(run["first"], min(chunk, run["n_src"]), chunk))
+        if target_fps not in (None, src_fps):
+            first = next(fps_ops.stream_select(iter([first]), src_fps, target_fps))
+        sub = fr.chroma_subsampling(seg.target_pix_fmt)
+        dims = [(th, tw), (th // sub[0], tw // sub[1]), (th // sub[0], tw // sub[1])]
+        on_card = [torch.from_numpy(p).to(dev) for p in first]
+        plain = fr.to_uint8([ck.resize_frames_plain(p, a, b, "bicubic") if scaled else p
+                             for p, (a, b) in zip(on_card, dims)], seg.uses_10_bit())
+        errs[f"{name} plain"] = e = plane_err(run["chunks"][0], plain)
+        require(e <= tol, f"{pvs.pvs_id} {name}: first chunk {e} from the plain resize")
+        cpu = next(segments.scaled_chunks(iter([[p[:check] for p in first]]), src_fps, None,
+                                          th, tw, seg.target_pix_fmt, device="cpu"))
+        errs[f"{name} cpu"] = e = plane_err([a[:check] for a in run["chunks"][0]], cpu)
+        require(e <= tol, f"{pvs.pvs_id} {name}: first frames {e} from the CPU route")
+        n_seg = int(round(run["seconds"] * rate))
+        n_chunks = -(-n_seg // chunk)
+        canvas_chunks += n_chunks
+        want_canvas_resize += 3 * n_chunks if (th, tw) != (h, w) else 0
+    # the canvas
+    canvas = r["canvas"]
+    n_canvas = sum(int(round(run["seconds"] * rate)) for run in r["p01"])
+    require(canvas.frames == n_canvas,
+            f"{pvs.pvs_id}: canvas {canvas.frames} frames, the plans say {n_canvas}")
+    require(launches["canvas"] == launches_want(
+        resize_frames_fused=want_canvas_resize, si_frames_fused=canvas_chunks,
+        ti_frames_fused=canvas_chunks), f"{pvs.pvs_id} canvas: launches {launches['canvas']}")
+    first = [p.to(dev) for p in next(canvas_input(r["p01"], rate, chunk))]
+    sub = fr.chroma_subsampling(pix_fmt)
+    dims = [(h, w), (h // sub[0], w // sub[1]), (h // sub[0], w // sub[1])]
+    plain = [ck.resize_frames_plain(p, a, b, "bicubic") if tuple(p.shape[1:]) != (a, b) else p
+             for p, (a, b) in zip(first, dims)]
+    errs["canvas plain"] = e = plane_err(canvas.chunks[0], plain)
+    require(e <= tol, f"{pvs.pvs_id} canvas: first chunk {e} from the plain resize")
+    si = torch.cat(r["feat"].si).cpu()
+    ti = torch.cat(r["feat"].ti).cpu()
+    n0 = first[0].shape[0]
+    errs["canvas si"] = max_abs(si[:n0], ck.si_frames_plain(plain[0]).cpu())
+    errs["canvas ti"] = max_abs(ti[:n0], ck.ti_frames_plain(plain[0]).cpu())
+    require(max(errs["canvas si"], errs["canvas ti"]) <= atol,
+            f"{pvs.pvs_id} canvas: SI/TI {errs['canvas si']}, {errs['canvas ti']} from plain")
+    cpu_sink, cpu_feat = KeepSink(), avpvs.SiTiAccumulator()
+    avpvs.pump_ready(iter([[p[:check].cpu() for p in first]]), cpu_sink, cpu_feat, h, w,
+                     pix_fmt, device="cpu")
+    errs["canvas cpu"] = e = plane_err([p[:check] for p in canvas.chunks[0]],
+                                       cpu_sink.chunks[0])
+    errs["canvas cpu si/ti"] = max(max_abs(si[:check], cpu_feat.si[0]),
+                                   max_abs(ti[:check], cpu_feat.ti[0]))
+    require(e <= tol and errs["canvas cpu si/ti"] <= atol,
+            f"{pvs.pvs_id} canvas: first frames {e} (SI/TI {errs['canvas cpu si/ti']}) "
+            "from the CPU route")
+    del first, plain
+    frames = {"canvas": n_canvas}
+    # the stall pass
+    if r["stall"] is not None:
+        plan, sink = r["stall"]["plan"], r["stall"]["sink"]
+        require(sink.frames == plan.n_out,
+                f"{pvs.pvs_id} stall: {sink.frames} frames, the plan says {plan.n_out}")
+        require(launches["stall"] == launches_want(), f"{pvs.pvs_id} stall: {launches['stall']}")
+        k0 = int(np.flatnonzero(plan.stall_mask)[0])
+
+        def composite(device, rows):
+            """The plan's rows composited again on `device` from the canvas."""
+            key = (device, pix_fmt, r["stall"]["skipping"])
+            if key not in compositors:
+                compositors[key] = avpvs.make_stall_compositor(
+                    pix_fmt, synthetic_spinner(SEED + 5), key[2], 64, device=device)
+            gathered = chunk_rows(canvas.chunks, [int(plan.src_idx[k]) for k in rows])
+            masks = [m[rows.start: rows.stop]
+                     for m in (plan.stall_mask, plan.black_mask, plan.phase)]
+            return compositors[key]([g.to(device) for g in gathered], *masks)
+
+        # the first chunk, the chunk holding the first stalled frame, and
+        # the chunk's worth of frames from it
+        for lo in sorted({0, k0 // chunk * chunk, k0}):
+            rows = range(lo, min(lo + chunk, plan.n_out))
+            got = chunk_rows(sink.chunks, list(rows))
+            require(all(torch.equal(a, b) for a, b in zip(got, composite(dev, rows))),
+                    f"{pvs.pvs_id} stall: frames {lo}-{rows.stop - 1} differ from the "
+                    "composite on the card's plain path")
+        rows = range(k0, min(k0 + check, plan.n_out))
+        got = chunk_rows(sink.chunks, list(rows))
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(got, composite("cpu", rows))),
+                f"{pvs.pvs_id} stall: frames {rows.start}-{rows.stop - 1} differ from the "
+                "CPU composite")
+        frames["stalled"] = plan.n_out
+    # the CPVS contexts
+    final = r["final"]
+    for ctx in r["cpvs"]:
+        pp, plan, sink = ctx["pp"], ctx["plan"], ctx["sink"]
+        name = f"cpvs {pp.processing_type}"
+        fps = plan["fps"]
+        want = final.frames if fps in (None, rate) else fps_frames(final.frames, rate, fps)
+        require(sink.frames == want, f"{pvs.pvs_id} {name}: {sink.frames} frames, not {want}")
+        per_chunk = ((2 if "420" in pix_fmt else 0) if plan["context"] == "pc"
+                     else 3 if plan["scale"] else 0)
+        require(launches[name] == launches_want(resize_frames_fused=per_chunk * sink.chunks),
+                f"{pvs.pvs_id} {name}: launches {launches[name]}")
+        require(fps in (None, rate), f"{pvs.pvs_id} {name}: the check needs a 1:1 context")
+        with plain_resize():
+            plain = cp.make_cpvs_transform(plan, pp, pix_fmt, False)(list(final.chunks[0]))
+        errs[f"{name} plain"] = e = plane_err(sink.first, plain)
+        require(e == 0, f"{pvs.pvs_id} {name}: first chunk {e} from the plain path")
+        del plain
+        cpu = cp.make_cpvs_transform(plan, pp, pix_fmt, False)(
+            [p[:check].cpu() for p in final.chunks[0]])
+        got = [a[:check] for a in sink.first]
+        require(all(torch.equal(a, b) for a, b in zip(got, cpu)),
+                f"{pvs.pvs_id} {name}: first frames differ from the CPU transform")
+        frames[pp.processing_type] = sink.frames
+    return {"frames": frames, "errors": errs}
+
+
+def run_database_pvs(dev, pvs, src: SyntheticSrc, spinner, compositors: dict) -> dict:
+    launches, seconds = {}, {}
+
+    def stage(name, fn):
+        out, launches[name], seconds[name] = counted(fn)
+        return out
+
+    r = render_database_pvs(pvs, src, dev, spinner, stage, lambda name: HostSink(dev))
+    total = sum(seconds.values())
+    t0 = time.perf_counter()
+    checked = check_database_pvs(dev, pvs, src, r, launches, compositors)
+    check_s = time.perf_counter() - t0
+    path = {k: sum(v[k] for v in launches.values()) for k in ck.LAUNCHES}
+    for kernel in ("resize_frames_fused", "si_frames_fused", "ti_frames_fused"):
+        require(path[kernel] > 0, f"{pvs.pvs_id}: no {kernel} launch")
+    # device ms of one resident canvas chunk (resize x3, quantize, SI, TI)
+    first = [p.to(dev) for p in next(canvas_input(r["p01"], r["rate"], avpvs.CHUNK))]
+    sub = fr.chroma_subsampling(r["pix_fmt"])
+
+    def render_chunk():
+        scaled = fr.scale_yuv_frames(first, r["h"], r["w"], "bicubic", sub)
+        avpvs.SiTiAccumulator().update(fr.quantize_device(scaled, "10" in r["pix_fmt"])[0])
+
+    device_ms = time_ms(render_chunk, reps=3)
+    hashes = {"wo_buffer": keys.plan_hash(r["wo_buffer_plan"]),
+              **{c["pp"].processing_type: keys.plan_hash(c["plan"]) for c in r["cpvs"]}}
+    segs = [f"{run['segment'].quality_level.ql_id} {run['plan'][1]}x{run['plan'][0]}@"
+            f"{run['plan'][3]:g} {run['seconds']:g} s" for run in r["p01"]]
+    result = {
+        "canvas": f"{r['w']}x{r['h']}@{r['rate']:g} {r['pix_fmt']}", "segments": segs,
+        "frames": checked["frames"], "seconds": total, "stage_seconds": seconds,
+        "frames_per_s": r["final"].frames / total, "device_ms_per_chunk": device_ms,
+        "frames_per_device_chunk": first[0].shape[0], "launches": path,
+        "plan_hashes": hashes, "max_err": checked["errors"], "check_s": check_s,
+        "events": pvs.get_buff_events_media_time(),
+    }
+    log(f"phase 14 {pvs.pvs_id}: canvas {result['canvas']}, segments {segs}, frames "
+        f"{checked['frames']}, {result['frames_per_s']:.2f} frames/s ({total:.3f} s), device "
+        f"{device_ms:.4f} ms a {first[0].shape[0]}-frame chunk, launches {path}, plans "
+        f"{ {k: v[:16] for k, v in hashes.items()} }; checks {check_s:.1f} s")
+    del r, first
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_database(dev, workdir: str) -> dict:
+    yaml_path = write_database(workdir, DB_ID, DB_YAML, DB_SRCS)
+    tc = TestConfig(yaml_path, prober=StaticProber(DB_SRCS))
+    require(list(tc.pvses) == tc.data["pvsList"],
+            f"{DB_ID}: PVSes {list(tc.pvses)} != {tc.data['pvsList']}")
+    spans = sorted({sum(float(s.duration) for s in p.segments) for p in tc.pvses.values()})
+    log(f"phase 14: {DB_ID} loaded through TestConfig: {len(tc.pvses)} PVSes, "
+        f"{len(tc.segments)} segments, {len(tc.post_processings)} post-processings; cut: "
+        f"each PVS renders its first {DB_MEDIA_S:g} s of media (of {spans} s), at full width")
+    spinner = synthetic_spinner(SEED + 5)
+    out, sources, compositors = {}, {}, {}
+    for pvs_id, pvs in tc.pvses.items():
+        sid = pvs.src.src_id
+        if sid not in sources:
+            sources[sid] = database_source(pvs.src, SEED + 14 + len(sources))
+        out[pvs_id] = run_database_pvs(dev, pvs, sources[sid], spinner, compositors)
+    return {"database": DB_ID, "media_s": DB_MEDIA_S, "pvses": out}
+
+
 def libav_probe() -> str:
     """Whether the native media layer's libav could load here: does
     libavcodec.so.59 open, and which libav headers exist. Printed for the
@@ -2375,6 +2819,21 @@ def libav_probe() -> str:
     return f"{lib}; libav headers: {heads if heads else 'none found'}"
 
 
+def module_probe() -> str:
+    """Which optional third-party modules import here, with their
+    versions. Printed for the record; phase 14's TestConfig needs yaml."""
+    import importlib
+
+    found = []
+    for name in ("yaml", "pandas", "PIL", "matplotlib"):
+        try:
+            mod = importlib.import_module(name)
+            found.append(f"{name} {getattr(mod, '__version__', '?')}")
+        except ImportError as exc:
+            found.append(f"{name} does not import ({exc})")
+    return "; ".join(found)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2389,6 +2848,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(smi)
     log(f"libav (information only): {libav_probe()}")
+    log(f"python modules (information only): {module_probe()}")
 
     t0 = time.perf_counter()
     _build.build()
@@ -2439,6 +2899,9 @@ def main() -> int:
     profiled = run_profiled(dev, workdir, waves["production"], main8, timing)
     profiled["serve"] = serve.pop("observed")
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    database = run_database(dev, workdir)
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -2450,7 +2913,8 @@ def main() -> int:
              **{f"src_analysis_{k}": v["launches"] for k, v in src_summary.items()},
              "serve_wave": serve["launches"],
              **{f"mesh_wave_{k}": v["launches"] for k, v in mesh["waves"]["runs"].items()},
-             "mesh_sharded_step": mesh["sharded_step"]["launches"]}
+             "mesh_sharded_step": mesh["sharded_step"]["launches"],
+             **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()}}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
@@ -2474,7 +2938,8 @@ def main() -> int:
     log(json.dumps({"main_path": [main8, main10], "flagship": flagship,
                     "waves": waves, "downstream": downstream, "p01_ladder": ladder,
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
-                    "serve": serve, "mesh": mesh, "profiled": profiled, "card": smi}))
+                    "serve": serve, "mesh": mesh, "profiled": profiled, "database": database,
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

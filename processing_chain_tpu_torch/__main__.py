@@ -16,6 +16,8 @@ _TOOLS = {
     "chain-profile": ".tools.chain_profile",
     "chain-top": ".tools.chain_top",
     "mesh-top": ".tools.mesh_top",
+    "clean-logs": ".tools.clean_logs",
+    "plots": ".tools.plots",
 }
 
 

@@ -28,3 +28,19 @@ def validate(kind: str, value: str, pattern: str) -> str:
     if not re.match(pattern, value):
         raise ConfigError(f"{kind} ID {value!r} does not match syntax {pattern}")
     return value
+
+
+def src_id_of_pvs(pvs_id: str) -> str:
+    """Extract the SRC id embedded in a PVS id (reference :1420)."""
+    m = re.findall(r"SRC\d+", pvs_id)
+    if not m:
+        raise ConfigError(f"PVS ID {pvs_id!r} contains no SRC id")
+    return m[0]
+
+
+def hrc_id_of_pvs(pvs_id: str) -> str:
+    """Extract the HRC id embedded in a PVS id (reference :1421)."""
+    m = re.findall(r"HRC\d+", pvs_id)
+    if not m:
+        raise ConfigError(f"PVS ID {pvs_id!r} contains no HRC id")
+    return m[0]

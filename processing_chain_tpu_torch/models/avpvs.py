@@ -1,9 +1,11 @@
 """AVPVS model — the p03 pixel-domain render core (port of the device
 seam of processing_chain_tpu/models/avpvs.py: CHUNK/chunk_frames :47-78,
-the SI/TI sidecar :370-432, `_pump_ready` :504-534, and the stalling
-pass: SPINNER_KINEMATICS, `load_spinner`, `insert_stall_silence`,
-`make_stall_compositor` :1069-1202 and the body of `apply_stalling.run`
-:1254-1281).
+the canvas geometry and codec knobs that take a `Pvs` :93-257 (without
+`set_default_fp_workers`, which only the stage calls), the SI/TI sidecar
+:370-432, the wo_buffer plan and provenance :435-501, `_pump_ready`
+:504-534, and the stalling pass: SPINNER_KINEMATICS, `load_spinner`,
+`insert_stall_silence`, `make_stall_compositor` :1069-1202 and the body
+of `apply_stalling.run` :1254-1281).
 
 Per chunk of decoded frames: host→device copy (double-buffered,
 parallel/pipeline.iter_device_ahead) → bicubic resize of Y, U and V to the
@@ -25,10 +27,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config.domain import Pvs
 from ..engine import prefetch as pfe
 from ..ops import overlay as ov
 from ..ops import siti as siti_ops
 from ..parallel.pipeline import iter_device_ahead
+from ..store import keys as store_keys
 from ..utils import fsio
 from ..utils.device import resolve_device
 from . import frames as fr
@@ -57,10 +61,226 @@ def chunk_frames(device=None) -> int:
     default CHUNK (64) on a CUDA device (launch efficiency and transfer
     amortization dominate), 16 on the CPU, where the decode → compute →
     encode pipeline only overlaps at chunk granularity."""
+    # plan-exempt: (chunk granularity batches the identical frame stream; pinned by the batch-vs-single parity tests)
     pinned = _env_int("PC_CHUNK_FRAMES")
     if pinned is not None:
         return max(1, pinned)
     return CHUNK if resolve_device(device).type == "cuda" else 16
+
+
+def avpvs_dimensions(pvs: Pvs, post_proc_id: int = 0) -> tuple[int, int]:
+    """(width, height) of the AVPVS canvas: aspect-aware dims vs the
+    post-processing coding size, overridden upward when the encoded segment
+    is taller (reference create_avpvs_short :976-986).
+
+    Documented deviation: the reference feeds the SRC's CODED dims into
+    this math (stream_info['coded_width'/'coded_height'], :975-976) — for
+    a non-mod-16 h264 master (e.g. 1920x1080, coded 1920x1088) that
+    distorts the canvas aspect. We use the display dims; for the usual
+    lossless (FFV1/rawvideo) masters the two are identical. Interop of
+    the sidecars carrying both is oracle-tested
+    (tests/test_reference_oracle.py::test_src_sidecar_interop_with_reference)."""
+    pp = pvs.test_config.post_processings[post_proc_id]
+    w, h = fr.calculate_avpvs_video_dimensions(
+        pvs.src.stream_info["width"],
+        pvs.src.stream_info["height"],
+        pp.coding_width,
+        pp.coding_height,
+    )
+    ql = pvs.segments[0].quality_level
+    if ql.height > h:
+        w, h = ql.width, ql.height
+    return w, h
+
+
+def canvas_fps(pvs: Pvs, avpvs_src_fps: bool = False) -> float:
+    """AVPVS canvas frame rate: 60 by default, SRC fps with -z
+    (reference create_avpvs_segment :1030-1033, p03 flags)."""
+    return pvs.src.get_fps() if avpvs_src_fps else 60.0
+
+
+def avpvs_codec() -> str:
+    """AVPVS intermediate codec: `ffv1` (reference parity, default) or
+    `rawvideo` (PC_AVPVS_CODEC=rawvideo: a cheaper lossless intermediate
+    for hosts where FFV1 compression — not decode or device work — is the
+    p03 bottleneck; ~6x the disk footprint, near-memcpy writeback).
+    Decoded frames are identical either way; provenance records which
+    codec produced each artifact."""
+    codec = os.environ.get("PC_AVPVS_CODEC", "ffv1").strip().lower()
+    if codec not in ("ffv1", "rawvideo"):
+        raise ValueError(
+            f"PC_AVPVS_CODEC={codec!r}: expected 'ffv1' or 'rawvideo'"
+        )
+    return codec
+
+
+def effective_avpvs_codec(pix_fmt: str) -> str:
+    """The codec that will actually be written for this pix_fmt: the
+    requested intermediate codec, except that 10-bit rawvideo degrades to
+    ffv1 (`_ffv1_writer`'s AVI-fourcc fallback). Provenance and plan
+    payloads record THIS, so artifacts stay attributable to the encoder
+    that really produced them."""
+    codec = avpvs_codec()
+    if codec == "rawvideo" and "10" in pix_fmt:
+        return "ffv1"
+    return codec
+
+
+def ffv1_workers() -> int:
+    """Frame-parallel FFV1 encoder contexts (native/media.cpp fp mode).
+    PC_FFV1_WORKERS=N pins it; default: one worker per spare core, capped
+    at 8 (0 on a 1-2 core host — the pool only adds queue overhead when
+    there is no core for it to run on). The p03 stage refines the default
+    to (spare cores)/(job-pool width) so `-p` runs don't oversubscribe
+    (stages/p03_generate_avpvs in the JAX
+    package; the stage is not ported yet). FFV1 is intra-only, so frames encode
+    independently on private contexts and scale with cores where slice
+    threading (the reference's `-threads 4`, lib/ffmpeg.py:1047) tops
+    out at slices-per-frame."""
+    # plan-exempt: (worker count schedules whole-frame encodes; the slices=0 regime it selects is recorded as ffv1_slices in the plan)
+    raw = os.environ.get("PC_FFV1_WORKERS", "").strip()
+    if raw:
+        try:
+            return max(0, int(raw))
+        except ValueError:
+            # loud, like PC_AVPVS_CODEC: a typo'd value silently running
+            # serial would erase the advertised scaling with no signal
+            raise ValueError(
+                f"PC_FFV1_WORKERS={raw!r}: expected an integer"
+            ) from None
+    ncpu = os.cpu_count() or 1
+    return 0 if ncpu <= 2 else min(ncpu - 1, 8)
+
+
+#: slice counts the FFV1 encoder accepts (ffv1enc slice tiling table)
+FFV1_SLICE_COUNTS = (4, 6, 9, 12, 16, 24, 30)
+
+
+def ffv1_coding_threads() -> int:
+    """Slice-threading width for serial (non-fp) FFV1 writes. Default:
+    one per core (the reference pins `-threads 4`, lib/ffmpeg.py:1047 —
+    which WASTES cores above 4 and oversubscribes below);
+    PC_FFV1_THREADS pins it."""
+    # plan-exempt: (thread count does not alter encoded bytes; its effect on the default slice count is captured by the recorded ffv1_slices)
+    pinned = _env_int("PC_FFV1_THREADS")
+    if pinned is not None:
+        return max(1, pinned)
+    return os.cpu_count() or 1
+
+
+def ffv1_slices(threads: int) -> int:
+    """Slices per FFV1 frame: the smallest count the encoder accepts that
+    keeps every slice thread busy (slice threading tops out at
+    slices-per-frame). PC_FFV1_SLICES pins it (must be a valid count)."""
+    pinned = _env_int("PC_FFV1_SLICES")
+    if pinned is not None:
+        if pinned not in FFV1_SLICE_COUNTS:
+            raise ValueError(
+                f"PC_FFV1_SLICES={pinned}: ffv1 accepts {FFV1_SLICE_COUNTS}"
+            )
+        return pinned
+    for s in FFV1_SLICE_COUNTS:
+        if s >= threads:
+            return s
+    return FFV1_SLICE_COUNTS[-1]
+
+
+def ffv1_effective_coding() -> dict:
+    """The FFV1 writeback configuration `_ffv1_writer` will actually use,
+    resolved once so the writer, the plan payload and store provenance
+    cannot drift. The SLICE layout shapes the bitstream (decoded frames
+    stay identical), so the effective slice count is part of every
+    ffv1-writing plan hash via `ffv1_effective_slices` — the store
+    serves BYTES by plan hash, and two slice layouts are two byte
+    streams (store/plan_schema.py). Thread and fp-worker counts only
+    parallelize the layout the plan already records; they stay out of
+    the hash and land in provenance for attributability."""
+    workers = ffv1_workers()
+    if workers > 0:
+        return {"fp_workers": workers, "threads": 1, "slices": 0}
+    threads = ffv1_coding_threads()
+    return {"fp_workers": 0, "threads": threads,
+            "slices": ffv1_slices(threads)}
+
+
+def ffv1_effective_slices() -> int:
+    """The byte-relevant projection of the writeback knobs, for plan
+    payloads: the slice layout `_ffv1_writer` will emit (0 = the
+    frame-parallel single-slice regime). PC_FFV1_SLICES and the
+    PC_FFV1_THREADS-derived default both flow into cache keys through
+    THIS value — fold it into any plan whose artifact is FFV1-encoded."""
+    return ffv1_effective_coding()["slices"]
+
+
+def _wo_buffer_out_path(pvs: Pvs) -> str:
+    return (
+        pvs.get_avpvs_wo_buffer_file_path()
+        if pvs.has_buffering()
+        else pvs.get_avpvs_file_path()
+    )
+
+
+def _wo_buffer_plan(
+    pvs: Pvs, w: int, h: int, pix_fmt: str,
+    avpvs_src_fps: bool, force_60_fps: bool, device=None,
+) -> dict:
+    """Plan payload for the wo_buffer render: encoded segment digests,
+    the SRC (long tests mux its audio), canvas geometry, and every
+    byte-affecting knob — the effective codec, its slice layout (FFV1
+    bitstream structure; store/plan_schema.py) and the resize-method
+    identity. fp-worker and thread COUNTS stay out: they parallelize
+    the recorded layout without changing the bytes (plan-exempt).
+    `device` is the render's device (`None` means `cuda:0`): the port's
+    resize identity names the tensor route it takes there."""
+    from ..ops import resize as resize_ops
+
+    tc = pvs.test_config
+    codec = effective_avpvs_codec(pix_fmt)
+    return {
+        "op": "avpvs_wo_buffer",
+        "segments": [store_keys.file_ref(s.file_path) for s in pvs.segments],
+        "src_audio": (
+            store_keys.file_ref(pvs.src.file_path) if tc.is_long() else None
+        ),
+        "canvas": [w, h],
+        "pix_fmt": pix_fmt,
+        "codec": codec,
+        "ffv1_slices": ffv1_effective_slices() if codec == "ffv1" else None,
+        "resize": resize_ops.plan_resize_method(device),
+        "rate": {
+            "avpvs_src_fps": bool(avpvs_src_fps),
+            "force_60_fps": bool(force_60_fps),
+        },
+        "durations": [float(s.get_segment_duration()) for s in pvs.segments]
+        if tc.is_long() else None,
+    }
+
+
+def _wo_buffer_provenance(pvs: Pvs, w: int, h: int, pix_fmt: str) -> dict:
+    codec = effective_avpvs_codec(pix_fmt)
+    if codec == "ffv1":
+        # record the EFFECTIVE codec-threading knobs (fp workers, slice
+        # threading, slices): they shape the byte stream, so an artifact
+        # must stay attributable to the writer configuration that
+        # produced it — while plan hashes keep tracking semantic content
+        # only (decoded frames are identical across these knobs)
+        eff = ffv1_effective_coding()
+        tuning = (
+            f"fp_workers={eff['fp_workers']}" if eff["fp_workers"]
+            else f"threads={eff['threads']},slices={eff['slices']}"
+        )
+        codec_desc = f"ffv1(level3,slicecrc,{tuning})"
+    else:
+        codec_desc = "rawvideo"
+    return {
+        "pvs": pvs.pvs_id,
+        "pipeline": {
+            "canvas": [w, h],
+            "pix_fmt": pix_fmt,
+            "segments": [s.filename for s in pvs.segments],
+            "codec": codec_desc,
+        },
+    }
 
 
 def siti_sidecar_path(avpvs_path: str) -> str:

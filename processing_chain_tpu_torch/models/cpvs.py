@@ -1,7 +1,7 @@
 """CPVS model — the per-chunk device half of p04 (port of
 processing_chain_tpu/models/cpvs.py: `normalize_rms`, `_limit_frames`,
-`t_cap_frames`, `cpvs_out_rate`, `make_cpvs_transform` :189-246 and
-`make_preview_transform` :381-399).
+`cpvs_plan` :106-170, `t_cap_frames`, `cpvs_out_rate`,
+`make_cpvs_transform` :189-246 and `make_preview_transform` :381-399).
 
 PC context: AVPVS → 420→422 chroma (packed UYVY422 for 8-bit, planar
 yuv422p10le for v210) → centered pad to the display canvas when the
@@ -10,9 +10,8 @@ tablet: 10-bit → 8-bit, then bicubic scale to the display dims, or pad
 only. Preview: 422 10-bit. The transforms take and return tensors on
 one device and never fetch to the host: the writer does.
 
-Not ported yet: `cpvs_plan` (it needs `Pvs`), the writers, `create_cpvs`,
-`create_preview` and the long-test audio helpers; callers build the plan
-dict (same keys as `cpvs_plan`'s) themselves.
+Not ported yet: the writers, `create_cpvs`, `create_preview` and the
+long-test audio helpers.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..config.domain import PostProcessing
+from ..config.domain import PostProcessing, Pvs
 from ..ops import pad as pad_ops
 from ..ops import pixfmt as pf
 from . import frames as fr
@@ -66,6 +65,73 @@ def _limit_frames(chunks, n_max: int):
         left -= min(t, left)
         if left <= 0:
             return
+
+
+def cpvs_plan(
+    pvs: Pvs,
+    post_processing: PostProcessing,
+    avpvs_height: int,
+    rawvideo: bool = False,
+    nonraw_crf: int = 17,
+    mobile_vprofile: str = "high",
+    mobile_preset: str = "fast",
+) -> dict:
+    """Pure decision record for one CPVS render — codec/pix_fmt, display
+    fps, pad-vs-scale geometry, audio handling, loudness step — matching
+    the reference's command construction (lib/ffmpeg.py:1149-1249: the
+    pc rawvideo/v210 branch with its smaller-height padding rule, the
+    mobile x264 CRF branch whose padding case applies NO scale, short
+    tests' -an, long tests' -t total duration + ffmpeg-normalize step).
+    `create_cpvs.run` executes exactly this plan; the reference-oracle
+    suite compares it against the reference's own command strings."""
+    tc = pvs.test_config
+    pp = post_processing
+    # the reference's pc branch matches only ["pc", "tv"] (create_cpvs
+    # :1177) and "tv" is not a legal post-processing type (:953), so
+    # hd-pc-home / uhd-pc-home take the x264 branch there — consistent
+    # with their .mp4 output name (get_cpvs_file_path :124-130)
+    is_pc = pp.processing_type == "pc"
+    plan: dict = {
+        "context": "pc" if is_pc else "mobile",
+        # the display-rate resample applies to the pc branch only: the
+        # reference's mobile branch carries NO fps filter (its fps line is
+        # commented out, lib/ffmpeg.py:1205), so mobile/tablet CPVS keep
+        # the AVPVS frame rate
+        "fps": float(pp.display_frame_rate) if is_pc else None,
+        "normalize": tc.is_long(),
+        "t": float(pvs.hrc.get_long_hrc_duration()) if tc.is_long() else None,
+    }
+    if is_pc:
+        vcodec, pix_fmt = pvs.get_vcodec_and_pix_fmt_for_cpvs(rawvideo)
+        need_pad = avpvs_height < pp.coding_height
+        plan.update(
+            vcodec=vcodec,
+            pix_fmt=pix_fmt,
+            pad=(pp.display_width, pp.display_height) if need_pad else None,
+            scale=None,
+            audio=(
+                dict(codec="pcm_s16le", channels=2) if tc.is_long() else None
+            ),
+        )
+    else:
+        need_pad = (
+            pp.display_height != pp.coding_height
+            or avpvs_height < pp.coding_height
+        )
+        plan.update(
+            vcodec="libx264",
+            pix_fmt="yuv420p",
+            crf=nonraw_crf,
+            preset=mobile_preset,
+            profile=mobile_vprofile,
+            pad=(pp.display_width, pp.display_height) if need_pad else None,
+            scale=None if need_pad else (pp.display_width, pp.display_height),
+            audio=(
+                dict(codec="aac", bitrate_kbps=512, channels=2)
+                if tc.is_long() else None
+            ),
+        )
+    return plan
 
 
 def t_cap_frames(t: float, rate: Fraction) -> int:

@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config.domain import ConfigError
+from ..config.errors import ConfigError
 
 #: the reference's select tables, keyed by int(100 * dst/src) — each entry is
 #: the set of source-frame phases kept per cycle (cycle_len, kept_phases)

@@ -23,9 +23,12 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import os
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
 # Host-side filter construction (copied from the reference package)
@@ -451,6 +454,28 @@ def _banded_axis_rows(x: torch.Tensor, src: int, dst: int, kernel: str) -> torch
         out = torch.einsum("nbk,...nkw->...nbw", weights, xb)
     out = out.reshape(x.shape[:-2] + (nblocks * block, x.shape[-1]))
     return out[..., :dst, :]
+
+
+def plan_resize_method(device=None) -> str:
+    """The resize-method identity the port's plan payloads record
+    (plan-purity rule, store/plan_schema.py): "torch-auto:<device type>"
+    of `device` (`None` means `cuda:0`). The render's route follows from
+    what it sees (dtype, quantize_output, the tensor's device): u8/u16
+    planes take the fused two-pass resize, float work "banded" on the card
+    and "gather" on the CPU, which differ by up to one code value per
+    pixel, so the device type splits cache keys. Every value starts with
+    "torch-", which the JAX package's `plan_resize_method` never returns,
+    so a shared store never serves bytes one package built to a plan of
+    the other. The port's render reads no PC_RESIZE_METHOD, so any value
+    there other than "auto" (the JAX package's "fused", "gather",
+    "banded", a typo) raises ValueError rather than be recorded for a
+    route the render did not take."""
+    method = os.environ.get("PC_RESIZE_METHOD", "").strip().lower()
+    if method not in ("", "auto"):
+        raise ValueError(
+            f"PC_RESIZE_METHOD={method!r}: the PyTorch package's render has "
+            "no such switch; leave it unset or 'auto'")
+    return "torch-auto:" + resolve_device(device).type
 
 
 def resize_plane(

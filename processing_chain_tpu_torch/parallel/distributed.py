@@ -79,6 +79,7 @@ def initialize(init_method: Optional[str] = None,
     # plan-exempt: (process topology shards which host renders each lane; per-artifact bytes are topology-invariant)
     rank = rank if rank is not None else int(os.environ.get("RANK", "0"))
     if device is None:
+        # plan-exempt: (picks the card a process joins NCCL on; the kernels produce the same bytes on every card)
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"

@@ -1,7 +1,8 @@
 """CAS object directory with atomic commits and integrity-verified reads
 (trimmed copy of processing_chain_tpu/store/store.py: one local backend,
 one output file an artifact, no tier hierarchy, no object backend, no
-plan-purity recorder, no adoption of pre-store outputs, no pins or GC).
+adoption of pre-store outputs, no pins or GC). Every commit feeds the
+PC_PLAN_DEBUG plan-purity recorder (utils/plandebug).
 
 On-disk layout under the store root (docs/STORE.md):
 
@@ -35,6 +36,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from .. import telemetry as tm
+from ..utils import plandebug
 from ..utils.fsio import atomic_write
 from ..utils.log import get_logger
 from . import keys
@@ -227,6 +229,11 @@ class ArtifactStore:
                           "size": st.st_size, "mtime_ns": st.st_mtime_ns},
         )
         self._write_manifest(manifest)
+        # plan-purity recorder (PC_PLAN_DEBUG, utils/plandebug): every
+        # commit binds plan hash -> content digest; two different byte
+        # streams under one hash fail its check()
+        plandebug.record(plan_hash, digest["sha256"], producer=producer,
+                         scope=self.root)
         self.update_gauges()
         return manifest
 

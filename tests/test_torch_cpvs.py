@@ -136,21 +136,21 @@ def test_chroma_resamples_identical(jax_fused_resize, dtype, hi):
 def test_post_processing_matches_jax_and_validates():
     good = {"type": "pc", "displayWidth": 3840, "displayHeight": 2160,
             "codingWidth": 3840, "codingHeight": 2160, "displayFrameRate": 30}
-    ours, ref = PostProcessing(good), JPostProcessing(None, good)
+    ours, ref = PostProcessing(None, good), JPostProcessing(None, good)
     for f in ("processing_type", "display_width", "display_height", "coding_width",
               "coding_height", "display_frame_rate"):
         assert getattr(ours, f) == getattr(ref, f)
     assert repr(ours) == repr(ref) == "<PostProcessing PC>"
-    assert PostProcessing({**good, "type": "mobile", "displayFrameRate": None}
+    assert PostProcessing(None, {**good, "type": "mobile", "displayFrameRate": None}
                           ).display_frame_rate is None
-    assert PostProcessing({k: v for k, v in good.items() if k != "displayFrameRate"}
+    assert PostProcessing(None, {k: v for k, v in good.items() if k != "displayFrameRate"}
                           ).display_frame_rate == 60
     for bad, match in (({**good, "type": "tv"}, "Wrong post processing type"),
                        ({**good, "codingWidth": 1920}, "same coding and display width"),
                        ({**good, "codingHeight": 1080}, "PC post processing"),
                        ({**good, "displayHeight": "tall"}, "Missing or wrong data")):
         with pytest.raises(ConfigError, match=match):
-            PostProcessing(bad)
+            PostProcessing(None, bad)
         with pytest.raises(Exception, match=match):
             JPostProcessing(None, bad)
     assert issubclass(ConfigError, ValueError)
@@ -237,7 +237,7 @@ def test_cpvs_transform_identical(monkeypatch, name, pp_data, rawvideo, pix_fmt)
     planes = _planes(rng, 5, pix_fmt)
     ref = jcp.make_cpvs_transform(plan, jpp, pix_fmt, rawvideo)(planes)
     tk.reset_launches()
-    ours = tcp.make_cpvs_transform(plan, PostProcessing(pp_data), pix_fmt, rawvideo)(
+    ours = tcp.make_cpvs_transform(plan, PostProcessing(None, pp_data), pix_fmt, rawvideo)(
         [_t(p) for p in planes])
     assert tk.LAUNCHES == {name: 0 for name in tk.LAUNCHES}
     assert len(ours) == len(ref) == (1 if name.startswith("pc_uyvy") else 3)

@@ -192,7 +192,7 @@ def test_context_pipeline_matches_jax_resample_cap_transform(pp_data, rawvideo, 
     plan["t"] = t
     chunks = _avpvs_chunks(pix_fmt, seed=len(str(pp_data)) + (t is not None))
     writer = ListWriter()
-    pipe = tfu._ContextPipeline(writer, plan, PostProcessing(pp_data), pix_fmt, FPS,
+    pipe = tfu._ContextPipeline(writer, plan, PostProcessing(None, pp_data), pix_fmt, FPS,
                                 rawvideo, chunk=T)
     for c in chunks:
         pipe.feed([torch.from_numpy(p) for p in c])
@@ -257,7 +257,7 @@ def test_fused_and_staged_routes_match_each_other_and_jax(one_jax_device, pix_fm
     contexts = []
     for pp_data, raw in CONTEXT_SETS[pix_fmt]:
         plan, jpp = jax_plan(pp_data, pix_fmt, raw, avpvs_h=DH)
-        contexts.append((plan, jpp, PostProcessing(pp_data), raw))
+        contexts.append((plan, jpp, PostProcessing(None, pp_data), raw))
     comp = tav.make_stall_compositor(pix_fmt, tav.DEFAULT_SPINNER, skipping, 64, device="cpu")
 
     # fused: pump_ready -> FusedFanout on the quantized tensors
@@ -314,7 +314,7 @@ def test_fanout_without_buffering_feeds_the_pipelines_directly():
     chunks = _avpvs_chunks("yuv420p", seed=4)
     plan, jpp = jax_plan(MOBILE, "yuv420p", False, avpvs_h=DH)
     writer = ListWriter()
-    fan = tfu.FusedFanout([tfu._ContextPipeline(writer, plan, PostProcessing(MOBILE),
+    fan = tfu.FusedFanout([tfu._ContextPipeline(writer, plan, PostProcessing(None, MOBILE),
                                                 "yuv420p", FPS, False, T)])
     for c in chunks:
         fan.feed([torch.from_numpy(p) for p in c])
@@ -332,7 +332,7 @@ def test_fanout_abort_closes_every_writer_and_swallows_their_errors():
     plan, _ = jax_plan(PC60, "yuv420p", True, avpvs_h=DH)
     comp = tav.make_stall_compositor("yuv420p", None, True, 64, device="cpu")
     fan = tfu.FusedFanout(
-        [tfu._ContextPipeline(ctx_w, plan, PostProcessing(PC60), "yuv420p", FPS, True, T)],
+        [tfu._ContextPipeline(ctx_w, plan, PostProcessing(None, PC60), "yuv420p", FPS, True, T)],
         compositor=comp, stall_writer=stall_w, fps=FPS, events=[[0.0, 0.1]], skipping=True)
     fan.feed([torch.from_numpy(p) for p in _avpvs_chunks("yuv420p", n_chunks=1)[0]])
     fan.abort()

@@ -7,6 +7,8 @@ Run them on a machine with the card:
     python -m pytest tests/test_torch_gpu.py -m gpu -q -p no:xdist
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -432,7 +434,8 @@ def test_cpvs_transforms_cuda_equal_cpu(cuda, pp, pad, rawvideo, pix_fmt):
     from processing_chain_tpu_torch.models import cpvs
 
     planes = _yuv((90, 160), pix_fmt, 5, cuda, 60)
-    for tf in (cpvs.make_cpvs_transform(_plan(pp, pad), PostProcessing(pp), pix_fmt, rawvideo),
+    for tf in (cpvs.make_cpvs_transform(_plan(pp, pad), PostProcessing(None, pp), pix_fmt,
+                                        rawvideo),
                cpvs.make_preview_transform(pix_fmt)):
         got = tf(planes)
         want = tf([p.cpu() for p in planes])
@@ -469,10 +472,10 @@ def test_fused_fanout_cuda_equals_cpu(cuda):
     for dev in (cuda, torch.device("cpu")):
         comp = avpvs.make_stall_compositor("yuv420p", rgba, False, 64, device=dev)
         stall_w, pc_w, mob_w = Keep(), Keep(), Keep()
-        pipes = [fused._ContextPipeline(pc_w, _plan(_PC, False), PostProcessing(_PC),
+        pipes = [fused._ContextPipeline(pc_w, _plan(_PC, False), PostProcessing(None, _PC),
                                         "yuv420p", 60.0, False, 8),
-                 fused._ContextPipeline(mob_w, _plan(_MOBILE, False), PostProcessing(_MOBILE),
-                                        "yuv420p", 60.0, False, 8)]
+                 fused._ContextPipeline(mob_w, _plan(_MOBILE, False),
+                                        PostProcessing(None, _MOBILE), "yuv420p", 60.0, False, 8)]
         fan = fused.FusedFanout(pipes, compositor=comp, stall_writer=stall_w, fps=60.0,
                                 events=events, chunk=8)
         kept = []
@@ -556,7 +559,10 @@ def test_ladder_chunk_on_the_card_equals_the_cpu(cuda, src, width, fps):
     planes = [rng.integers(0, 256, (20,) + s).astype(np.uint8)
               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
     chunks = [[p[i:i + 8] for p in planes] for i in range(0, 20, 8)]
-    th, tw, target_fps, _ = tseg.plan_segment_frames(h, w, 60.0, width, fps)
+    segment = SimpleNamespace(
+        src=SimpleNamespace(get_fps=lambda: 60.0, stream_info={"height": h, "width": w}),
+        quality_level=SimpleNamespace(width=width, fps=fps))
+    th, tw, target_fps, _ = tseg.plan_segment_frames(segment)
     runs = {}
     for dev in (cuda, "cpu"):
         ck.reset_launches()
@@ -818,3 +824,103 @@ def test_memory_gauges_equal_memory_stats(cuda):
     for kind, val in entry.items():
         assert gauge[(("device", "cuda:0"), ("kind", kind))] == val
     del keep
+
+
+# a small short-test database: a 3-level ladder (Q0 drops the 60 fps SRC to
+# 30 fps), a mid-PVS stall over two segments, a freeze on an identity
+# level; SRC001 is 10-bit
+_DB = """\
+databaseId: {db_id}
+syntaxVersion: 6
+type: short
+qualityLevelList:
+  Q0: {{index: 0, videoCodec: h264, videoBitrate: 300, width: 64, height: 36, fps: 30}}
+  Q1: {{index: 1, videoCodec: h264, videoBitrate: 900, width: 128, height: 72, fps: original}}
+  Q2: {{index: 2, videoCodec: h265, videoBitrate: 3000, width: 256, height: 144, fps: original}}
+codingList:
+  VC01: {{type: video, encoder: libx264, passes: 1, iFrameInterval: 2}}
+  VC02: {{type: video, encoder: libx265, passes: 1, iFrameInterval: 2}}
+srcList:
+  SRC000: SRC000.avi
+  SRC001: SRC001.avi
+hrcList:
+  HRC000: {{videoCodingId: VC01, eventList: [[Q0, 2]]}}
+  HRC001: {{videoCodingId: VC01, eventList: [[Q1, 1], [stall, 0.5], [Q1, 1]]}}
+  HRC002: {{videoCodingId: VC02, eventList: [[Q2, 2], [freeze, 0.25]]}}
+pvsList:
+  - {db_id}_SRC000_HRC000
+  - {db_id}_SRC000_HRC001
+  - {db_id}_SRC000_HRC002
+  - {db_id}_SRC001_HRC001
+postProcessingList:
+  - {{type: pc, displayWidth: 256, displayHeight: 144, codingWidth: 256, codingHeight: 144}}
+  - {{type: mobile, displayWidth: 192, displayHeight: 108, codingWidth: 192, codingHeight: 108}}
+"""
+_DB_SRCS = {
+    "SRC000.avi": {"width": 256, "height": 144, "pix_fmt": "yuv420p", "r_frame_rate": "60/1",
+                   "video_duration": 2.0},
+    "SRC001.avi": {"width": 128, "height": 72, "pix_fmt": "yuv420p10le",
+                   "r_frame_rate": "30/1", "video_duration": 2.0},
+}
+
+
+def render_database(device, tmp_path):
+    """Every PVS of the small database through chip_smoke's phase-14 render
+    on `device`: {pvs_id: (render_database_pvs's result, launches)}."""
+    import chip_smoke as cs
+    from processing_chain_tpu_torch.config import StaticProber, TestConfig
+
+    path = cs.write_database(str(tmp_path), "P2STR15", _DB, _DB_SRCS)
+    tc = TestConfig(path, prober=StaticProber(_DB_SRCS))
+    out = {}
+    for pvs_id, pvs in tc.pvses.items():
+        src = cs.database_source(pvs.src, 100 + int(pvs.src.src_id[3:]))
+        ck.reset_launches()
+        r = cs.render_database_pvs(pvs, src, device, cs.synthetic_spinner(7),
+                                   lambda name, fn: fn(), lambda name: cs.KeepSink(),
+                                   media_s=2.0, chunk=16)
+        out[pvs_id] = (r, dict(ck.LAUNCHES))
+    return out
+
+
+def _planes_close(got, want, tol):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert (a.to(torch.int32) - b.to(torch.int32)).abs().max() <= tol
+
+
+def test_database_pvses_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """A short database loaded through the port's TestConfig (its own YAML,
+    the port's StaticProber): each PVS's p01 segments, AVPVS canvas with
+    SI/TI, stall pass and CPVS contexts on cuda:0 equal the CPU's plain
+    path (u8 planes bit-exact, u16 within a code value)."""
+    card = render_database(cuda, tmp_path / "card")
+    cpu = render_database("cpu", tmp_path / "cpu")
+    assert list(card) == list(cpu) and len(card) == 4
+    for pvs_id, (got, launches) in card.items():
+        want, cpu_launches = cpu[pvs_id]
+        assert cpu_launches == {name: 0 for name in cpu_launches}
+        for kernel in ("resize_frames_fused", "si_frames_fused", "ti_frames_fused"):
+            assert launches[kernel] > 0, (pvs_id, kernel)
+        tol = 1 if "10" in got["pix_fmt"] else 0
+        atol = 1e-2 if tol else 1e-3
+        for g, w in zip(got["p01"], want["p01"]):
+            assert len(g["chunks"]) == len(w["chunks"]) > 0
+            for a, b in zip(g["chunks"], w["chunks"]):
+                _planes_close(a, b, tol)
+        assert got["canvas"].frames == want["canvas"].frames > 0
+        for a, b in zip(got["canvas"].chunks, want["canvas"].chunks):
+            _planes_close(a, b, tol)
+        for x, y in ((got["feat"].si, want["feat"].si), (got["feat"].ti, want["feat"].ti)):
+            torch.testing.assert_close(torch.cat(x).cpu(), torch.cat(y), rtol=0, atol=atol)
+        assert (got["stall"] is None) == (want["stall"] is None)
+        if got["stall"] is not None:
+            assert got["stall"]["sink"].frames == got["stall"]["plan"].n_out
+            for a, b in zip(got["stall"]["sink"].chunks, want["stall"]["sink"].chunks):
+                _planes_close(a, b, 0)
+        for g, w in zip(got["cpvs"], want["cpvs"]):
+            assert g["plan"] == w["plan"] and len(g["sink"].chunks) == len(w["sink"].chunks)
+            for a, b in zip(g["sink"].chunks, w["sink"].chunks):
+                _planes_close(a, b, 0)

@@ -107,9 +107,20 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.tools.chain_profile",
                 "processing_chain_tpu_torch.tools.chain_top",
                 "processing_chain_tpu_torch.tools.mesh_top",
+                "processing_chain_tpu_torch.config",
+                "processing_chain_tpu_torch.config.errors",
+                "processing_chain_tpu_torch.config.probe_api",
+                "processing_chain_tpu_torch.config.test_config",
+                "processing_chain_tpu_torch.io.medialib",
+                "processing_chain_tpu_torch.store.plan_schema",
+                "processing_chain_tpu_torch.utils.plandebug",
+                "processing_chain_tpu_torch.utils.parse_args",
+                "processing_chain_tpu_torch.tools.clean_logs",
+                "processing_chain_tpu_torch.tools.plots",
                 "processing_chain_tpu_torch.__main__"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+    assert "matplotlib" not in loaded  # tools/plots imports it only to draw
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -56,8 +56,8 @@ def _fake_segment(h, w, src_fps, width, fps_spec):
     (1080, 1440, 24.0, 1280, "24/25/30"),
 ])
 def test_plan_segment_frames_equals_reference(h, w, src_fps, width, spec):
-    assert tseg.plan_segment_frames(h, w, src_fps, width, spec) == \
-        jseg.plan_segment_frames(_fake_segment(h, w, src_fps, width, spec))
+    segment = _fake_segment(h, w, src_fps, width, spec)
+    assert tseg.plan_segment_frames(segment) == jseg.plan_segment_frames(segment)
 
 
 # (source h, w, fps), (width, target fps): 2x, 4x and 1.5x downscales
@@ -75,7 +75,7 @@ LEVELS = [
 def test_u8_ladder_identical_to_golden_path(src, level):
     (h, w, src_fps), (width, fps) = src, level
     chunks = _clip(40, h, w, 255, h + width)
-    th, tw, target_fps, _ = tseg.plan_segment_frames(h, w, src_fps, width, fps)
+    th, tw, target_fps, _ = tseg.plan_segment_frames(_fake_segment(h, w, src_fps, width, fps))
     want = _jax_segment(chunks, src_fps, target_fps, th, tw, "yuv420p")
     tk.reset_launches()
     got = list(tseg.scaled_chunks(iter(chunks), src_fps, target_fps, th, tw, "yuv420p",
@@ -103,7 +103,7 @@ def test_ten_bit_source_identical_to_fused_reference(jax_fused_resize, pix_fmt):
     reference clips each sample at 255 without rescaling (to_uint8); the
     port keeps that behaviour."""
     chunks = _clip(24, 64, 96, 1023, 5, chunk=8)
-    th, tw, target_fps, _ = tseg.plan_segment_frames(64, 96, 60.0, 48, 30)
+    th, tw, target_fps, _ = tseg.plan_segment_frames(_fake_segment(64, 96, 60.0, 48, 30))
     want = _jax_segment(chunks, 60.0, target_fps, th, tw, pix_fmt)
     got = list(tseg.scaled_chunks(iter(chunks), 60.0, target_fps, th, tw, pix_fmt,
                                   device="cpu"))

@@ -150,6 +150,32 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      frames equal);
      one line a PVS: canvas, frames, frames/s, device ms a chunk, plan
      hashes; its launches join `paths` as db_<pvs_id>
+ 15. the serve control plane, under build/chip_smoke/control (removed
+     after): (a) `tools fleet-doctor --soak` as a process (synthetic
+     executor), held to ALERTS_r20.json's invariants (ok, no failure, a
+     silent control phase, slo_burn_queue_wait + store_eviction_regret +
+     fleet_replica_stale fired and nothing outside the soak's tolerated
+     set, every episode resolved, the scale signal up under the breach
+     and steady after); (b) two `wave` replicas of ChainServeService on
+     the card over one root (poll 0.1 s, control ticks 0.15 s, alert
+     windows x0.001, a store budget of 6 artifacts, admission and wave
+     budgets from serve.cost.predict_unit_cost, cost calibration on),
+     8-frame 1920x1080 -> 3840x2160 units: 1. 4 units to each replica,
+     two shared (6 executions, every artifact over HTTP equal to the
+     plain resize, waves packed by predicted seconds, no alert); 2. one
+     plan pinned by `tools store-admin pin`, then a seventh unit: the
+     service's completion hook evicts LRU down to the budget and keeps
+     the pinned plan; 3. an evicted plan POSTed again: recomputed, same
+     bytes, `tools store-heat report` counts the regret; 4. an 8-unit
+     POST refused with the 429 body, the queue untouched; 5. replica A
+     stopped with a request outstanding, B's tick adopts and finishes
+     it; 6. /fleet, /fleet/scale-signal and /fleet/alerts (against
+     alerts.fold of the journals) on B; 7. one observed/predicted ratio
+     for each of the 10 executions, then B settles units until its
+     maintenance tick refits the calibration scale (--cost-calibrate);
+     exact launch counts, which join `paths` as serve_control; frames/s
+     of each step, the ratio percentiles and the fitted scale, the
+     evicted bytes and the alert set
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -189,11 +215,15 @@ from processing_chain_tpu_torch.parallel import mesh as pmesh
 from processing_chain_tpu_torch.parallel import meshobs, p03_batch, pipeline
 from processing_chain_tpu_torch.priors import features as prior_features
 from processing_chain_tpu_torch import telemetry as serve_tm
+from processing_chain_tpu_torch.telemetry import alerts as serve_alerts
+from processing_chain_tpu_torch.telemetry import fleet as serve_fleet
 from processing_chain_tpu_torch.telemetry import live as serve_live
 from processing_chain_tpu_torch.telemetry import profiling
 from processing_chain_tpu_torch.telemetry import watchdog
 from processing_chain_tpu_torch.utils import fsio, tracing
 from processing_chain_tpu_torch.serve import api as serve_api
+from processing_chain_tpu_torch.serve import cost as serve_cost
+from processing_chain_tpu_torch.serve.executors import DeviceWaveExecutor
 from processing_chain_tpu_torch.serve.service import ChainServeService
 from processing_chain_tpu_torch.store import keys
 from processing_chain_tpu_torch.tools import quality_metrics as qm
@@ -1614,12 +1644,11 @@ def _wait_done(url: str, req_id: str, timeout: float) -> tuple:
         time.sleep(0.01)
 
 
-def serve_reference(dev, executor, unit) -> str:
+def serve_reference(dev, executor, unit, geo=SERVE_GEO) -> str:
     """sha256 of one unit's artifact by the plain route on the card: its
     seeded YUV through the plain bicubic resize (quantized to u8), Y then
     U then V, in frame order."""
     h = hashlib.sha256()
-    geo = SERVE_GEO
     dims = [(geo["dst_h"], geo["dst_w"]), (geo["dst_h"] // 2, geo["dst_w"] // 2),
             (geo["dst_h"] // 2, geo["dst_w"] // 2)]
     for plane, (dh, dw) in zip(executor.source_planes(unit), dims):
@@ -2801,6 +2830,391 @@ def run_database(dev, workdir: str) -> dict:
     return {"database": DB_ID, "media_s": DB_MEDIA_S, "pvses": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serve control plane
+# ---------------------------------------------------------------------------
+
+CONTROL_GEO = {"frames": 8, "src_h": SRC_H, "src_w": SRC_W, "dst_h": DST_H, "dst_w": DST_W}
+CONTROL_ARTIFACT = CONTROL_GEO["frames"] * DST_H * DST_W * 3 // 2  # Y, U and V of one unit
+# the store holds step 1's six plans; a seventh sets the completion hook
+# evicting
+CONTROL_BUDGET = 6 * CONTROL_ARTIFACT + (1 << 20)
+# the soak's own contract (tools/fleet_doctor.py run_soak) and the
+# committed reference evidence ALERTS_r20.json
+SOAK_EXPECTED = {"slo_burn_queue_wait", "store_eviction_regret", "fleet_replica_stale"}
+SOAK_TOLERATED = SOAK_EXPECTED | {"slo_burn_e2e", "slo_burn_execution"}
+
+
+def _control_body(srcs, tenant="lab-a") -> dict:
+    return {"tenant": tenant, "database": "P2STR01", "srcs": list(srcs), "hrcs": ["HRC001"],
+            "params": dict(CONTROL_GEO)}
+
+
+def _tool(args: list, timeout: float) -> subprocess.CompletedProcess:
+    """One `python -m processing_chain_tpu_torch tools ...` process from
+    the checkout; a non-zero exit fails the run."""
+    # chainlint: disable=subprocess-hygiene (one tool process with a timeout; its exit code is checked by the caller)
+    proc = subprocess.run([sys.executable, "-m", "processing_chain_tpu_torch", "tools", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    require(proc.returncode == 0, f"tools {args[0]}: exit {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    return proc
+
+
+def control_soak(workdir: str) -> dict:
+    """Phase 15 (a): `tools fleet-doctor --soak` as a process (the
+    synthetic executor), held to ALERTS_r20.json's invariants."""
+    root = os.path.join(workdir, "soak")
+    out = os.path.join(workdir, "soak.json")
+    t0 = time.perf_counter()
+    _tool(["fleet-doctor", "--soak", "--root", root, "--out", out], timeout=180)
+    soak_s = time.perf_counter() - t0
+    with open(out) as f:
+        report = json.load(f)
+    fired = set(report["alerts"]["fired"])
+    control = report["phases"]["control"]
+    breach = report["phases"]["breach"]["scale"]
+    recovery = report["phases"]["recovery"]["scale"]
+    lifecycle = {k: v["state"] for k, v in report["alerts"]["lifecycle"].items()}
+    log(f"phase 15 (a): breach soak in {soak_s:.1f} s: ok {report['ok']}, failures "
+        f"{report['failures']}, control alerts {control['alerts_fired']}, fired "
+        f"{report['alerts']['fired']}, lifecycle {lifecycle}, scale under breach "
+        f"{breach['current']} -> {breach['desired']}, after recovery "
+        f"{recovery['replicas_current']} -> {recovery['replicas_desired']} {recovery['reasons']}")
+    require(report["ok"] is True and report["failures"] == [], f"soak: {report['failures']}")
+    require(control["alerts_fired"] == {}, f"soak: control fired {control['alerts_fired']}")
+    require(SOAK_EXPECTED <= fired and fired <= SOAK_TOLERATED,
+            f"soak: fired {sorted(fired)}, want {sorted(SOAK_EXPECTED)} within "
+            f"{sorted(SOAK_TOLERATED)}")
+    require(lifecycle and all(s == "resolved" for s in lifecycle.values()),
+            f"soak: lifecycle {lifecycle}")
+    require(breach["desired"] > breach["current"], f"soak: breach scale {breach}")
+    require(recovery["replicas_desired"] == recovery["replicas_current"]
+            and "steady" in recovery["reasons"], f"soak: recovery scale {recovery}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"seconds": soak_s, "fired": report["alerts"]["fired"], "lifecycle": lifecycle,
+            "breach_scale": [breach["current"], breach["desired"]],
+            "recovery_scale": [recovery["replicas_current"], recovery["replicas_desired"]]}
+
+
+def _post_control(url: str, body: dict) -> dict:
+    code, raw = _http(url + "/v1/requests", body)
+    require(code == 202, f"control: POST {body['srcs']} -> {code} {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _check_artifacts(dev, svc, url: str, units: dict, shas: dict) -> int:
+    """Every unit's artifact over HTTP against the plain resize of its
+    seeded YUV on the card; records each sha256 in `shas`. Returns the
+    bytes read."""
+    n_bytes = 0
+    for pvs, u in sorted(units.items()):
+        require(u["state"] == "done", f"control: unit {pvs} {u['state']}")
+        code, digest, n = _http_sha256(url + u["artifact"])
+        require(code == 200 and n == CONTROL_ARTIFACT,
+                f"control: {pvs}: GET -> {code}, {n} bytes, not {CONTROL_ARTIFACT}")
+        _, src, hrc = pvs.split("_")
+        unit = serve_api.Unit("P2STR01", src, hrc, dict(CONTROL_GEO))
+        require(svc.store.plan_hash(svc.executor.plan(unit)) == u["plan"],
+                f"control: {pvs}: plan hash differs")
+        ref = serve_reference(dev, svc.executor, unit, CONTROL_GEO)
+        require(digest == ref, f"control: {pvs}: artifact differs from the plain resize")
+        require(shas.setdefault(u["plan"], digest) == digest,
+                f"control: {pvs}: bytes differ from the plan's first run")
+        n_bytes += n
+    return n_bytes
+
+
+def _new_alerts(root: str, seen: int) -> list:
+    records = serve_alerts.read_journals(serve_alerts.alerts_dir(root))
+    return [r for r in records[seen:] if r.get("kind") == "fired"]
+
+
+def run_control(dev, workdir: str) -> dict:
+    """Phase 15: the serve control plane (see the module doc)."""
+    base = os.path.join(workdir, "control")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    try:
+        soak = control_soak(base)
+        result = _drive_control(dev, os.path.join(base, "fleet"))
+        result["soak"] = soak
+        return result
+    finally:
+        meshobs.detach_journal()
+        shutil.rmtree(base, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _drive_control(dev, root: str) -> dict:
+    # one unit's predicted seconds, as POST predicts it (the
+    # reference's CPU-fitted base: the calibration scale is 1.0 here)
+    probe = DeviceWaveExecutor(device=dev)
+    fpix = CONTROL_GEO["frames"] * CONTROL_GEO["dst_h"] * CONTROL_GEO["dst_w"]
+    require(probe.cost_features({"params": CONTROL_GEO})
+            == {"dev_fmpix": fpix / 1e6, "out_bytes": fpix * 1.5},
+            "control: the wave executor's cost features")
+    unit_s = serve_cost.predict_unit_cost(probe, {"params": CONTROL_GEO})
+    admission_s = 6 * unit_s      # a 4-unit request passes, an 8-unit one does not
+    wave_budget_s = 2.5 * unit_s  # waves pack to two units by predicted seconds
+    svcs = {}
+    for name in ("w-a", "w-b"):
+        svcs[name] = ChainServeService(
+            root=root, port=0, executor="wave", device=dev, replica=name,
+            info_path=os.path.join(root, f"serve-info-{name}.json"), workers=1,
+            wave_width=4, poll_s=0.1, control_interval_s=0.15, alert_window_scale=0.001,
+            store_budget_bytes=CONTROL_BUDGET, admission_budget_s=admission_s,
+            wave_budget_s=wave_budget_s, cost_calibrate=True, lease_s=2.0)
+    a, b = svcs["w-a"], svcs["w-b"]
+    for svc in svcs.values():
+        require(svc.pressure.budget_bytes == CONTROL_BUDGET, "control: store budget not wired")
+    try:
+        for svc in svcs.values():
+            svc.start()
+        url_a, url_b = a.server.url, b.server.url
+        serve_tm.EVENTS.clear()
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t_path = time.perf_counter()
+        frames = CONTROL_GEO["frames"]
+        shas: dict = {}
+        steps: dict = {}
+
+        # 1. 4 units to A and 4 to B, two of B's A's plans: 6 executions
+        t0 = time.perf_counter()
+        acc_a = _post_control(url_a, _control_body(["SRC101", "SRC102", "SRC103", "SRC104"]))
+        # B posts once A's records are on disk and B's 0.1 s poll has
+        # merged them (cross-replica dedup is eventual within the queue's
+        # 0.25 s refresh throttle)
+        while True:
+            doc = json.loads(_http(url_a + acc_a["url"])[1])
+            if doc["state"] != "active" or any(
+                    u["state"] in ("running", "done") for u in doc["units"].values()):
+                break
+            require(time.perf_counter() - t0 < 120, "control: A never started running")
+            time.sleep(0.01)
+        time.sleep(0.3)
+        acc_b = _post_control(url_b, _control_body(["SRC103", "SRC104", "SRC105", "SRC106"],
+                                                   tenant="lab-b"))
+        doc_a, _ = _wait_done(url_a, acc_a["request"], 300)
+        doc_b, _ = _wait_done(url_b, acc_b["request"], 300)
+        t1 = time.perf_counter() - t0
+        done1 = time.monotonic()
+        require(doc_a["state"] == "done" and doc_b["state"] == "done",
+                f"control: A {doc_a['state']} {doc_a.get('error')}, B {doc_b['state']} "
+                f"{doc_b.get('error')}")
+        units1 = {**doc_a["units"], **doc_b["units"]}
+        plans1 = {u["plan"] for u in units1.values()}
+        require(len(plans1) == 6, f"control: {len(plans1)} distinct plans, not 6")
+        want1 = launches_want(resize_frames_fused=3 * 6, siti_frames_fused_batch=6)
+        require(dict(ck.LAUNCHES) == want1,
+                f"control: step 1 launches {dict(ck.LAUNCHES)} != {want1} (dedup)")
+        bytes1 = _check_artifacts(dev, b, url_b, units1, shas)
+        waves = [e for e in serve_tm.EVENTS.records() if e.get("event") == "serve_wave"]
+        packs = [(e["units"], e.get("predicted_s")) for e in waves]
+        require(waves and all(e["units"] <= 2 for e in waves),
+                f"control: waves {packs} not packed to {wave_budget_s:.3f} predicted s")
+        healthy = _new_alerts(root, 0)
+        require(healthy == [], f"control: the healthy window fired {healthy}")
+        steps["1_two_replicas"] = {"frames_per_s": 6 * frames / t1, "seconds": t1,
+                                   "outcomes_b": acc_b["outcomes"], "waves": packs}
+        log(f"phase 15 (b) 1: 6 plans from 8 units on two replicas in {t1:.3f} s "
+            f"({6 * frames / t1:.2f} frames/s), B's outcomes {acc_b['outcomes']}, waves "
+            f"(units, predicted s) {packs}, {bytes1} bytes equal the plain resize, "
+            f"no alert fired")
+
+        objects = {pvs: b.store.object_path(b.store.lookup(u["plan"]).object["sha256"])
+                   for pvs, u in units1.items()}
+
+        # 2. pin one plan through the tool; a seventh plan's completion
+        # runs the service's own budget pass, which evicts LRU and keeps it
+        pinned_pvs = "P2STR01_SRC101_HRC001"
+        pinned = units1[pinned_pvs]["plan"]
+        _tool(["store-admin", "--store", b.store.root, "pin", pinned, "--label", "phase15"],
+              timeout=120)
+        require(pinned in b.store.pins(), "control: store-admin pin did not pin")
+        before = b.store.stats()["bytes"]
+        # the hook checks the budget at most once a min_interval_s: wait
+        # out the checks that step 1's completions made
+        time.sleep(max(0.0, done1 + b.pressure.min_interval_s + 1.0 - time.monotonic()))
+        t0 = time.perf_counter()
+        acc = _post_control(url_b, _control_body(["SRC107"], tenant="lab-b"))
+        doc, _ = _wait_done(url_b, acc["request"], 300)
+        t2 = time.perf_counter() - t0
+        require(doc["state"] == "done", f"control: SRC107 {acc['outcomes']} {doc['state']}")
+        _check_artifacts(dev, b, url_b, doc["units"], shas)
+        # the pass runs just after the request reads as done, and drops a
+        # manifest before its object: wait for both
+        deadline = time.monotonic() + 30.0
+        evicted: list = []
+        while not evicted and time.monotonic() < deadline:
+            time.sleep(0.02)
+            evicted = sorted(pvs for pvs, u in units1.items()
+                             if b.store.lookup(u["plan"]) is None
+                             and not os.path.exists(objects[pvs]))
+        gcs = [e for e in serve_tm.EVENTS.records()
+               if e.get("event") == "serve_gc" and e.get("objects_evicted")]
+        after = b.store.stats()["bytes"]
+        require(evicted and gcs, f"control: the completion hook evicted nothing: {gcs}")
+        require(after <= CONTROL_BUDGET, f"control: {after} bytes kept over {CONTROL_BUDGET}")
+        require(b.store.lookup(pinned) is not None and pinned_pvs not in evicted
+                and all(e["pins_honored"] >= 1 for e in gcs),
+                f"control: the pinned plan was not honored: {gcs}")
+        freed = sum(e["bytes_freed"] for e in gcs)
+        steps["2_pressure"] = {"frames_per_s": frames / t2, "seconds": t2, "evicted_bytes": freed,
+                               "evicted_units": evicted, "kept_bytes": after,
+                               "passes": len(gcs)}
+        log(f"phase 15 (b) 2: pinned {pinned_pvs}; SRC107 in {t2:.3f} s ({frames / t2:.2f} "
+            f"frames/s); the completion hook's budget pass ({CONTROL_BUDGET} B, {len(gcs)} "
+            f"pass(es)) evicted {freed} bytes ({evicted}), {before} + one unit -> {after} "
+            f"bytes kept, pins honored {[e['pins_honored'] for e in gcs]}")
+
+        # 3. an evicted plan POSTed again: recomputed, same bytes, regret
+        redo_pvs = evicted[0]
+        t0 = time.perf_counter()
+        acc = _post_control(url_a, _control_body([redo_pvs.split("_")[1]]))
+        doc, _ = _wait_done(url_a, acc["request"], 300)
+        t3 = time.perf_counter() - t0
+        require(doc["state"] == "done", f"control: re-POST {acc['outcomes']} {doc['state']}")
+        want3 = launches_want(resize_frames_fused=3 * 8, siti_frames_fused_batch=8)
+        require(dict(ck.LAUNCHES) == want3,
+                f"control: the evicted plan was not recomputed: {dict(ck.LAUNCHES)} != {want3}")
+        _check_artifacts(dev, a, url_a, doc["units"], shas)
+        heat_doc = json.loads(_tool(["store-heat", "report", b.store.root, "--json"],
+                                    timeout=120).stdout)
+        regrets = heat_doc["totals"]["regrets"]
+        require(regrets >= 1, f"control: store-heat reports {regrets} regrets")
+        steps["3_regret"] = {"frames_per_s": frames / t3, "seconds": t3, "regrets": regrets,
+                             "outcomes": acc["outcomes"]}
+        log(f"phase 15 (b) 3: {redo_pvs} re-POSTed after its eviction: recomputed in "
+            f"{t3:.3f} s ({frames / t3:.2f} frames/s), bytes equal its first run; tools "
+            f"store-heat: {regrets} regret(s), {heat_doc['totals']['evictions']} evictions")
+
+        # 4. 8 units: refused at POST, the queue untouched
+        jobs_dir = os.path.join(root, "queue", "jobs")
+        depth0 = len(os.listdir(jobs_dir))
+        big = _control_body([f"SRC2{i:02d}" for i in range(8)])
+        code, raw = _http(url_b + "/v1/requests", big)
+        refusal = json.loads(raw)
+        require(code == 429 and refusal.get("reason") == "request_budget"
+                and refusal.get("budget_s") == admission_s
+                and abs(refusal.get("predicted_s", 0) - 8 * unit_s) < 2e-3
+                and len(refusal.get("heaviest", [])) == 5 and refusal.get("retryable") is False,
+                f"control: 8-unit POST -> {code} {refusal}")
+        require(len(os.listdir(jobs_dir)) == depth0, "control: the refused request queued work")
+        steps["4_admission"] = {"status": code, "body": refusal}
+        log(f"phase 15 (b) 4: 8-unit POST -> {code}: predicted {refusal['predicted_s']} s "
+            f"against {refusal['budget_s']:.3f} s, heaviest {refusal['heaviest'][:2]}..., "
+            f"queue depth {depth0} unchanged")
+
+        # 5. A stops with a request outstanding; B's tick adopts it
+        a.scheduler.stop()
+        a._poll_stop.set()
+        a._poll_thread.join(timeout=10.0)
+        t0 = time.perf_counter()
+        orphan = a.submit(_control_body(["SRC108", "SRC109"]))
+        a.queue.close()
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            doc = b.request_status(orphan["request"])
+            if doc is not None and doc["state"] == "done":
+                break
+            time.sleep(0.05)
+        t5 = time.perf_counter() - t0
+        doc = b.request_status(orphan["request"])
+        require(doc is not None and doc["state"] == "done",
+                f"control: B did not adopt A's orphan: {doc and doc['state']}")
+        with open(os.path.join(root, "requests", orphan["request"] + ".json")) as f:
+            owner = json.load(f)["owner"]["replica"]
+        require(owner == "w-b", f"control: the orphan's owner is {owner}")
+        _check_artifacts(dev, b, url_b, doc["units"], shas)
+        steps["5_orphan"] = {"frames_per_s": 2 * frames / t5, "seconds": t5, "owner": owner}
+        log(f"phase 15 (b) 5: A stopped with {orphan['request']} outstanding; B adopted and "
+            f"finished it in {t5:.3f} s ({2 * frames / t5:.2f} frames/s), owner {owner}")
+
+        # 6. the fleet routes on B
+        b._control_tick(force=True)
+        code, raw = _http(url_b + "/fleet")
+        fleet_doc = json.loads(raw)
+        reps = {r["replica"]: r.get("status") for r in fleet_doc["replicas"]}
+        require(code == 200 and set(reps) == {"w-a", "w-b"} and reps["w-b"] == "ok",
+                f"control: /fleet -> {code} {reps}")
+        code, raw = _http(url_b + "/fleet/scale-signal")
+        signal = json.loads(raw)
+        require(code == 200 and signal.get("replicas_desired", 0) >= 1,
+                f"control: /fleet/scale-signal -> {code} {signal}")
+        code, raw = _http(url_b + "/fleet/alerts")
+        alerts_doc = json.loads(raw)
+        folded = serve_alerts.fold(serve_alerts.read_journals(serve_alerts.alerts_dir(root)))
+        firing = sorted(k for k, v in folded.items() if v.get("state") == "firing")
+        resolved = sorted(k for k, v in folded.items() if v.get("state") == "resolved")
+        require(code == 200 and sorted(x["alert"] for x in alerts_doc["active"]) == firing
+                and sorted(x["alert"] for x in alerts_doc["resolved"]) == resolved,
+                f"control: /fleet/alerts {alerts_doc} != fold {folded}")
+        alert_set = {k: v.get("state") for k, v in folded.items()}
+        log(f"phase 15 (b) 6: /fleet replicas {reps}, scale signal "
+            f"{signal.get('replicas_current')} -> {signal.get('replicas_desired')} "
+            f"{signal.get('reasons')}, alerts {alert_set}")
+
+        # 7. --cost-calibrate: each execution settled once, then B alone
+        # settles enough units for its maintenance tick to refit the scale
+        path_ratios = a.cost_ledger.ratios() + b.cost_ledger.ratios()
+        require(len(path_ratios) == 10,
+                f"control: {len(path_ratios)} observed/predicted ratios for 10 executions")
+        require(serve_cost.calibration()["n"] == 0, "control: calibrated before step 7")
+        need = serve_cost.CALIBRATION_MIN_SAMPLES - len(b.cost_ledger.ratios())
+        n_req = -(-need // 4)
+        t0 = time.perf_counter()
+        accs = [_post_control(url_b, _control_body([f"SRC3{4 * i + j:02d}" for j in range(4)],
+                                                   tenant="lab-c"))
+                for i in range(n_req)]
+        cal_ratios = []
+        for acc in accs:
+            doc, _ = _wait_done(url_b, acc["request"], 300)
+            require(doc["state"] == "done", f"control: calibration request {doc['state']}")
+            for u in doc["units"].values():
+                rec = b.queue.by_plan(u["plan"])
+                require(rec is not None and rec.claimed_at and rec.done_at and rec.cost_s > 0,
+                        f"control: the record of {u['plan']} has no timing")
+                cal_ratios.append((rec.done_at - rec.claimed_at) / rec.cost_s)
+        t7 = time.perf_counter() - t0
+        deadline = time.monotonic() + 30.0
+        while serve_cost.calibration()["n"] == 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        cal = serve_cost.calibration()
+        require(cal["n"] >= serve_cost.CALIBRATION_MIN_SAMPLES,
+                f"control: the service's --cost-calibrate did not refit: {cal}")
+        steps["7_calibration"] = {"frames_per_s": 4 * n_req * frames / t7, "seconds": t7,
+                                  "units": 4 * n_req}
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        path_s = time.perf_counter() - t_path
+    finally:
+        for svc in svcs.values():
+            svc.stop()
+        serve_cost.reset_calibration()
+
+    executions = 10 + 4 * n_req
+    want = launches_want(resize_frames_fused=3 * executions, siti_frames_fused_batch=executions)
+    require(launches == want, f"control: launches {launches} != {want}")
+    pct = {f"p{int(q * 100)}": serve_fleet.percentile_exact(path_ratios, q)
+           for q in (0.1, 0.5, 0.9)}
+    cal_pct = {f"p{int(q * 100)}": serve_fleet.percentile_exact(cal_ratios, q)
+               for q in (0.1, 0.5, 0.9)}
+    log(f"phase 15 (b) 7: {4 * n_req} more units on B in {t7:.3f} s "
+        f"({4 * n_req * frames / t7:.2f} frames/s); cost ledger observed/predicted over "
+        f"steps 1-5's 10 executions {pct}, over step 7's units {cal_pct}; the service's "
+        f"--cost-calibrate refit the scale to {cal['scale']} from {cal['n']} ratios (clamped "
+        f"to {serve_cost.CALIBRATION_SCALE_RANGE}; predicted {unit_s:.4f} s a unit from the "
+        f"reference's CPU-fitted base); launches {launches}; the path took {path_s:.1f} s")
+    return {"launches": launches, "steps": steps, "unit_predicted_s": unit_s,
+            "admission_budget_s": admission_s, "wave_budget_s": wave_budget_s,
+            "cost_ratio_percentiles": pct, "cost_ratios": path_ratios,
+            "calibration_ratio_percentiles": cal_pct, "calibration": cal,
+            "alerts": alert_set, "evicted_bytes": steps["2_pressure"]["evicted_bytes"],
+            "path_s": path_s}
+
+
 def libav_probe() -> str:
     """Whether the native media layer's libav could load here: does
     libavcodec.so.59 open, and which libav headers exist. Printed for the
@@ -2902,6 +3316,9 @@ def main() -> int:
     t14 = time.perf_counter()
     database = run_database(dev, workdir)
     log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    control = run_control(dev, workdir)
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -2912,6 +3329,7 @@ def main() -> int:
              **{f"quality_metrics_{k}": v["launches"] for k, v in quality.items()},
              **{f"src_analysis_{k}": v["launches"] for k, v in src_summary.items()},
              "serve_wave": serve["launches"],
+             "serve_control": control["launches"],
              **{f"mesh_wave_{k}": v["launches"] for k, v in mesh["waves"]["runs"].items()},
              "mesh_sharded_step": mesh["sharded_step"]["launches"],
              **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()}}
@@ -2939,6 +3357,7 @@ def main() -> int:
                     "waves": waves, "downstream": downstream, "p01_ladder": ladder,
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
                     "serve": serve, "mesh": mesh, "profiled": profiled, "database": database,
+                    "control": control,
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,13 @@ _TOOLS = {
     "mesh-top": ".tools.mesh_top",
     "clean-logs": ".tools.clean_logs",
     "plots": ".tools.plots",
+    "serve-admin": ".tools.serve_admin",
+    "store-admin": ".tools.store_admin",
+    "store-heat": ".tools.store_heat",
+    "store-tiers": ".tools.store_tiers",
+    "fleet-doctor": ".tools.fleet_doctor",
+    "fleet-top": ".tools.fleet_top",
+    "queue-crashcheck": ".tools.queue_crashcheck",
 }
 
 

@@ -9,6 +9,11 @@ processing_chain_tpu/serve/).
                   claims, cross-request wave packing through JobRunner
     executors.py  the Executor protocol, the synthetic toy executor and
                   the device-wave executor over parallel/p03_batch
+    pressure.py   serve-side LRU pressure driving store/gc with the
+                  plans of unfinished requests pinned
+    cost.py       the predicted-cost model, the cost ledger and
+                  admission control
+    autoscale.py  the scale signal graded from backlog and alerts
     service.py    the daemon: all of the above on one LiveServer
 
 Entry point: `python -m processing_chain_tpu_torch tools chain-serve`

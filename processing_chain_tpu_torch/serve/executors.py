@@ -88,6 +88,16 @@ class Executor(Protocol):
         simply never applies to the unit); never raise."""
         ...
 
+    def cost_features(self, record_unit: dict) -> Optional[dict]:
+        """Feature dict for the predicted-cost model (serve/cost.py:
+        work_s / out_bytes / enc_fmpix / dev_fmpix / cpvs_fmpix /
+        codec / complexity). Same totality contract as bucket_key —
+        it runs at the POST front door and in the scheduler's packing
+        pass, so return None for an unparseable unit, never raise
+        (cost.predict_unit_cost guards anyway and falls back to
+        DEFAULT_COST_S)."""
+        ...
+
     def run_batch(self, units: list[Unit], outputs: list[str]) -> None:
         """Produce every output. Called inside engine.Job (sentinels,
         store commit, telemetry ride along)."""
@@ -181,6 +191,18 @@ class SyntheticExecutor:
         except (AttributeError, TypeError, ValueError):
             # a pre-validation durable record with garbage params (null,
             # non-dict, unparseable geometry): unbatchable, never a raise
+            return None
+
+    def cost_features(self, record_unit: dict) -> Optional[dict]:
+        """Synthetic units declare their cost outright: work_ms of
+        simulated compute + the artifact bytes they write."""
+        try:
+            params = record_unit.get("params", {}) or {}
+            return {
+                "work_s": float(params.get("work_ms", 0) or 0) / 1e3,
+                "out_bytes": float(params.get("size_bytes", 4096) or 4096),
+            }
+        except (AttributeError, TypeError, ValueError):
             return None
 
     def src_digest(self, record_unit: dict) -> Optional[str]:
@@ -374,6 +396,17 @@ class DeviceWaveExecutor(SyntheticExecutor):
         except (AttributeError, TypeError, ValueError):
             return None  # pre-validation garbage record: unbatchable
         return ("wave",) + tuple(geo[k] for k in self._GEO)
+
+    def cost_features(self, record_unit: dict) -> Optional[dict]:
+        """Wave units are device resizes: frames × destination pixels."""
+        try:
+            geo = self._geometry(record_unit.get("params", {}))
+        except (AttributeError, TypeError, ValueError):
+            return None
+        return {
+            "dev_fmpix": geo["frames"] * geo["dst_h"] * geo["dst_w"] / 1e6,
+            "out_bytes": geo["frames"] * geo["dst_h"] * geo["dst_w"] * 1.5,
+        }
 
     def _mesh(self):
         from ..parallel.mesh import make_mesh

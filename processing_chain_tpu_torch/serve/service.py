@@ -1,10 +1,16 @@
 """The chain-serve daemon: HTTP front door, queue, scheduler, store
-(trimmed port of processing_chain_tpu/serve/service.py).
+(port of processing_chain_tpu/serve/service.py, with the executor on a
+torch device).
 
-Left out of the port, each a no-op at the reference's defaults (all
-budgets None, one replica): the alert engine and autoscale advisor, the
-cost ledger and admission budgets, the store heat ledger, store pressure
-and GC, the /fleet routes and the cross-replica orphan-request sweep.
+The control plane is the reference's, each piece a no-op at its defaults
+(all budgets None, one replica): store pressure and GC under
+`store_budget_bytes`, the tier hierarchy (`store_tiers`), the heat
+ledger, the cost ledger with admission at POST (`admission_budget_s`,
+`tenant_budget_s`) and cost-aware wave packing (`wave_budget_s`), the
+alert engine and autoscale advisor on the maintenance tick, the /fleet
+routes, and the cross-replica orphan-request sweep. Left out of the
+port: the reference's `chain` executor (real databases through p01-p04),
+which waits for the port's media boundary.
 
 One `ChainServeService` owns the whole serving stack rooted at one
 directory:
@@ -27,6 +33,7 @@ pool and a shutdown story:
     GET  /v1/requests/<id>             one request with per-unit states
     GET  /v1/artifacts/<plan_hash>     artifact bytes from the store
     POST /v1/drain                     drain ({}) or resume ({"resume": true})
+    GET  /fleet /fleet/alerts /fleet/scale-signal   the merged fleet view
 
 Identity and dedup: a unit's plan hash (store/keys) is its name
 everywhere — queue dedup key, store commit key, artifact URL. Request
@@ -57,17 +64,20 @@ from typing import NamedTuple, Optional
 
 from .. import telemetry as tm
 from ..parallel import meshobs
-from ..store import runtime as store_runtime
-from ..store.store import StoreCorruption
+from ..telemetry import alerts as alerts_mod
 from ..telemetry import catalog as tm_catalog
 from ..telemetry import watchdog as tm_watchdog
+from ..store import heat as store_heat
+from ..store import runtime as store_runtime
+from ..store.store import StoreCorruption
 from ..telemetry import live
 from ..utils import lockdebug
 from ..utils.fsio import atomic_write_json
 from ..utils.log import get_logger
-from . import api
+from . import api, autoscale, cost
 from .executors import make_executor
-from .queue import DurableQueue, owner_stamp
+from .pressure import StorePressure
+from .queue import DurableQueue, owner_process_dead, owner_stamp
 from .scheduler import Scheduler
 
 _REQ_TOTAL = tm.counter(
@@ -109,11 +119,10 @@ _READ_SECONDS = tm.histogram(
 )
 
 _HASH_LEN = 64  # sha256 hex
-
-# The reference's constructor defaults, fixed here: one replica per
-# root, named by the queue, and its default lease.
 _REQUEST_RETENTION = 10_000  # finished requests kept (memory and disk)
-_POLL_S = 1.0                # maintenance tick
+#: executions whose cost was settled, remembered so the scheduler's
+#: callback and the maintenance sweep settle each one once
+_SETTLED_KEEP = 4096
 
 
 class _DoneState:
@@ -146,8 +155,20 @@ class ChainServeService:
         workers: int = 2,
         wave_width: int = 4,
         store_root: Optional[str] = None,
+        store_budget_bytes: Optional[int] = None,
+        store_tiers: Optional[str] = None,
         tenant_weights: Optional[dict] = None,
         max_attempts: int = 2,
+        replica: Optional[str] = None,
+        lease_s: float = 15.0,
+        poll_s: float = 1.0,
+        info_path: Optional[str] = None,
+        wave_budget_s: Optional[float] = None,
+        admission_budget_s: Optional[float] = None,
+        tenant_budget_s: Optional[float] = None,
+        cost_calibrate: bool = False,
+        control_interval_s: float = 10.0,
+        alert_window_scale: float = 1.0,
         device=None,
     ) -> None:
         """`device` goes to the executor: the `wave` executor runs on it
@@ -162,18 +183,35 @@ class ChainServeService:
         tm.enable()
         self.executor = make_executor(executor, device=device)
         self.store = store_runtime.configure(
-            store_root or os.path.join(self.root, "store"))
-        self.queue = DurableQueue(os.path.join(self.root, "queue"))
+            store_root or os.path.join(self.root, "store"),
+            tiers=store_tiers,
+        )
+        self.queue = DurableQueue(
+            os.path.join(self.root, "queue"),
+            replica=replica, lease_s=lease_s,
+        )
         self.replica = self.queue.replica
+        #: the read-path flight recorder (store/heat.py): per-replica
+        #: access journal + eviction-regret detector, shared with the
+        #: GC pressure hook so evictions land with forensics
+        self.heat = store_heat.HeatLedger(
+            self.store.root, replica=self.replica
+        )
         # the device-plane flight recorder (parallel/meshobs.py): the
         # wave executor records into this root's journal under this
-        # replica's name
+        # replica's name — /fleet merges the per-replica files
         meshobs.attach_journal(
             meshobs.mesh_dir(self.root), replica=self.replica
         )
-        self.info_path = os.path.join(self.root, "serve-info.json")
+        self.poll_s = max(0.05, float(poll_s))
+        self.info_path = info_path or os.path.join(
+            self.root, "serve-info.json"
+        )
         self._poll_stop = threading.Event()
         self._poll_thread: Optional[threading.Thread] = None
+        #: request-doc stat signatures for the orphan sweep; touched
+        #: only by the maintenance thread
+        self._req_stat: dict[str, tuple] = {}
         self._lock = lockdebug.make_lock("serve_service")
         #: request docs; each active one carries a non-persisted
         #: "_pending" set of plan hashes still outstanding, maintained by
@@ -182,10 +220,54 @@ class ChainServeService:
         self._requests: dict[str, dict] = {}   # guarded-by: _lock
         #: plan hash -> request ids still waiting on it
         self._plan_waiters: dict[str, set] = {}  # guarded-by: _lock
+        #: (job_id, epoch) of the executions whose cost was settled: the
+        #: scheduler's callback and the maintenance sweep can both see
+        #: one done record
+        self._settled: dict[tuple, None] = {}  # guarded-by: _lock
+        self.pressure = StorePressure(
+            self.store, store_budget_bytes, self.active_plans,
+            heat=self.heat,
+        )
+        #: cost-aware serving knobs (docs/SERVE.md "Cost-aware
+        #: scheduling & admission"); budgets of None disable each gate
+        self.admission_budget_s = (
+            float(admission_budget_s) if admission_budget_s else None
+        )
+        self.tenant_budget_s = (
+            float(tenant_budget_s) if tenant_budget_s else None
+        )
+        self.cost_ledger = cost.CostLedger()
+        #: periodic per-host refit of the cost-prediction scale from
+        #: the ledger's observed/predicted ratio ring (maintenance
+        #: tick; docs/SERVE.md "Cost-aware scheduling & admission")
+        self.cost_calibrate = bool(cost_calibrate)
+        # ------ the SLO control loop (docs/TELEMETRY.md "Alerting &
+        # the scale signal"): one shared per-replica alert journal
+        # carries both alert lifecycle records and scale-signal
+        # records, so fleet-doctor reads one plane and scale decisions
+        # sit next to the alerts that motivated them. The engine and
+        # the advisor are re-graded by the maintenance tick, throttled
+        # to control_interval_s; window_scale compresses every burn
+        # window/hold uniformly (the soak harness squeezes hours into
+        # seconds without forking the rule declarations).
+        self.control_interval_s = max(0.05, float(control_interval_s))
+        self.alert_journal = alerts_mod.AlertJournal(
+            alerts_mod.alerts_dir(self.root), self.replica
+        )
+        self.alert_engine = alerts_mod.AlertEngine(
+            self.root, self.replica, journal=self.alert_journal,
+            window_scale=alert_window_scale,
+        )
+        self.autoscale = autoscale.AutoscaleAdvisor(
+            self.alert_journal, self.replica, workers=workers,
+            window_scale=alert_window_scale,
+        )
+        self._next_control = 0.0  # monotonic deadline; maintenance thread
         self.scheduler = Scheduler(
             self.queue, self.executor, self.artifacts_root,
             workers=workers, wave_width=wave_width,
             tenant_weights=tenant_weights, max_attempts=max_attempts,
+            wave_budget_s=wave_budget_s,
             on_done=self._on_job_done, on_failed=self._on_job_failed,
         )
         #: graceful drain (docs/SERVE.md "Draining a replica"): while
@@ -202,6 +284,9 @@ class ChainServeService:
         # replica's drain state — a draining replica is still HEALTHY
         # (200), it is just not claiming work
         routes.add("/healthz", self._h_healthz)
+        routes.add("/fleet", self._h_fleet)
+        routes.add("/fleet/alerts", self._h_fleet_alerts)
+        routes.add("/fleet/scale-signal", self._h_scale_signal)
         self.server = live.LiveServer(port, host=host, routes=routes)
         self._recover_requests()
 
@@ -283,25 +368,65 @@ class ChainServeService:
         # releases this replica's leases/liveness so a successor (or a
         # peer) can reclaim any still-running work immediately
         self.queue.close()
+        # resolve-on-shutdown is wrong (the condition may persist);
+        # close() just seals the journal handle
+        self.alert_engine.close()
+        self.heat.close()
         if self.store is not None:
             self.store.digests.save()
 
     # ------------------------------------------------------- maintenance
 
     def _maintenance_loop(self) -> None:
-        """The replica tick: merge peer queue changes, steal dead leases
-        (waking our scheduler for the reclaimed work), and settle
-        requests whose plans completed outside this replica's scheduler
-        callbacks."""
-        while not self._poll_stop.wait(timeout=_POLL_S):
+        """The replica-fleet tick: merge peer queue changes, steal dead
+        leases (waking our scheduler for the reclaimed work), and settle
+        requests whose plans a PEER replica finished — this replica's
+        scheduler callbacks only fire for its own executions, so
+        cross-replica completions propagate here."""
+        while not self._poll_stop.wait(timeout=self.poll_s):
             try:
                 result = self.queue.poll()
                 if result.get("stolen") or result.get("changed"):
                     self.scheduler.notify()
                 self._sweep_remote_settlements()
+                self._adopt_orphan_requests()
+                if self.cost_calibrate:
+                    # cheap (a sorted copy of a bounded ring); a thin
+                    # ring returns None and the scale stays put
+                    self.cost_ledger.calibrate()
             except Exception:  # noqa: BLE001 - the tick must survive disk hiccups
                 get_logger().exception(
                     "chain-serve: maintenance tick failed")
+            try:
+                # the SLO control loop rides the same tick but in its
+                # own try: an alert-grading failure must not starve
+                # lease stealing (and vice versa)
+                self._control_tick()
+            except Exception:  # noqa: BLE001 - grading must never kill the tick
+                get_logger().exception(
+                    "chain-serve: control tick failed")
+
+    def _control_tick(self, force: bool = False) -> Optional[dict]:
+        """Grade the alert rules and the scale signal against the
+        current fleet view. Throttled to `control_interval_s` (the
+        fleet scrape stats every replica's journals); `force=True`
+        (the /fleet/scale-signal cold path) grades immediately."""
+        now = time.monotonic()
+        if not force and now < self._next_control:
+            return None
+        self._next_control = now + self.control_interval_s
+        from ..telemetry import fleet as fleet_mod
+
+        view = fleet_mod.fleet_view(self.root, timeout_s=2.0)
+        result = self.alert_engine.evaluate(view)
+        calibrated = int(cost.calibration().get("n", 0)) > 0
+        return self.autoscale.evaluate(
+            current_replicas=max(1, int(view.get("alive") or 0)),
+            backlog=self.queue.backlog(),
+            outstanding_s=self.queue.outstanding_cost(),
+            active_alerts=result["active"],
+            calibrated=calibrated,
+        )
 
     def _sweep_remote_settlements(self) -> None:
         with self._lock:
@@ -309,7 +434,11 @@ class ChainServeService:
         for plan_hash in waited:
             record = self.queue.by_plan(plan_hash)
             if record is not None and record.state == "done":
-                self._on_job_done(record)
+                # a done record whose bytes were evicted is one the
+                # submit that registered this waiter is about to re-arm:
+                # only the bytes in the store settle it
+                if self.store.lookup(plan_hash) is not None:
+                    self._on_job_done(record)
             elif record is not None and record.state in (
                     "failed", "quarantined"):
                 self._on_job_failed(record)
@@ -317,6 +446,72 @@ class ChainServeService:
                 # no queue record but the store holds verified bytes: a
                 # peer executed and its record left our view
                 self._on_job_done(_PlanSettled(plan_hash))
+
+    def _adopt_orphan_requests(self) -> None:
+        """An active request whose owning replica died UN-restarted
+        would otherwise wait for some replica's next startup rescan to
+        be adopted; the tick adopts it directly. Terminal docs are
+        stat-cached (they cannot regress), active docs of LIVE owners
+        are re-probed each tick — the probe is one os.kill(pid, 0)."""
+        try:
+            names = os.listdir(self.requests_dir)
+        except OSError:
+            return
+        seen: set = set()
+        for name in names:
+            if not name.endswith(".json"):
+                continue
+            req_id = name[:-5]
+            seen.add(req_id)
+            with self._lock:
+                if req_id in self._requests:
+                    continue
+            path = os.path.join(self.requests_dir, name)
+            try:
+                st = os.stat(path)
+            except OSError:
+                continue
+            sig = (st.st_mtime_ns, st.st_size)
+            if self._req_stat.get(req_id) == sig:
+                continue
+            try:
+                with open(path) as f:
+                    doc = json.load(f)
+            except (OSError, ValueError):
+                continue  # mid-replace or poisoned: next tick retries
+            if doc.get("state") != "active":
+                self._req_stat[req_id] = sig  # terminal: never re-read
+                continue
+            if not owner_process_dead(doc.get("owner")):
+                continue  # owner lives (or is unknowable): theirs
+            # claim the doc under the fleet fence: re-check and restamp
+            # in one exclusive section so two surviving replicas cannot
+            # both adopt the same orphan off simultaneous ticks
+            claimed = False
+            try:
+                with self.queue.exclusive():
+                    with open(path) as f:
+                        doc = json.load(f)
+                    if doc.get("state") == "active" and \
+                            owner_process_dead(doc.get("owner")):
+                        prev = (doc.get("owner") or {}).get("replica")
+                        doc["owner"] = owner_stamp(self.replica)
+                        atomic_write_json(path, doc, durable=True,
+                                          sort_keys=True)
+                        claimed = True
+            except (OSError, ValueError):
+                continue
+            if not claimed:
+                continue
+            get_logger().warning(
+                "chain-serve: adopting orphaned request %s from dead "
+                "replica %r", req_id, prev)
+            self._adopt_active(doc)
+        # retention pruning deletes docs from disk; their stat entries
+        # must not outlive them (an always-on daemon leaks otherwise)
+        for req_id in list(self._req_stat):
+            if req_id not in seen:
+                self._req_stat.pop(req_id, None)
 
     def __enter__(self) -> "ChainServeService":
         return self.start()
@@ -389,6 +584,7 @@ class ChainServeService:
                         unit_doc["unit"],
                         doc["tenant"], doc["priority"], req_id,
                         unit_doc["output"], trace_id=doc.get("trace"),
+                        cost_s=float(unit_doc.get("cost_s", 0.0) or 0.0),
                         src_digest=unit_doc.get("src_digest")
                         or self.executor.src_digest(unit_doc["unit"]),
                     )
@@ -468,6 +664,8 @@ class ChainServeService:
                     "plan": plan_hash,
                     "planPayload": plan,
                     "output": self.executor.output_name(unit, plan_hash),
+                    "cost_s": round(cost.predict_unit_cost(
+                        self.executor, record_unit), 4),
                     # the poison-quarantine key (docs/ROBUSTNESS.md):
                     # stamped at the front door so the queue record can
                     # fail fast against the digest registry at enqueue
@@ -478,8 +676,37 @@ class ChainServeService:
         except api.RequestError:
             _REQ_TOTAL.labels(state="rejected").inc()
             raise
-        # the warm set is computed once and reused by the enqueue loop
+        # admission control (docs/SERVE.md "Cost-aware scheduling &
+        # admission"): COLD units' predicted seconds against the
+        # per-request and per-tenant budgets, refused at POST time with
+        # a 429 forensic body — before any durable state exists. The
+        # warm set is computed once and reused by the enqueue loop.
+        # Units whose plan is already queued/running cost nothing
+        # either: they ATTACH to the in-flight record (singleflight),
+        # whose prediction is already in the tenant's outstanding sum —
+        # charging them again would refuse exactly the overlapping-grid
+        # workload the serve layer exists to dedup, and double-count
+        # the predicted ledger.
         warm_plans = {ph for ph in plans if self._plan_is_done(ph)}
+
+        def _in_flight(plan_hash: str) -> bool:
+            record = self.queue.by_plan(plan_hash)
+            return record is not None and record.state in (
+                "queued", "running")
+
+        try:
+            predicted_s = cost.check_admission(
+                normalized["tenant"],
+                [(ud["unit"]["pvs_id"], ud["cost_s"])
+                 for ph, ud in plans.items()
+                 if ph not in warm_plans and not _in_flight(ph)],
+                self.admission_budget_s,
+                self.tenant_budget_s,
+                self.queue.outstanding_cost(normalized["tenant"]),
+            )
+        except cost.AdmissionError:
+            _REQ_TOTAL.labels(state="rejected").inc()
+            raise
         doc = {
             "request": req_id,
             "trace": trace_id,
@@ -492,8 +719,10 @@ class ChainServeService:
             "done_at": None,
             "latency_ms": None,
             "warm": False,
-            # liveness stamp: the next service on this root adopts the
-            # request if our process dies before finalizing it
+            #: the admission decision's evidence, kept on the record
+            "predicted_cost_s": round(predicted_s, 3),
+            # liveness stamp: peers adopt this request if our process
+            # dies before finalizing it (maintenance orphan sweep)
             "owner": owner_stamp(self.replica),
         }
         # the request must be discoverable BEFORE its first unit can
@@ -504,6 +733,7 @@ class ChainServeService:
             for plan_hash in plans:
                 self._plan_waiters.setdefault(plan_hash, set()).add(req_id)
         self._persist_request(doc)
+        self.cost_ledger.admitted(normalized["tenant"], predicted_s)
         outcomes = {"warm": 0, "enqueued": 0, "attached": 0,
                     "quarantined": 0}
         quarantine_error: Optional[str] = None
@@ -511,6 +741,7 @@ class ChainServeService:
             if plan_hash in warm_plans:
                 _UNITS.labels(outcome="warm").inc()
                 outcomes["warm"] += 1
+                self.cost_ledger.warm(normalized["tenant"])
                 with self._lock:
                     doc["_pending"].discard(plan_hash)
                     waiters = self._plan_waiters.get(plan_hash)
@@ -523,12 +754,16 @@ class ChainServeService:
                 plan_hash, unit_doc["planPayload"], unit_doc["unit"],
                 normalized["tenant"], normalized["priority"], req_id,
                 unit_doc["output"], trace_id=trace_id,
+                cost_s=unit_doc["cost_s"],
                 src_digest=unit_doc.get("src_digest"),
             )
             if outcome == "done":
                 # the queue remembers a completion the store no longer
-                # holds (evicted): re-arm the same record
+                # holds (evicted): re-arm the same record. If the
+                # eviction was recent, this rebuild is eviction REGRET —
+                # the budget forced recomputation of bytes we had.
                 self.queue.rearm(record.job_id)
+                self.heat.note_read_or_rebuild(plan_hash, via="rebuild")
                 outcome = "new"
             if outcome == "quarantined":
                 # permanent failure on record: the request fails NOW
@@ -597,6 +832,7 @@ class ChainServeService:
         return True
 
     def _on_job_done(self, record) -> None:
+        self._settle_cost(record)
         with self._lock:
             waiters = self._plan_waiters.pop(record.plan_hash, set())
             for req_id in waiters:
@@ -605,6 +841,36 @@ class ChainServeService:
                     doc.get("_pending", set()).discard(record.plan_hash)
         for req_id in sorted(waiters):
             self._check_request_done(req_id)
+        self.pressure.maybe_collect()
+
+    def _settle_cost(self, record) -> None:
+        """The cost model's feedback loop (docs/SERVE.md): grade the
+        record's predicted seconds against what execution really took.
+        Only for executions THIS replica owned — a peer's completion
+        already landed in its own ledger/metrics, and the fleet view
+        merges the replicas' counters (double-observing here would
+        double-count fleet-wide). Once per execution: the scheduler's
+        callback and the maintenance sweep may both settle one record."""
+        if getattr(record, "owner", None) != self.replica:
+            return
+        key = (getattr(record, "job_id", None), getattr(record, "epoch", None))
+        with self._lock:
+            if key in self._settled:
+                return
+            self._settled[key] = None
+            if len(self._settled) > _SETTLED_KEEP:
+                del self._settled[next(iter(self._settled))]
+        tenant = getattr(record, "tenant", "") or ""
+        if getattr(record, "warm", False):
+            self.cost_ledger.warm(tenant)
+            return
+        claimed_at = getattr(record, "claimed_at", None)
+        done_at = getattr(record, "done_at", None)
+        if claimed_at and done_at:
+            self.cost_ledger.observed(
+                tenant, getattr(record, "cost_s", 0.0),
+                max(0.0, done_at - claimed_at),
+            )
 
     def _on_job_failed(self, record) -> None:
         with self._lock:
@@ -717,6 +983,17 @@ class ChainServeService:
             except OSError:
                 pass
 
+    def active_plans(self) -> set:
+        """Plan hashes unfinished requests still need — the GC pressure
+        hook's ephemeral pins."""
+        with self._lock:
+            plans: set = set()
+            for doc in self._requests.values():
+                if doc["state"] != "active":
+                    continue
+                plans.update(u["plan"] for u in doc["units"].values())
+            return plans
+
     # ------------------------------------------------------------- views
 
     def request_status(self, req_id: str) -> Optional[dict]:
@@ -734,6 +1011,7 @@ class ChainServeService:
                 "done_at": doc["done_at"],
                 "latency_ms": doc["latency_ms"],
                 "warm": doc.get("warm", False),
+                "predicted_cost_s": doc.get("predicted_cost_s"),
                 "units": {},
             }
             if "error" in doc:
@@ -793,7 +1071,22 @@ class ChainServeService:
             "pid": os.getpid(),
             "queue": self.queue.counts(),
             "requests": {},
-            # live stall/hard-timeout episodes from the heartbeat registry
+            # per-tenant predicted/observed accounting + model error
+            # (docs/SERVE.md "Cost-aware scheduling & admission")
+            "cost": {
+                **self.cost_ledger.report(),
+                "outstanding_s": round(self.queue.outstanding_cost(), 3),
+                # the per-host prediction multiplier in force (1.0 =
+                # base coefficients); refit when --cost-calibrate is on
+                "calibration": {
+                    **cost.calibration(),
+                    "enabled": self.cost_calibrate,
+                },
+            },
+            # live stall/hard-timeout episodes from the heartbeat
+            # registry — the fleet view re-labels these per replica so
+            # a stalled replica is visible fleet-wide (fleet-top's
+            # active-stalls line)
             "stalls": tm_watchdog.active_stalls(),
         }
         with self._lock:
@@ -825,6 +1118,11 @@ class ChainServeService:
             return self._json(400, {"error": "body is not valid JSON"})
         try:
             return self._json(202, self.submit(payload))
+        except cost.AdmissionError as exc:
+            # 429 with the full forensic body: what was predicted,
+            # against which budget, and which units are the heaviest —
+            # the client can split the grid or retry as work settles
+            return self._json(429, exc.doc)
         except api.RequestError as exc:
             return self._json(400, {"error": str(exc)})
 
@@ -854,6 +1152,37 @@ class ChainServeService:
         if payload.get("resume"):
             return self._json(200, self.resume())
         return self._json(200, self.drain())
+
+    def _h_fleet(self, req: live.WebRequest):
+        """The merged fleet view (telemetry/fleet.py): every replica
+        over this root — discovered via their serve-info files — plus
+        the shared queue/request truth from disk and the SLO layer's
+        merged per-(tenant × priority) histograms."""
+        from ..telemetry import fleet
+
+        return self._json(200, fleet.fleet_view(self.root))
+
+    def _h_fleet_alerts(self, req: live.WebRequest):
+        """GET /fleet/alerts: the fleet-merged alert plane — active
+        alerts, recently-resolved ones, and journal stats — folded from
+        every replica's alert journal (telemetry/alerts.py)."""
+        return self._json(200, alerts_mod.alerts_report(self.root))
+
+    def _h_scale_signal(self, req: live.WebRequest):
+        """GET /fleet/scale-signal: the autoscale recommendation
+        (serve/autoscale.py) — current vs desired replicas, confidence,
+        reason codes. Served from the last maintenance-tick grading;
+        a cold replica grades synchronously once."""
+        signal = self.autoscale.latest()
+        if signal is None:
+            try:
+                signal = self._control_tick(force=True)
+            except Exception:  # noqa: BLE001 - degrade to 503, not a 500
+                get_logger().exception(
+                    "chain-serve: cold scale-signal grading failed")
+        if signal is None:  # grading itself failed; say so, don't 500
+            return self._json(503, {"error": "scale signal unavailable"})
+        return self._json(200, signal)
 
     def _h_request(self, req: live.WebRequest):
         req_id = req.path[len("/v1/requests/"):]
@@ -915,6 +1244,8 @@ class ChainServeService:
             return self._json(404, {"error": "no store configured"})
         manifest = self.store.lookup(key)
         if manifest is None:
+            # a recently-evicted plan re-requested = eviction regret
+            self.heat.note_read_or_rebuild(key, via="read")
             return self._json(404, {"error": "unknown artifact (expired "
                                              "or never built; re-POST the "
                                              "request to rebuild)"})
@@ -936,11 +1267,16 @@ class ChainServeService:
         inm = req.headers.get("if-none-match")
         if inm and self._etag_matches(inm, etag):
             # conditional GET hit: no body, fd never opened — the
-            # cheapest read the plane can serve; TTFB-only in the SLO
-            # layer (there is no stream to time)
+            # cheapest read the plane can serve. An edge-class hit in
+            # the heat ledger (mode=not_modified), TTFB-only in the SLO
+            # layer (there is no stream to time).
+            ttfb = time.perf_counter() - t0
             _READ_TTFB_SECONDS.labels(
-                tenant=tenant, size_class=size_class).observe(
-                    time.perf_counter() - t0)
+                tenant=tenant, size_class=size_class).observe(ttfb)
+            self.heat.record_read(
+                key, 0, mode="not_modified", size=size,
+                size_class=size_class, tenant=tenant, ttfb_s=ttfb,
+            )
             return 304, "application/octet-stream", b"", extra
         # RFC 9110 single-range parse against the manifest's size —
         # BEFORE any fd opens, so an unsatisfiable range costs nothing.
@@ -963,10 +1299,15 @@ class ChainServeService:
         # evict the object between this check and the streaming loop,
         # and an open descriptor keeps the bytes alive for this response
         # (a post-eviction GET is an honest 404, never a truncated 200).
+        # The open is tier-routed (store/tiers.py): a warm/cold hit is
+        # promoted read-through, and the tier the bytes were FOUND in
+        # lands in the heat journal with the read.
         try:
-            path, fileobj, _ = self.store.open_object_read(
-                manifest.object["sha256"])
+            hit_tier, path, fileobj, _ = self.store.open_object_read(
+                manifest.object["sha256"], plan=key, heat=self.heat,
+            )
         except FileNotFoundError:
+            self.heat.note_read_or_rebuild(key, via="read")
             return self._json(404, {"error": "artifact evicted; re-POST "
                                              "the request to rebuild"})
         except OSError as exc:
@@ -978,24 +1319,38 @@ class ChainServeService:
                                              "unavailable; retry"})
 
         status = 200
+        mode = "full"
         offset = 0
         length = None
         if rng is not None:
             offset, length = rng
             status = 206
+            mode = "range"
             extra["Content-Range"] = (
                 f"bytes {offset}-{offset + length - 1}/{size}")
 
+        ttfb_box: list = []
+
         def _on_first_byte() -> None:
+            ttfb_box.append(time.perf_counter() - t0)
             _READ_TTFB_SECONDS.labels(
                 tenant=tenant, size_class=size_class
-            ).observe(time.perf_counter() - t0)
+            ).observe(ttfb_box[0])
 
         def _on_complete(sent: int, ok: bool) -> None:
+            dur = time.perf_counter() - t0
             if ok:
                 _READ_SECONDS.labels(
-                    tenant=tenant, size_class=size_class).observe(
-                        time.perf_counter() - t0)
+                    tenant=tenant, size_class=size_class).observe(dur)
+            # the ledger records every stream, aborted ones included —
+            # bytes left the disk either way. Ranged reads are their
+            # own mode so hot-set accounting can tell a sampler from a
+            # full consumer.
+            self.heat.record_read(
+                key, sent, mode=mode, size=size, size_class=size_class,
+                tenant=tenant, tier=hit_tier,
+                ttfb_s=ttfb_box[0] if ttfb_box else None, dur_s=dur,
+            )
 
         return status, "application/octet-stream", live.FileBody(
             path or "", fileobj=fileobj, offset=offset, length=length,

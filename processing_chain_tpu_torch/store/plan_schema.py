@@ -81,6 +81,17 @@ ENV_INPUTS: dict[str, dict] = {
                   "frame stream is identical at any chunking (pinned by "
                   "the batch-vs-single parity tests)",
     },
+    "PC_STORE_DIR": {
+        "status": "exempt",
+        "reason": "names WHERE the store lives, never what any artifact "
+                  "contains",
+    },
+    "PC_STORE_TIERS": {
+        "status": "exempt",
+        "reason": "names WHERE artifact bytes are placed across store "
+                  "tiers (and the budgets moving them), never what any "
+                  "artifact contains",
+    },
     "PC_RUN_ID": {
         "status": "exempt",
         "reason": "multi-process barrier namespace (parallel/distributed "

@@ -1,14 +1,16 @@
 """CAS object directory with atomic commits and integrity-verified reads
-(trimmed copy of processing_chain_tpu/store/store.py: one local backend,
-one output file an artifact, no tier hierarchy, no object backend, no
-adoption of pre-store outputs, no pins or GC). Every commit feeds the
-PC_PLAN_DEBUG plan-purity recorder (utils/plandebug).
+(copy of processing_chain_tpu/store/store.py without the adoption of
+pre-store outputs, which waits for the port's stage CLI, and without the
+libav read-back probe: the port has no media boundary, so its probe is
+the reference's answer when no decoder loads, none). Every commit feeds
+the PC_PLAN_DEBUG plan-purity recorder (utils/plandebug).
 
 On-disk layout under the store root (docs/STORE.md):
 
     objects/<digest[:2]>/<digest>     content-addressed artifact bytes
     manifests/<plan_hash>.json        one manifest per cached plan
     tmp/                              in-flight commits (pid-unique names)
+    pins.json                         {plan_hash: label} GC roots
     digest-cache.json                 stat-keyed input digest cache
 
 Commit protocol: artifact bytes are hardlinked (copied across devices)
@@ -22,25 +24,26 @@ Read protocol (`serve_hit`): the manifest's object is spot-checked
 then materialized to the legacy output path by hardlink when possible.
 A mismatch anywhere counts `chain_store_corrupt_total`, drops the
 manifest, and the caller rebuilds — corruption converts to a cache miss,
-never to a served artifact. The reference additionally probes media
-containers at commit through libav; the port has no media boundary, so
-its probe is the reference's answer when no decoder loads: none.
+never to a served artifact.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Iterator, Optional
 
 from .. import telemetry as tm
-from ..utils import plandebug
 from ..utils.fsio import atomic_write
 from ..utils.log import get_logger
 from . import keys
-from .backends.local import LocalBackend, _link_or_copy
+from .backends import BackendIntegrityError
+from .backends.local import _link_or_copy
+from .tiers import TieredStore
+from ..utils import plandebug
 
 STORE_HITS = tm.counter(
     "chain_store_hits_total", "jobs served from the artifact store", ("runner",)
@@ -48,6 +51,9 @@ STORE_HITS = tm.counter(
 STORE_MISSES = tm.counter(
     "chain_store_misses_total", "plan hashes with no committed artifact",
     ("runner",),
+)
+STORE_EVICTIONS = tm.counter(
+    "chain_store_evictions_total", "manifests evicted by GC (LRU or orphan)"
 )
 STORE_CORRUPT = tm.counter(
     "chain_store_corrupt_total",
@@ -79,6 +85,11 @@ class Manifest:
     chain_version: str = ""
     provenance: dict = field(default_factory=dict)
     media: Optional[dict] = None  # commit-time read-back probe summary
+    sidecars: dict = field(default_factory=dict)  # suffix -> object digest dict
+    #: path RELATIVE to the output's directory -> digest (relative so a
+    #: relocated database still materializes companions next to the new
+    #: dest instead of resurrecting the old tree)
+    extras: dict = field(default_factory=dict)
     materialized: Optional[dict] = None  # {"path", "size", "mtime_ns"}
 
     def to_json(self) -> dict:
@@ -90,6 +101,8 @@ class Manifest:
             "chainVersion": self.chain_version,
             "provenance": self.provenance,
             "media": self.media,
+            "sidecars": self.sidecars,
+            "extras": self.extras,
             "materialized": self.materialized,
         }
 
@@ -103,8 +116,14 @@ class Manifest:
             chain_version=data.get("chainVersion", ""),
             provenance=data.get("provenance", {}),
             media=data.get("media"),
+            sidecars=data.get("sidecars", {}),
+            extras=data.get("extras", {}),
             materialized=data.get("materialized"),
         )
+
+    def all_digests(self) -> list[dict]:
+        """Main object + sidecars + extras, for verification and GC."""
+        return [self.object, *self.sidecars.values(), *self.extras.values()]
 
 
 class ArtifactStore:
@@ -114,15 +133,23 @@ class ArtifactStore:
     writes, and the digest cache carries its own lock (plan hashes are
     resolved on JobRunner workers)."""
 
-    def __init__(self, root: str) -> None:
+    def __init__(self, root: str, tier_spec: Optional[str] = None) -> None:
         self.root = os.path.abspath(root)
         self.objects_dir = os.path.join(self.root, "objects")
         self.manifests_dir = os.path.join(self.root, "manifests")
         self.tmp_dir = os.path.join(self.root, "tmp")
         for d in (self.objects_dir, self.manifests_dir, self.tmp_dir):
             os.makedirs(d, exist_ok=True)
-        self.backend = LocalBackend(self.objects_dir, self.tmp_dir)
+        # the tier hierarchy (docs/STORE.md "Tier hierarchy"): index 0 is
+        # ALWAYS this root's own objects/ directory, so a bare root is
+        # just a one-tier config and opens with zero migration
+        if tier_spec:
+            self.tiers = TieredStore.from_spec(
+                tier_spec, self.objects_dir, self.tmp_dir)
+        else:
+            self.tiers = TieredStore.single(self.objects_dir, self.tmp_dir)
         self.digests = keys.DigestCache(os.path.join(self.root, "digest-cache.json"))
+        self._pins_path = os.path.join(self.root, "pins.json")
         #: incrementally-maintained gauge state ({"objects", "bytes"});
         #: None until the first update_gauges walk
         self._gauge_stats: Optional[dict] = None
@@ -161,13 +188,28 @@ class ArtifactStore:
             return None
         except (ValueError, KeyError) as exc:
             # an unparseable manifest is corruption reported as a miss;
-            # the rebuild's commit overwrites it atomically
+            # the rebuild's commit overwrites it atomically. Deleting it
+            # HERE would make read-only surfaces (ls, verify without
+            # --drop, gc --dry-run — all funnel through lookup) mutate
+            # the store as a side effect.
             get_logger().warning(
-                "store: unreadable manifest %s (%s); treating as a miss",
-                path, exc,
+                "store: unreadable manifest %s (%s); treating as a miss "
+                "(`tools store-admin verify --drop` removes it)", path, exc,
             )
             STORE_CORRUPT.inc()
             return None
+
+    def iter_manifests(self) -> Iterator[Manifest]:
+        try:
+            names = sorted(os.listdir(self.manifests_dir))
+        except OSError:
+            return
+        for name in names:
+            if not name.endswith(".json"):
+                continue
+            m = self.lookup(name[:-5])
+            if m is not None:
+                yield m
 
     def _write_manifest(self, manifest: Manifest) -> None:
         def _write(tmp: str) -> None:
@@ -189,17 +231,45 @@ class ArtifactStore:
         except OSError:
             pass
 
+    # --------------------------------------------------------------- pins
+
+    def pins(self) -> dict[str, str]:
+        try:
+            with open(self._pins_path) as f:
+                data = json.load(f)
+            return data if isinstance(data, dict) else {}
+        except (OSError, ValueError):
+            return {}
+
+    def pin(self, plan_hash: str, label: str = "") -> None:
+        pins = self.pins()
+        pins[plan_hash] = label or time.strftime("%Y-%m-%d")
+        self._write_pins(pins)
+
+    def unpin(self, plan_hash: str) -> None:
+        pins = self.pins()
+        if pins.pop(plan_hash, None) is not None:
+            self._write_pins(pins)
+
+    def _write_pins(self, pins: dict) -> None:
+        def _write(tmp: str) -> None:
+            with open(tmp, "w") as f:
+                json.dump(pins, f, indent=1, sort_keys=True)
+
+        atomic_write(self._pins_path, _write)
+
     # -------------------------------------------------------------- commit
 
     def _ingest(self, path: str) -> dict:
-        """Hash `path` and commit its bytes into the backend atomically
+        """Hash `path` and commit its bytes into the hot tier atomically
         (tmp + rename with a pid+thread-unique scratch name; the backend
         stamps ingestion-time mtime so GC's min-object-age guard holds);
-        returns the digest dict. Identical objects dedupe by
-        construction."""
+        returns the digest dict. Identical objects dedupe by construction
+        — across every tier: bytes already held cold are not re-ingested
+        hot, the read path promotes them when they earn it."""
         digest = keys.hash_file(path)
-        if self.backend.head(digest["sha256"]) is None:
-            self.backend.put(path, digest["sha256"])
+        if self.tiers.locate(digest["sha256"]) is None:
+            self.tiers.hot.backend.put(path, digest["sha256"])
             if self._gauge_stats is not None:
                 self._gauge_stats["objects"] += 1
                 self._gauge_stats["bytes"] += digest["size"]
@@ -214,8 +284,11 @@ class ArtifactStore:
     ) -> Manifest:
         """Bind `plan_hash` to the artifact at `output_path`. The
         reference runs a container read-back probe here, before
-        ingestion; the port has no decoder, so `media` is None as in the
-        reference on a host where none loads."""
+        ingestion, and binds sidecars and companion files too; the port
+        commits one file and has no decoder, so `media` is None as in
+        the reference on a host where none loads. Manifests the
+        reference wrote with sidecars and extras are read, verified,
+        served and collected in full."""
         digest = self._ingest(output_path)
         st = os.stat(output_path)
         manifest = Manifest(
@@ -231,7 +304,7 @@ class ArtifactStore:
         self._write_manifest(manifest)
         # plan-purity recorder (PC_PLAN_DEBUG, utils/plandebug): every
         # commit binds plan hash -> content digest; two different byte
-        # streams under one hash fail its check()
+        # streams under one hash fail the suite's sessionfinish gate
         plandebug.record(plan_hash, digest["sha256"], producer=producer,
                          scope=self.root)
         self.update_gauges()
@@ -242,47 +315,83 @@ class ArtifactStore:
     def verify_object(self, digest: dict, deep: bool = False) -> None:
         """Raise StoreCorruption unless the stored object matches its
         digest: size always, head digest always, full digest when small
-        or `deep`."""
+        or `deep`. The object may live in ANY tier; a cold-tier copy is
+        verified through the backend's streamed read — the same checks,
+        at whichever boundary holds the bytes."""
         sha = digest["sha256"]
-        size = self.backend.head(sha)
-        if size is None:
+        located = self.tiers.head(sha)
+        if located is None:
             raise StoreCorruption(f"object {sha[:12]} missing")
+        tier, size = located
         if size != digest["size"]:
             raise StoreCorruption(
                 f"object {sha[:12]}: size {size} != recorded "
-                f"{digest['size']}"
+                f"{digest['size']} (tier {tier.name})"
             )
-        obj = self.object_path(sha)
-        if deep or size <= _FULL_VERIFY_MAX:
-            found = keys.hash_file(obj)
-            if found["sha256"] != sha:
-                raise StoreCorruption(
-                    f"object {sha[:12]}: content digest mismatch")
-        else:
-            with open(obj, "rb") as f:
-                head = f.read(1 << 20)
-            if keys.sha256_hex(head) != digest["head_sha256"]:
-                raise StoreCorruption(
-                    f"object {sha[:12]}: head digest mismatch")
+        obj = tier.backend.local_path(sha)
+        if obj is not None:
+            if deep or size <= _FULL_VERIFY_MAX:
+                found = keys.hash_file(obj)
+                if found["sha256"] != sha:
+                    raise StoreCorruption(
+                        f"object {sha[:12]}: content digest mismatch "
+                        f"(tier {tier.name})"
+                    )
+            else:
+                with open(obj, "rb") as f:
+                    head = f.read(1 << 20)
+                if keys.sha256_hex(head) != digest["head_sha256"]:
+                    raise StoreCorruption(
+                        f"object {sha[:12]}: head digest mismatch "
+                        f"(tier {tier.name})"
+                    )
+        else:  # no filesystem path (object tier): stream the same checks
+            with tier.backend.open_read(sha) as f:
+                if deep or size <= _FULL_VERIFY_MAX:
+                    hasher = hashlib.sha256()
+                    while True:
+                        block = f.read(1 << 20)
+                        if not block:
+                            break
+                        hasher.update(block)
+                    if hasher.hexdigest() != sha:
+                        raise StoreCorruption(
+                            f"object {sha[:12]}: content digest mismatch "
+                            f"(tier {tier.name})"
+                        )
+                elif keys.sha256_hex(f.read(1 << 20)) != digest["head_sha256"]:
+                    raise StoreCorruption(
+                        f"object {sha[:12]}: head digest mismatch "
+                        f"(tier {tier.name})"
+                    )
 
-    def drop_corrupt_object(self, manifest: Manifest) -> None:
-        """Unlink the object of `manifest` if it fails verification. The
+    def drop_corrupt_objects(self, manifest: Manifest) -> None:
+        """Unlink every object of `manifest` that fails verification. The
         bytes must go WITH the manifest: the rebuild produces the same
         content digest, and `_ingest` dedupes on object existence — a
-        corrupt object left in place would be silently re-adopted and
+        corrupt object left in place would be silently reused and
         re-detected on every later run."""
-        digest = manifest.object
-        try:
-            self.verify_object(digest, deep=True)
-        except StoreCorruption:
-            if self.backend.delete(digest["sha256"]) \
-                    and self._gauge_stats is not None:
-                self._gauge_stats["objects"] -= 1
-                self._gauge_stats["bytes"] -= digest["size"]
+        for digest in manifest.all_digests():
+            try:
+                self.verify_object(digest, deep=True)
+            except StoreCorruption:
+                if not self.tiers.delete_everywhere(digest["sha256"]):
+                    continue
+                if self._gauge_stats is not None:
+                    self._gauge_stats["objects"] -= 1
+                    self._gauge_stats["bytes"] -= digest["size"]
 
     def _materialize_one(self, digest: dict, dest: str) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
         obj = self.object_path(digest["sha256"])
+        if not os.path.isfile(obj) and self.tiers.multi:
+            # the bytes live in a colder tier: promote first (digest-
+            # verified at the boundary they cross), then hardlink from
+            # the hot copy exactly like the flat-store path
+            try:
+                self.tiers.promote(digest["sha256"])
+            except BackendIntegrityError as exc:
+                raise StoreCorruption(str(exc)) from exc
         try:
             if os.path.samefile(obj, dest):
                 # dest already IS the object (hardlink). Linking through
@@ -320,33 +429,68 @@ class ArtifactStore:
             return False
         return st.st_size == rec["size"] and st.st_mtime_ns == rec["mtime_ns"]
 
-    def serve_hit(self, manifest: Manifest, dest: str) -> bool:
+    def serve_hit(
+        self, manifest: Manifest, dest: str, materialize: bool = True,
+        deep: bool = False,
+    ) -> bool:
         """Serve a plan-hash hit: verify the object, then ensure `dest`
-        holds its bytes. False — after counting the corruption and
-        dropping the manifest — means the caller must rebuild; the store
-        never serves bytes it cannot vouch for."""
+        (and sidecars) hold its bytes. False — after counting the
+        corruption and dropping the manifest — means the caller must
+        rebuild; the store never serves bytes it cannot vouch for."""
         try:
-            self.verify_object(manifest.object)
+            for digest in manifest.all_digests():
+                self.verify_object(digest, deep=deep)
         except StoreCorruption as exc:
             get_logger().warning(
-                "store: %s (plan %s, producer %r); dropping manifest and "
-                "rebuilding", exc, manifest.plan_hash[:12], manifest.producer,
+                "store: %s (plan %s, producer %r); %s", exc,
+                manifest.plan_hash[:12], manifest.producer,
+                "dropping manifest and rebuilding" if materialize
+                else "would drop manifest and rebuild (dry-run: store "
+                     "left untouched)",
             )
             STORE_CORRUPT.inc()
             tm.emit("store_corrupt", plan=manifest.plan_hash,
                     producer=manifest.producer, error=str(exc)[:300])
-            self.drop_corrupt_object(manifest)
-            self._drop_manifest(manifest.plan_hash)
+            if materialize:
+                # dry-run planning must not mutate the store: report the
+                # corruption (counter + "would rebuild") and leave the
+                # drop to the real run
+                self.drop_corrupt_objects(manifest)
+                self._drop_manifest(manifest.plan_hash)
             return False  # rebuild required
+        if not materialize:  # dry-run planning: count the hit, touch nothing
+            return True
+        # extras rebase onto the CURRENT dest (they are stored relative
+        # to the output's directory): a relocated database materializes
+        # its companions next to the new output instead of resurrecting
+        # the directory tree recorded at commit time
+        extra_dest = os.path.dirname(os.path.abspath(dest))
         try:
             if not self._dest_current(manifest, dest):
                 self._materialize_one(manifest.object, dest)
+                for suffix, digest in manifest.sidecars.items():
+                    self._materialize_one(digest, dest + suffix)
+                for rel, digest in manifest.extras.items():
+                    self._materialize_one(
+                        digest, os.path.normpath(os.path.join(extra_dest, rel))
+                    )
                 st = os.stat(dest)
                 manifest.materialized = {
                     "path": os.path.abspath(dest),
                     "size": st.st_size, "mtime_ns": st.st_mtime_ns,
                 }
                 self._write_manifest(manifest)
+            else:
+                # main output untouched, but a companion may have been
+                # deleted out-of-band (e.g. -r removed an intermediate's
+                # sidecar): restore any that are missing
+                for suffix, digest in manifest.sidecars.items():
+                    if not os.path.isfile(dest + suffix):
+                        self._materialize_one(digest, dest + suffix)
+                for rel, digest in manifest.extras.items():
+                    path = os.path.normpath(os.path.join(extra_dest, rel))
+                    if not os.path.isfile(path):
+                        self._materialize_one(digest, path)
             self.touch(manifest)
             return True
         except (OSError, StoreCorruption) as exc:
@@ -356,29 +500,80 @@ class ArtifactStore:
             )
             return False
 
-    # --------------------------------------------------------------- reads
+    # ------------------------------------------------------- tiered reads
 
-    def open_object_read(self, sha256: str) -> tuple:
-        """Open an object for serving: `(path, fileobj, size)`. The open
-        descriptor keeps the bytes alive for the whole response even if
-        the object is unlinked meanwhile. Raises FileNotFoundError when
-        the object is gone."""
-        size = self.backend.head(sha256)
-        if size is None:
-            raise FileNotFoundError(f"object {sha256[:12]} missing")
-        path = self.object_path(sha256)
-        return path, self.backend.open_read(sha256), size
+    def locate_tier(self, sha256: str) -> Optional[str]:
+        """The name of the hottest tier holding the object, or None."""
+        tier = self.tiers.locate(sha256)
+        return tier.name if tier is not None else None
+
+    def open_object_read(
+        self, sha256: str, plan: Optional[str] = None, heat=None,
+    ) -> tuple:
+        """Open an object for serving: `(hit_tier, path, fileobj, size)`.
+
+        The hit tier is the one the read FOUND the bytes in (counted in
+        `chain_store_tier_hits_total` and journaled with the read); a
+        non-hot hit is promoted read-through first — digest-verified at
+        the boundary it crosses — and then served from the hot copy's
+        fd, falling back to a direct backend stream when the promotion
+        cannot complete (e.g. hot disk full). `path` is None when the
+        serving tier has no filesystem path (a direct cold stream)."""
+        from .tiers import TIER_HITS
+
+        located = self.tiers.head(sha256)
+        if located is None:
+            raise FileNotFoundError(f"object {sha256[:12]} in no tier")
+        tier, size = located
+        hit = tier.name
+        TIER_HITS.labels(tier=hit).inc()
+        if tier is not self.tiers.hot and self.tiers.promote_on_read:
+            try:
+                self.tiers.promote(sha256, plan=plan, heat=heat)
+                path = self.object_path(sha256)
+                return hit, path, open(path, "rb"), size
+            except (OSError, BackendIntegrityError) as exc:
+                get_logger().warning(
+                    "store: read-through promotion of %s from %s failed "
+                    "(%s); serving from %s directly",
+                    sha256[:12], hit, exc, hit,
+                )
+        path = tier.backend.local_path(sha256)
+        return hit, path, tier.backend.open_read(sha256), size
 
     # ----------------------------------------------------------- accounting
 
-    def update_gauges(self) -> None:
-        """Refresh the byte/object gauges. The objects/ walk runs once;
-        later calls apply the increments _ingest tracked — a walk per
-        commit would make store population O(N²) in stat calls."""
+    def iter_objects(self) -> Iterator[tuple[str, int]]:
+        """(sha256, size) for every object across all tiers, deduped to
+        the hottest copy (a mid-move duplicate counts once)."""
+        for sha, size, _tier in self.tiers.iter_objects():
+            yield sha, size
+
+    def stats(self) -> dict:
+        n = 0
+        total = 0
+        for _, size in self.iter_objects():
+            n += 1
+            total += size
+        manifests = sum(
+            1 for f in os.listdir(self.manifests_dir) if f.endswith(".json")
+        ) if os.path.isdir(self.manifests_dir) else 0
+        out = {"objects": n, "bytes": total, "manifests": manifests,
+               "pins": len(self.pins())}
+        if self.tiers.multi:
+            out["tiers"] = self.tiers.tier_stats()
+        return out
+
+    def update_gauges(self, full: bool = False) -> None:
+        """Refresh the byte/object gauges. The full objects/ walk runs
+        once (then GC passes force it with `full=True`); per-commit calls
+        apply the increments _ingest tracked — a walk per commit would
+        make store population O(N²) in stat calls."""
         if not tm.enabled():
             return
-        if self._gauge_stats is None:
-            sizes = [size for _, size in self.backend.list()]
-            self._gauge_stats = {"objects": len(sizes), "bytes": sum(sizes)}
+        if full or self._gauge_stats is None:
+            s = self.stats()
+            self._gauge_stats = {"objects": s["objects"], "bytes": s["bytes"]}
+            self.tiers.update_gauges()
         STORE_BYTES.set(self._gauge_stats["bytes"])
         STORE_OBJECTS.set(self._gauge_stats["objects"])

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -211,10 +212,12 @@ def _device_memory() -> tuple[dict[str, float], dict[str, dict]]:
     without entering the card: on a card this process never used,
     mem_get_info would create a context). Bytes the allocator holds
     reserved but has not handed out are not counted. Reads neither change
-    nor depend on the calling thread's current device."""
-    import torch
-
-    if not torch.cuda.is_initialized():
+    nor depend on the calling thread's current device. A process that
+    never imported torch has no context to read, and the sample must not
+    import it either: the import takes seconds, which a first /status
+    would spend past the fleet probe's timeout."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
         return {}, {}
     totals: dict[str, float] = {}
     per_device: dict[str, dict] = {}
@@ -242,11 +245,13 @@ def sample_resources(
     Mirrors current values into the resource gauges when telemetry is
     enabled. Periodic callers pass their own `cpu` tracker so their
     CPU%% interval is theirs alone."""
-    from ..engine import prefetch as _prefetch
     from ..io import bufpool as _bufpool
 
     pool = _bufpool.DEFAULT_POOL.stats()
-    queues = _prefetch.live_queue_depths()
+    # engine/prefetch imports torch; a process that never loaded it has
+    # no live queue, and a first /status must not pay torch's import
+    _prefetch = sys.modules.get(__name__.rsplit(".", 2)[0] + ".engine.prefetch")
+    queues = _prefetch.live_queue_depths() if _prefetch is not None else {}
     sample: dict = {
         "rss_bytes": _read_rss_bytes(),
         "open_fds": _read_open_fds(),

@@ -667,6 +667,93 @@ def test_wave_service_on_the_card_serves_the_cpu_bytes(cuda, tmp_path):
         ptm.disable()
 
 
+def test_wave_replicas_under_a_store_budget_serve_the_cpu_bytes(cuda, tmp_path):
+    """Two `wave` replicas on the card over one root with a store budget
+    of three artifacts: after the completion hook evicts for a fourth
+    and an evicted plan is POSTed again, every artifact served (the
+    re-run's included) equals the CPU route's bytes, and the re-run
+    counts as regret."""
+    import json
+    import os
+    import time
+    import urllib.request
+
+    from processing_chain_tpu_torch import telemetry as ptm
+    from processing_chain_tpu_torch.serve.api import Unit
+    from processing_chain_tpu_torch.serve.executors import DeviceWaveExecutor
+    from processing_chain_tpu_torch.serve.service import ChainServeService
+    from processing_chain_tpu_torch.store import heat
+    from processing_chain_tpu_torch.store import runtime as store_runtime
+
+    geo = {"frames": 16, **SERVE_GEOMETRIES[2]}
+    size = geo["frames"] * geo["dst_h"] * geo["dst_w"] * 3 // 2
+    root = str(tmp_path / "fleet")
+
+    def post(svc, srcs):
+        body = {"tenant": "lab-a", "database": "P2STR01", "srcs": srcs,
+                "hrcs": ["HRC001"], "params": geo}
+        req = urllib.request.Request(svc.server.url + "/v1/requests",
+                                     data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req) as resp:
+            acc = json.load(resp)
+        assert svc.wait_request(acc["request"], timeout=120.0) == "done"
+        return svc.request_status(acc["request"])["units"]
+
+    def served(svc, unit):
+        with urllib.request.urlopen(svc.server.url + unit["artifact"]) as resp:
+            return resp.read()
+
+    cpu = DeviceWaveExecutor(device="cpu")
+
+    def cpu_bytes(pvs):
+        _, src, hrc = pvs.split("_")
+        path = str(tmp_path / f"{pvs}.bin")
+        cpu.run_batch([Unit("P2STR01", src, hrc, dict(geo))], [path])
+        return open(path, "rb").read()
+
+    svcs = [ChainServeService(root=root, port=0, executor="wave", workers=1, device=cuda,
+                              replica=name, store_budget_bytes=3 * size + 4096,
+                              info_path=os.path.join(root, f"info-{name}.json"))
+            for name in ("w-a", "w-b")]
+    try:
+        for svc in svcs:
+            svc.start()
+        units = {**post(svcs[0], ["SRC001", "SRC002"]), **post(svcs[1], ["SRC002", "SRC003"])}
+        done_at = time.monotonic()
+        assert ck.LAUNCHES["siti_frames_fused_batch"] == 3 * 2  # SRC002 deduped
+        first = {pvs: served(svcs[1], u) for pvs, u in units.items()}
+        store = svcs[1].store
+        objects = {pvs: store.object_path(store.lookup(u["plan"]).object["sha256"])
+                   for pvs, u in units.items()}
+        for pvs, data in first.items():
+            assert data == cpu_bytes(pvs), pvs
+        # the completion hook checks the budget at most once a min_interval_s
+        time.sleep(max(0.0, done_at + svcs[1].pressure.min_interval_s + 1.0 - time.monotonic()))
+        fourth = post(svcs[1], ["SRC004"])
+        assert ck.LAUNCHES["siti_frames_fused_batch"] == 3 * 2 + 2
+        for pvs, u in fourth.items():
+            assert served(svcs[1], u) == cpu_bytes(pvs), pvs
+        # the pass drops a manifest before its object: wait for both
+        deadline = time.monotonic() + 20.0
+        evicted: list = []
+        while not evicted and time.monotonic() < deadline:
+            time.sleep(0.02)
+            evicted = [pvs for pvs, u in units.items()
+                       if store.lookup(u["plan"]) is None and not os.path.exists(objects[pvs])]
+        assert len(evicted) == 1, evicted
+        again = post(svcs[0], [evicted[0].split("_")[1]])[evicted[0]]
+        assert again["plan"] == units[evicted[0]]["plan"]
+        assert ck.LAUNCHES["siti_frames_fused_batch"] == 3 * 2 + 4
+        assert served(svcs[1], again) == first[evicted[0]]
+        totals = heat.aggregate(heat.heat_dir(svcs[1].store.root))["totals"]
+        assert totals["regrets"] >= 1 and totals["evictions"] >= 1
+    finally:
+        for svc in svcs:
+            svc.stop()
+        store_runtime.configure(None)
+        ptm.disable()
+
+
 def _wave_outputs(mesh, srcs, ten_bit):
     from processing_chain_tpu_torch.parallel import p03_batch
 

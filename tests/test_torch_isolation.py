@@ -117,6 +117,23 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.utils.parse_args",
                 "processing_chain_tpu_torch.tools.clean_logs",
                 "processing_chain_tpu_torch.tools.plots",
+                "processing_chain_tpu_torch.store.backends",
+                "processing_chain_tpu_torch.store.backends.object",
+                "processing_chain_tpu_torch.store.tiers",
+                "processing_chain_tpu_torch.store.gc",
+                "processing_chain_tpu_torch.store.heat",
+                "processing_chain_tpu_torch.serve.pressure",
+                "processing_chain_tpu_torch.serve.cost",
+                "processing_chain_tpu_torch.serve.autoscale",
+                "processing_chain_tpu_torch.telemetry.alerts",
+                "processing_chain_tpu_torch.telemetry.fleet",
+                "processing_chain_tpu_torch.tools.serve_admin",
+                "processing_chain_tpu_torch.tools.store_admin",
+                "processing_chain_tpu_torch.tools.store_heat",
+                "processing_chain_tpu_torch.tools.store_tiers",
+                "processing_chain_tpu_torch.tools.fleet_doctor",
+                "processing_chain_tpu_torch.tools.fleet_top",
+                "processing_chain_tpu_torch.tools.queue_crashcheck",
                 "processing_chain_tpu_torch.__main__"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []

@@ -5,9 +5,10 @@
 
 Phases, each fatal on failure (a non-zero exit, and no result line):
   1. device: CUDA must be present; prints the card's name and power limit,
-     and, for information only, whether libavcodec.so.59 loads, which
-     libav headers exist and whether yaml, pandas, PIL and matplotlib
-     import
+     and, for information only, each libavcodec.so.* the loader paths and
+     find_library name and whether it loads, whether ffmpeg and ffprobe
+     are on PATH, the libav headers under the system, CUDA and conda
+     include roots, and whether yaml, pandas, PIL and matplotlib import
   2. build: compiles csrc/*.cu with nvcc (one process per source, all at
      once) and prints each kernel's registers, shared memory and spills
   3. kernel vs plain torch version at the main paths' shapes (the fused
@@ -176,6 +177,25 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      exact launch counts, which join `paths` as serve_control; frames/s
      of each step, the ratio percentiles and the fitted scale, the
      evicted bytes and the alert set
+ 16. the serve fleet's proof harnesses, under build/chip_smoke/harness
+     (removed after), at the tools' defaults (the reference's): (a) `tools
+     serve-soak --executor wave --device cuda:0` in this process (8
+     clients, 6 SRCs x 4 HRCs, overlap 0.5, the wave executor's 8-frame
+     36x64 -> 72x128 units): rc 0 (zero duplicate executions, every
+     request done, the warm pass under its budget), 3 resize and 1
+     siti_frames_fused_batch launches a block of the wave journal (which
+     join `paths` as serve_soak), one served artifact equal to the same
+     plan on the CPU route; cold wall, warm p50, the queue-wait,
+     execution and e2e p50/p95/p99; (b) `tools serve-soak --pack-bench`
+     as a process: rc 0 (cost-aware packing's predicted-seconds cv below count
+     packing's, its e2e p95 below too); (c) `tools serve-chaos
+     --corrupt-corpus` (3 port replicas of `chain-serve --executor
+     synthetic`, 2 SIGKILLs, 1 SIGSTOP past the lease) and `tools
+     serve-chaos --self-test`, as processes: both exit 0; lease steals,
+     poisoned digests, warm p50 during churn, each replica's seconds to
+     /healthz, wall time; (d) `tools trace show` as a process on one of
+     (a)'s requests and on a done request of (c) with a stolen unit:
+     "trace: COMPLETE" and a Chrome export with events
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -223,11 +243,13 @@ from processing_chain_tpu_torch.telemetry import watchdog
 from processing_chain_tpu_torch.utils import fsio, tracing
 from processing_chain_tpu_torch.serve import api as serve_api
 from processing_chain_tpu_torch.serve import cost as serve_cost
+from processing_chain_tpu_torch.serve import spans as serve_spans
 from processing_chain_tpu_torch.serve.executors import DeviceWaveExecutor
 from processing_chain_tpu_torch.serve.service import ChainServeService
 from processing_chain_tpu_torch.store import keys
+from processing_chain_tpu_torch.store.store import ArtifactStore
 from processing_chain_tpu_torch.tools import quality_metrics as qm
-from processing_chain_tpu_torch.tools import src_analysis
+from processing_chain_tpu_torch.tools import serve_chaos, serve_soak, src_analysis
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -3215,22 +3237,207 @@ def _drive_control(dev, root: str) -> dict:
             "path_s": path_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serve fleet's proof harnesses
+# ---------------------------------------------------------------------------
+
+def _tool_json(args: list, timeout: float) -> tuple:
+    """One tool process (`_tool`): (its last stdout line as JSON, its wall
+    seconds)."""
+    t0 = time.perf_counter()
+    proc = _tool(args, timeout)
+    return json.loads(proc.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def harness_soak(dev, root: str, smi: str) -> dict:
+    """Phase 16 (a): `tools serve-soak --executor wave` in this process on
+    the card, at the tool's defaults."""
+    out = root + ".json"
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = serve_soak.main(["--executor", "wave", "--device", str(dev), "--root", root,
+                              "--out", out])
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+    finally:
+        meshobs.detach_journal()
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        report = json.load(f)
+    require(rc == 0 and report["ok"], f"harness soak: rc {rc}, {report['failures']}")
+    require(report["jobs_planned"] == report["unique_plans"],
+            f"harness soak: {report['jobs_planned']} executions, "
+            f"{report['unique_plans']} plans")
+    records = [r for r in meshobs.read_journals(meshobs.mesh_dir(root)) if r.get("kind") == "wave"]
+    blocks = len(records)
+    for r in records:
+        require(r["valid"] + r["pad_tail"] + r["pad_exhausted"] + r["pad_mesh"]
+                == r["dispatched"], f"harness soak: wave record {r}")
+    # the wave executor's 8-frame units: one block each on the pinned card
+    require(blocks == report["unique_plans"], f"harness soak: {blocks} wave blocks")
+    want = launches_want(resize_frames_fused=3 * blocks, siti_frames_fused_batch=blocks)
+    require(launches == want, f"harness soak: launches {launches} != {want}")
+    # one served artifact against the same unit (its queue record's) on
+    # the CPU route
+    rec = min(serve_chaos._load_records(root).values(), key=lambda r: r["job"])
+    unit = rec["unit"]
+    pvs = unit["pvs_id"]
+    store = ArtifactStore(os.path.join(root, "store"))
+    with open(store.object_path(store.lookup(rec["planHash"]).object["sha256"]), "rb") as f:
+        served = f.read()
+    ref_path = os.path.join(os.path.dirname(root), "cpu_ref.bin")
+    DeviceWaveExecutor(device="cpu").run_batch(
+        [serve_api.Unit(unit["database"], unit["src"], unit["hrc"], unit["params"])],
+        [ref_path])
+    with open(ref_path, "rb") as f:
+        require(served == f.read(), f"harness soak: {pvs}'s artifact differs from the CPU route")
+    phases = report["latency_phases"]
+    log(f"phase 16 (a): serve-soak --executor wave on {dev}: {report['requests']} requests, "
+        f"{report['units_total']} units, {report['unique_plans']} plans, "
+        f"{report['jobs_planned']} executions, {blocks} wave blocks, launches {launches}; "
+        f"{pvs} equal to the CPU route ({len(served)} bytes); cold wall "
+        f"{report['cold_wall_s']} s, warm p50 {report['warm_request_ms']['p50']} ms; "
+        f"queue-wait {phases['queue_wait_ms']}, execution {phases['execution_ms']}, e2e "
+        f"{phases['e2e_ms']} ms; the soak took {wall:.1f} s ({smi})")
+    return {"launches": launches, "blocks": blocks, "seconds": wall,
+            "report": {k: report[k] for k in ("requests", "units_total", "unique_plans",
+                                              "jobs_planned", "cold_wall_s",
+                                              "warm_request_ms", "latency_phases")}}
+
+
+def harness_pack(root: str, smi: str) -> dict:
+    """Phase 16 (b): `tools serve-soak --pack-bench` as a process (its e2e
+    tail gate is wall clock: a process of its own keeps (a)'s in-process
+    service state out of it)."""
+    report, wall = _tool_json(["serve-soak", "--pack-bench", "--root", root], timeout=300)
+    modes = report["modes"]
+    log(f"phase 16 (b): pack-bench: predicted-seconds cv a wave, count "
+        f"{modes['count']['wave_pred_cv']} ({modes['count']['waves']} waves) vs cost-aware "
+        f"{modes['cost']['wave_pred_cv']} ({modes['cost']['waves']} waves); e2e p95 "
+        f"{modes['count']['e2e_p95_s']} s vs {modes['cost']['e2e_p95_s']} s; {wall:.1f} s ({smi})")
+    require(report["ok"], f"pack-bench: {report['failures']}")
+    return {"modes": modes, "seconds": wall}
+
+
+def stolen_request(root: str) -> str:
+    """A done request of a chaos root one of whose units was stolen."""
+    spans = serve_spans.read_journals(os.path.join(root, "queue", "spans"))
+    stolen = {s["job"] for s in spans if s.get("phase") == "steal"}
+    docs = serve_chaos._load_requests(root)
+    for job, rec in sorted(serve_chaos._load_records(root).items()):
+        if job in stolen:
+            for req in rec.get("requests") or ():
+                if docs.get(req, {}).get("state") == "done":
+                    return req
+    raise SmokeFailure(f"chaos: no done request with a stolen unit ({len(stolen)} steals)")
+
+
+def harness_chaos(base: str, smi: str) -> dict:
+    """Phase 16 (c): `tools serve-chaos --corrupt-corpus` and `--self-test`
+    as processes, at the tool's defaults."""
+    root = os.path.join(base, "chaos")
+    report, wall = _tool_json(["serve-chaos", "--corrupt-corpus", "--root", root], timeout=400)
+    require(report["ok"] and report["failures"] == [], f"chaos: {report['failures']}")
+    steals = report["fleet"]["spans"]["by_phase"].get("steal", 0)
+    log(f"phase 16 (c): serve-chaos --corrupt-corpus in {wall:.1f} s: {report['requests']} "
+        f"requests, {report['units_total']} units, {report['unique_plans']} plans through "
+        f"{report['kills_done']} kills and {report['stops']} stop; lease steals {steals} "
+        f"(journal; /metrics of the survivors {report['counters']}), poisoned digests "
+        f"{report['corrupt_corpus']}, warm p50 during churn "
+        f"{report['warm_request_ms']['p50']} ms, churn {report['churn_throughput_units_per_s']} "
+        f"units/s; each replica's seconds to /healthz {report['replica_healthz_s']} ({smi})")
+    self_root = os.path.join(base, "chaos_self")
+    self_test, self_wall = _tool_json(["serve-chaos", "--self-test", "--root", self_root],
+                                      timeout=300)
+    require(all(self_test["classes"].values()), f"chaos self-test: {self_test}")
+    log(f"phase 16 (c): serve-chaos --self-test in {self_wall:.1f} s: classes "
+        f"{self_test['classes']}, {len(self_test['violations'])} violations")
+    return {"root": root, "seconds": wall, "self_test_seconds": self_wall, "steals": steals,
+            "corrupt_corpus": report["corrupt_corpus"], "warm_request_ms":
+            report["warm_request_ms"], "replica_healthz_s": report["replica_healthz_s"]}
+
+
+def harness_trace(root: str, req: str, chrome: str, label: str) -> int:
+    """Phase 16 (d): `tools trace show` on one request as a process; the
+    Chrome export must hold events. Returns the event count."""
+    proc = _tool(["trace", "show", req, "--root", root, "--chrome", chrome], timeout=120)
+    require("trace: COMPLETE" in proc.stdout, f"trace {label}: {proc.stdout[-2000:]}")
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    require(len(events) > 0, f"trace {label}: no Chrome events")
+    return len(events)
+
+
+def run_harness(dev, workdir: str, smi: str) -> dict:
+    """Phase 16: the serve fleet's proof harnesses (see the module doc)."""
+    base = os.path.join(workdir, "harness")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    try:
+        soak_root = os.path.join(base, "soak")
+        soak = harness_soak(dev, soak_root, smi)
+        pack = harness_pack(os.path.join(base, "pack"), smi)
+        chaos = harness_chaos(base, smi)
+        # the first request of the cold pass (the warm pass's answered at
+        # submit and left no span to trace)
+        soak_req = min(serve_chaos._load_requests(soak_root).values(),
+                       key=lambda d: d["created_at"])["request"]
+        steal_req = stolen_request(chaos["root"])
+        events = {"soak": harness_trace(soak_root, soak_req, os.path.join(base, "soak_trace.json"),
+                                        "soak"),
+                  "stolen": harness_trace(chaos["root"], steal_req,
+                                          os.path.join(base, "steal_trace.json"), "stolen")}
+        log(f"phase 16 (d): trace show: COMPLETE for {soak_req} (soak) and {steal_req} (a "
+            f"stolen unit); Chrome events {events}")
+        return {"soak": soak, "pack": pack, "chaos": chaos, "trace_events": events,
+                "launches": soak["launches"]}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def libav_probe() -> str:
-    """Whether the native media layer's libav could load here: does
-    libavcodec.so.59 open, and which libav headers exist. Printed for the
-    record; nothing depends on it."""
+    """Whether the native media layer's libav could load here: each
+    libavcodec.so.* the loader's paths (its defaults, /etc/ld.so.conf.d,
+    the interpreter's prefixes' lib) or `find_library` name and whether
+    it opens, ffmpeg and ffprobe on PATH, and the libav headers under the
+    system, CUDA and conda include roots. Printed for the record; nothing
+    depends on it."""
     import ctypes
+    import ctypes.util
     import glob
 
-    try:
-        ctypes.CDLL("libavcodec.so.59")
-        lib = "libavcodec.so.59 loads"
-    except OSError as exc:
-        lib = f"libavcodec.so.59 does not load ({exc})"
-    heads = sorted(glob.glob("/usr/include/libavcodec/avcodec.h")
-                   + glob.glob("/usr/include/*/libavcodec/avcodec.h")
-                   + glob.glob("/usr/local/include/libavcodec/avcodec.h"))
-    return f"{lib}; libav headers: {heads if heads else 'none found'}"
+    # under conda, the interpreter's prefixes are the environment's and
+    # the installation's roots
+    prefixes = sorted({sys.prefix, sys.base_prefix})
+    # the loader's own paths: its defaults and /etc/ld.so.conf.d
+    lib_dirs = ["/lib", "/lib64", "/usr/lib", "/usr/lib64", "/usr/local/lib",
+                *glob.glob("/usr/lib/*-linux-gnu"), *(os.path.join(p, "lib") for p in prefixes)]
+    for conf in sorted(glob.glob("/etc/ld.so.conf.d/*.conf")):
+        with open(conf) as f:
+            lib_dirs += [ln.strip() for ln in f if ln.strip().startswith("/")]
+    names = {"libavcodec.so.59"}
+    names.update(path for d in {os.path.realpath(d) for d in lib_dirs}
+                 for path in glob.glob(os.path.join(d, "libavcodec.so*")))
+    found = ctypes.util.find_library("avcodec")
+    if found:
+        names.add(found)
+    libs = []
+    for name in sorted(names):
+        try:
+            ctypes.CDLL(name)
+            libs.append(f"{name} loads")
+        except OSError as exc:
+            libs.append(f"{name} does not load ({exc})")
+    tools = [f"{t} {'at ' + shutil.which(t) if shutil.which(t) else 'not on PATH'}"
+             for t in ("ffmpeg", "ffprobe")]
+    include_roots = ["/usr/include", *glob.glob("/usr/include/*-linux-gnu"), "/usr/local/include",
+                     "/usr/local/cuda/include", *glob.glob("/usr/local/cuda/targets/*/include"),
+                     *(os.path.join(p, "include") for p in prefixes)]
+    heads = sorted({h for r in include_roots
+                    for h in glob.glob(os.path.join(r, "libavcodec", "avcodec.h"))})
+    return (f"{'; '.join(libs)}; find_library('avcodec'): {found}; {', '.join(tools)}; "
+            f"libav headers: {heads if heads else 'none found'}")
 
 
 def module_probe() -> str:
@@ -3319,6 +3526,9 @@ def main() -> int:
     t15 = time.perf_counter()
     control = run_control(dev, workdir)
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    harness = run_harness(dev, workdir, smi)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -3330,6 +3540,7 @@ def main() -> int:
              **{f"src_analysis_{k}": v["launches"] for k, v in src_summary.items()},
              "serve_wave": serve["launches"],
              "serve_control": control["launches"],
+             "serve_soak": harness["launches"],
              **{f"mesh_wave_{k}": v["launches"] for k, v in mesh["waves"]["runs"].items()},
              "mesh_sharded_step": mesh["sharded_step"]["launches"],
              **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()}}
@@ -3357,7 +3568,7 @@ def main() -> int:
                     "waves": waves, "downstream": downstream, "p01_ladder": ladder,
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
                     "serve": serve, "mesh": mesh, "profiled": profiled, "database": database,
-                    "control": control,
+                    "control": control, "harness": harness,
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,9 @@ _TOOLS = {
     "fleet-doctor": ".tools.fleet_doctor",
     "fleet-top": ".tools.fleet_top",
     "queue-crashcheck": ".tools.queue_crashcheck",
+    "trace": ".tools.trace_tool",
+    "serve-soak": ".tools.serve_soak",
+    "serve-chaos": ".tools.serve_chaos",
 }
 
 

@@ -24,7 +24,7 @@ Built-ins:
 
 The reference's `chain` executor (real databases through p01-p04) needs
 the file-level readers and writers, which the port does not have yet
-(ROADMAP Queue A item 2); `make_executor("chain")` says so.
+(ROADMAP Queue A item 11); `make_executor("chain")` says so.
 """
 
 from __future__ import annotations
@@ -489,7 +489,7 @@ def make_executor(kind: str, device=None):
     if kind == "chain":
         raise ValueError(
             "serve executor 'chain' is not ported yet: it waits for the "
-            "port's file-level readers and writers (ROADMAP Queue A item 2)"
+            "port's file-level readers and writers (ROADMAP Queue A item 11)"
         )
     if kind == DeviceWaveExecutor.kind:
         return DeviceWaveExecutor(device=device)

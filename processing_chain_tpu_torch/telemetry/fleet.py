@@ -1,4 +1,4 @@
-"""Fleet-wide observability: replica discovery and the SLO merge.
+"""Fleet-wide observability: replica discovery, SLO merge, trace assembly.
 
 One chain-serve root can be served by any number of replica processes
 (docs/SERVE.md "Running multiple replicas"), and before this module
@@ -15,8 +15,9 @@ merged view from three sources that all outlive any single replica:
   * **the shared durable state** — queue records and request docs under
     the root are the fleet's ground truth regardless of who is alive;
     counts come from disk, not from any replica's memory.
-  * **the span journals** (serve/spans.py) — the per-replica transition
-    history, whose stats the view reports.
+  * **the span journal** (serve/spans.py) — the per-replica transition
+    history, merged into cross-replica request traces by
+    `assemble_trace`, with the gapless-chain completeness check.
 
 The SLO layer: each replica's /metrics carries the per-(tenant ×
 priority-class) phase histograms (`chain_serve_queue_wait_seconds`,
@@ -27,12 +28,11 @@ bucket counts sum to cumulative bucket counts — no rebinning), and
 `telemetry/catalog.SLO_BANDS`: estimated p50/p95/p99 plus the fraction
 of observations inside the band.
 
-Served as `/fleet` on every replica's LiveServer and rendered by `tools
-fleet-top`.
+Served as `/fleet` on every replica's LiveServer, rendered by `tools
+fleet-top`, and consumed by `tools trace show` (the cross-replica
+timeline, Chrome-trace export via profiling.build_chrome_trace).
 
-The port's copy of processing_chain_tpu/telemetry/fleet.py, without
-the request-trace assembly (`assemble_trace`, `chrome_trace`), which
-comes with `tools trace`.
+The port's copy of processing_chain_tpu/telemetry/fleet.py.
 """
 
 from __future__ import annotations
@@ -662,3 +662,204 @@ def fleet_view(root: str, timeout_s: float = 2.0) -> dict:
         # (serve/autoscale.py; live signal at /fleet/scale-signal)
         "scale": alerts_mod.latest_scale(root),
     }
+
+
+# -------------------------------------------------------- trace stitch
+
+
+def _load_request_doc(root: str, request_id: str) -> Optional[dict]:
+    path = os.path.join(root, "requests", request_id + ".json")
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def resolve_request_ids(root: str, ref: str) -> list[str]:
+    """`ref` may be a request id or a trace id; returns EVERY matching
+    request id, submit-ordered. More than one is legitimate: a
+    client-supplied gateway trace can ride several POSTs, and showing
+    only an arbitrary one would claim 'COMPLETE' while hiding the
+    rest — the trace of a shared id is all of its requests."""
+    if _load_request_doc(root, ref) is not None:
+        return [ref]
+    req_dir = os.path.join(root, "requests")
+    try:
+        names = os.listdir(req_dir)
+    except OSError:
+        return []
+    matches: list[tuple] = []
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        try:
+            with open(os.path.join(req_dir, name)) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if doc.get("trace") == ref:
+            matches.append((doc.get("created_at", 0.0),
+                            doc.get("request")))
+    return [req for _, req in sorted(matches) if req]
+
+
+def assemble_trace(root: str, request_id: str) -> dict:
+    """The cross-replica timeline of one request: its doc, every span
+    that names it (merged over all replica journals), the per-job
+    chains, and the gapless-completeness verdict for terminal jobs.
+    Works from durable state only — no replica needs to be alive."""
+    root = os.path.abspath(root)
+    doc = _load_request_doc(root, request_id)
+    all_spans = serve_spans.read_journals(
+        os.path.join(root, "queue", "spans"))
+    # which JOBS answer this request: any span naming it (enqueue,
+    # attach, or a later transition carrying the merged request list)
+    # OR a durable record listing it — then take each such job's FULL
+    # chain. A singleflight attach joins a record mid-flight, so the
+    # spans from before the join (its enqueue, an earlier claim) do
+    # not name this request yet they ARE its history.
+    job_ids = {s.get("job", "?")
+               for s in serve_spans.spans_for_request(all_spans,
+                                                      request_id)}
+    records: dict[str, dict] = {}
+    jobs_dir = os.path.join(root, "queue", "jobs")
+    try:
+        names = os.listdir(jobs_dir)
+    except OSError:
+        names = []
+    for name in names:
+        if not name.endswith(".json"):
+            continue  # lease sentinels (*.json.inprogress) included
+        try:
+            with open(os.path.join(jobs_dir, name)) as f:
+                record = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if record.get("job") in job_ids or \
+                request_id in (record.get("requests") or ()):
+            records[record["job"]] = record
+            job_ids.add(record["job"])
+    jobs: dict[str, list] = {j: [] for j in job_ids}
+    for span in all_spans:
+        if span.get("job") in job_ids:
+            jobs[span["job"]].append(span)
+    for chain in jobs.values():
+        chain.sort(key=lambda s: (s.get("ts", 0.0), s.get("seq", 0)))
+    violations: list[str] = []
+    for job_id, chain in sorted(jobs.items()):
+        record = records.get(job_id)
+        if record is not None:
+            violations.extend(serve_spans.verify_chain(
+                [s for s in chain if s.get("phase") != "fenced"], record))
+    units: dict[str, dict] = {}
+    warm_units = 0
+    if doc:
+        span_plans = {s.get("plan") for chain in jobs.values()
+                      for s in chain}
+        for pvs_id, unit in (doc.get("units") or {}).items():
+            entry = {"plan": unit.get("plan")}
+            if unit.get("plan") not in span_plans:
+                # no queue traffic at all: answered warm at submit
+                entry["warm"] = True
+                warm_units += 1
+            units[pvs_id] = entry
+    t0 = min((s.get("ts", 0.0) for chain in jobs.values() for s in chain),
+             default=(doc or {}).get("created_at", 0.0))
+    return {
+        "request": request_id,
+        "trace": (doc or {}).get("trace"),
+        "found": doc is not None or bool(jobs),
+        "state": (doc or {}).get("state"),
+        "tenant": (doc or {}).get("tenant"),
+        "priority": (doc or {}).get("priority"),
+        "created_at": (doc or {}).get("created_at"),
+        "done_at": (doc or {}).get("done_at"),
+        "latency_ms": (doc or {}).get("latency_ms"),
+        "t0": t0,
+        "units": units,
+        "warm_units": warm_units,
+        "jobs": jobs,
+        "records": {j: {"state": r.get("state"),
+                        "epoch": r.get("epoch"),
+                        "settledEpoch": r.get("settledEpoch"),
+                        "owner": r.get("owner"),
+                        "unit": (r.get("unit") or {}).get("pvs_id")}
+                    for j, r in records.items()},
+        "complete": not violations,
+        "violations": violations,
+    }
+
+
+class _TraceSpan:
+    """profiling.build_chrome_trace's span shape (name/thread/start/
+    duration/meta), synthesized from journal intervals."""
+
+    __slots__ = ("name", "thread", "start", "duration", "meta")
+
+    def __init__(self, name: str, thread: str, start: float,
+                 duration: float, meta: Optional[dict] = None) -> None:
+        self.name = name
+        self.thread = thread
+        self.start = start
+        self.duration = duration
+        self.meta = meta or {}
+
+
+def chrome_trace(trace: dict) -> dict:
+    """One request's stitched timeline as Chrome-trace JSON, through
+    the SAME trace writer the profiler uses (telemetry/profiling.
+    build_chrome_trace) so the clock/format conventions stay single-
+    sourced. Replicas render as threads; claim→settle intervals are
+    complete spans; enqueue/steal/fenced show as zero-width marks."""
+    from .profiling import build_chrome_trace
+
+    t0 = trace.get("t0", 0.0)
+    spans: list[_TraceSpan] = []
+    for job_id, chain in sorted(trace.get("jobs", {}).items()):
+        unit = (trace.get("records", {}).get(job_id) or {}).get("unit") \
+            or job_id
+        open_claim: Optional[dict] = None
+        for span in chain:
+            ts = span.get("ts", t0) - t0
+            phase = span.get("phase")
+            replica = span.get("replica", "?")
+            if phase == "claim":
+                open_claim = span
+                continue
+            if phase in ("complete", "fail", "quarantine", "requeue",
+                         "revert") and open_claim is not None:
+                start = open_claim.get("ts", t0) - t0
+                spans.append(_TraceSpan(
+                    name=f"{unit} [e{span.get('epoch')}] {phase}",
+                    thread=replica, start=start,
+                    duration=max(1e-6, ts - start),
+                    meta={"job": job_id, "phase": phase,
+                          "epoch": span.get("epoch", 0)},
+                ))
+                open_claim = None
+                continue
+            spans.append(_TraceSpan(
+                name=f"{unit} {phase}", thread=replica, start=ts,
+                duration=1e-6,
+                meta={"job": job_id, "phase": phase or "?",
+                      "epoch": span.get("epoch", 0)},
+            ))
+        if open_claim is not None:
+            # claim with no observed end: the owner died mid-wave and
+            # nothing has stolen it yet — render the open interval
+            start = open_claim.get("ts", t0) - t0
+            spans.append(_TraceSpan(
+                name=f"{unit} [e{open_claim.get('epoch')}] unsettled",
+                thread=open_claim.get("replica", "?"), start=start,
+                duration=1e-6,
+                meta={"job": job_id, "phase": "claim-open",
+                      "epoch": open_claim.get("epoch", 0)},
+            ))
+    doc = build_chrome_trace(spans)
+    doc["otherData"] = {
+        "producer": "processing_chain_tpu_torch tools trace",
+        "request": trace.get("request"),
+        "trace": trace.get("trace"),
+    }
+    return doc

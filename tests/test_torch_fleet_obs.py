@@ -1,6 +1,6 @@
 """The port's fleet observability (the contracts of
-tests/test_fleet_obs.py, without its trace-CLI and serve-soak tests,
-whose tools the port does not carry yet): span-journal determinism,
+tests/test_fleet_obs.py; its trace-CLI and serve-soak tests are in
+tests/test_torch_serve_harness.py): span-journal determinism,
 cross-replica trace stitching across a steal, SLO histogram bucket
 math, and the fleet view's dead-replica tolerance; then parity with the
 reference package on the same replica files.
@@ -696,7 +696,8 @@ def test_both_writers_fold_to_the_same_alert_set(control_roots):
 
 
 _CONTROL_TOOLS = ("chain-serve", "serve-admin", "store-admin", "store-heat",
-                  "store-tiers", "fleet-doctor", "fleet-top", "queue-crashcheck")
+                  "store-tiers", "fleet-doctor", "fleet-top", "queue-crashcheck",
+                  "trace", "serve-soak", "serve-chaos")
 
 
 @pytest.mark.parametrize("tool", _CONTROL_TOOLS)

@@ -754,6 +754,57 @@ def test_wave_replicas_under_a_store_budget_serve_the_cpu_bytes(cuda, tmp_path):
         ptm.disable()
 
 
+def test_wave_soak_on_the_card_serves_the_cpu_bytes(cuda, tmp_path):
+    """`tools serve-soak --executor wave` on cuda:0 at a small grid: no
+    duplicate execution, 3 resize and 1 SI/TI launches a block of the
+    wave journal, and every plan's stored artifact equal to the CPU
+    route's bytes."""
+    import json
+    import os
+
+    from processing_chain_tpu_torch import telemetry as ptm
+    from processing_chain_tpu_torch.parallel import meshobs
+    from processing_chain_tpu_torch.serve.api import Unit
+    from processing_chain_tpu_torch.serve.executors import DeviceWaveExecutor
+    from processing_chain_tpu_torch.store import runtime as store_runtime
+    from processing_chain_tpu_torch.tools import serve_soak
+
+    root = str(tmp_path / "soak")
+    out = str(tmp_path / "soak.json")
+    try:
+        rc = serve_soak.main(["--executor", "wave", "--device", "cuda:0", "--clients", "3",
+                              "--srcs", "2", "--hrcs", "2", "--root", root, "--out", out])
+        launches = dict(ck.LAUNCHES)
+        with open(out) as f:
+            report = json.load(f)
+        assert rc == 0, report["failures"]
+        assert report["jobs_planned"] == report["unique_plans"] == 1 * 2 + 3 * 1 * 2
+        blocks = len([r for r in meshobs.read_journals(meshobs.mesh_dir(root))
+                      if r.get("kind") == "wave"])
+        assert blocks == report["unique_plans"]  # one 8-frame block a unit
+        assert launches["resize_frames_fused"] == 3 * blocks
+        assert launches["siti_frames_fused_batch"] == blocks
+        store = store_runtime.configure(os.path.join(root, "store"))
+        cpu = DeviceWaveExecutor(device="cpu")
+        plans = {}
+        for name in os.listdir(os.path.join(root, "requests")):
+            with open(os.path.join(root, "requests", name)) as f:
+                plans.update({u["plan"]: pvs for pvs, u in json.load(f)["units"].items()})
+        assert len(plans) == report["unique_plans"]
+        for plan, pvs in sorted(plans.items()):
+            with open(store.object_path(store.lookup(plan).object["sha256"]), "rb") as f:
+                served = f.read()
+            _, src, hrc = pvs.split("_")
+            path = str(tmp_path / f"{pvs}.bin")
+            cpu.run_batch([Unit("P2STR01", src, hrc, {"geometry": [64, 36],
+                                                       "size_bytes": 2048})], [path])
+            assert served == open(path, "rb").read(), pvs
+    finally:
+        meshobs.detach_journal()
+        store_runtime.configure(None)
+        ptm.disable()
+
+
 def _wave_outputs(mesh, srcs, ten_bit):
     from processing_chain_tpu_torch.parallel import p03_batch
 

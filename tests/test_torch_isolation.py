@@ -134,6 +134,9 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.tools.fleet_doctor",
                 "processing_chain_tpu_torch.tools.fleet_top",
                 "processing_chain_tpu_torch.tools.queue_crashcheck",
+                "processing_chain_tpu_torch.tools.trace_tool",
+                "processing_chain_tpu_torch.tools.serve_soak",
+                "processing_chain_tpu_torch.tools.serve_chaos",
                 "processing_chain_tpu_torch.__main__"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []

@@ -8,7 +8,12 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      and, for information only, each libavcodec.so.* the loader paths and
      find_library name and whether it loads, whether ffmpeg and ffprobe
      are on PATH, the libav headers under the system, CUDA and conda
-     include roots, and whether yaml, pandas, PIL and matplotlib import
+     include roots, and whether yaml, pandas, PIL and matplotlib import;
+     then, in a child interpreter, each libavcodec copy a wheel bundles
+     under site-packages (`*.libs/libavcodec*.so*`): whether it loads, its
+     avcodec_version(), whether avcodec_find_encoder_by_name finds ffv1
+     and flac, the libswresample/libswscale beside it; and whether cv2,
+     av and imageio_ffmpeg (with its ffmpeg binary) import
   2. build: compiles csrc/*.cu with nvcc (one process per source, all at
      once) and prints each kernel's registers, shared memory and spills
   3. kernel vs plain torch version at the main paths' shapes (the fused
@@ -196,6 +201,18 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      /healthz, wall time; (d) `tools trace show` as a process on one of
      (a)'s requests and on a done request of (c) with a stolen unit:
      "trace: COMPLETE" and a Chrome export with events
+ 17. the port's own gates: (a) `tools chain-lint` as a process, bare (the
+     port's package and this script against the port's telemetry catalog,
+     store/plan_schema.py, serve/queue.py and baseline): exit 0 and
+     "chain-lint: OK", its files, findings and baselined counts and its
+     seconds; (b) with PC_LOCK_DEBUG=1 and PC_PLAN_DEBUG=1 set before any
+     object is built (and restored after), both port recorders reset,
+     phase 11's `wave` service on the card under build/chip_smoke/gates
+     (removed after) with one request of 2 units (SERVE_GEO), exact
+     launches (which join `paths` as serve_gates), a warm re-POST, both
+     artifacts against the plain route; then utils.lockdebug.check() (at
+     least one edge, acyclic) and utils.plandebug.check() (2 plans, no
+     same-plan/different-bytes): edges, locks, plans and seconds
 Each path's launch counts are set to 0 just before it runs and read just
 after. The last two lines of standard output are one JSON object with
 every kernel's numbers and `{"ok": true, "device": {...}}`. The card
@@ -240,7 +257,7 @@ from processing_chain_tpu_torch.telemetry import fleet as serve_fleet
 from processing_chain_tpu_torch.telemetry import live as serve_live
 from processing_chain_tpu_torch.telemetry import profiling
 from processing_chain_tpu_torch.telemetry import watchdog
-from processing_chain_tpu_torch.utils import fsio, tracing
+from processing_chain_tpu_torch.utils import fsio, lockdebug, plandebug, tracing
 from processing_chain_tpu_torch.serve import api as serve_api
 from processing_chain_tpu_torch.serve import cost as serve_cost
 from processing_chain_tpu_torch.serve import spans as serve_spans
@@ -3396,6 +3413,100 @@ def run_harness(dev, workdir: str, smi: str) -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the port's own gates
+# ---------------------------------------------------------------------------
+
+# phase 11's request A cut to one HRC: 2 units of SERVE_GEO
+GATE_REQUEST = {"tenant": "lab-a", "database": "P2STR01", "srcs": ["SRC001", "SRC002"],
+                "hrcs": ["HRC001"], "params": SERVE_GEO}
+GATE_PLANS = 2
+GATE_ENV = ("PC_LOCK_DEBUG", "PC_PLAN_DEBUG")
+
+
+def gate_lint(smi: str) -> dict:
+    """Phase 17 (a): the port's `tools chain-lint` as a process, bare (the
+    port's package and this script, on the port's registries and
+    baseline); a finding, a stale entry or the timeout fails the run."""
+    t0 = time.perf_counter()
+    proc = _tool(["chain-lint"], timeout=300)
+    wall = time.perf_counter() - t0
+    summary = proc.stdout.strip().splitlines()[-1]
+    require(summary.startswith("chain-lint: OK"), f"chain-lint: {proc.stdout[-2000:]}")
+    log(f"phase 17 (a): {summary}; {wall:.2f} s ({smi})")
+    return {"summary": summary, "seconds": wall}
+
+
+def gate_recorders(dev, workdir: str, smi: str) -> dict:
+    """Phase 17 (b): the port's lock-order and plan-purity recorders over
+    phase 11's service on the card, at GATE_PLANS units. PC_LOCK_DEBUG and
+    PC_PLAN_DEBUG are set before the service is built (make_lock decides
+    at construction) and restored after, so no later timing runs on
+    tracked locks."""
+    root = os.path.join(workdir, "gates")
+    shutil.rmtree(root, ignore_errors=True)
+    saved = {k: os.environ.get(k) for k in GATE_ENV}
+    os.environ.update(dict.fromkeys(GATE_ENV, "1"))
+    try:
+        lockdebug.reset()
+        plandebug.reset()
+        t0 = time.perf_counter()
+        svc = ChainServeService(root=root, port=0, executor="wave", workers=1,
+                                wave_width=4, device=dev)
+        try:
+            svc.start()
+            url = svc.server.url
+            ck.reset_launches()
+            code, body = _http(url + "/v1/requests", GATE_REQUEST)
+            require(code == 202, f"gates: POST -> {code} {body[:300]!r}")
+            doc, _ = _wait_done(url, json.loads(body)["request"], 600)
+            torch.cuda.synchronize()
+            launches = dict(ck.LAUNCHES)
+            require(doc["state"] == "done", f"gates: request {doc['state']} {doc.get('error')}")
+            blocks = GATE_PLANS * -(-SERVE_GEO["frames"] // SERVE_BLOCK)
+            want = launches_want(resize_frames_fused=3 * blocks, siti_frames_fused_batch=blocks)
+            require(launches == want, f"gates: launches {launches} != {want}")
+            code, body = _http(url + "/v1/requests", GATE_REQUEST)
+            require(code == 202 and json.loads(body)["state"] == "done",
+                    f"gates: warm re-POST -> {code} {body[:300]!r}")
+            for pvs, u in sorted(doc["units"].items()):
+                code, digest, _ = _http_sha256(url + u["artifact"])
+                _, src, hrc = pvs.split("_")
+                unit = serve_api.Unit("P2STR01", src, hrc, dict(SERVE_GEO))
+                require(code == 200 and digest == serve_reference(dev, svc.executor, unit),
+                        f"gates: {pvs}: artifact differs from the plain route")
+        finally:
+            svc.stop()
+            meshobs.detach_journal()
+        wall = time.perf_counter() - t0
+        locks = lockdebug.check()
+        plans = plandebug.check()
+        require(locks["edges"] > 0, f"gates: the lock recorder saw no edge ({locks})")
+        require(plans["plans"] == GATE_PLANS, f"gates: {plans['plans']} plans recorded, "
+                f"not {GATE_PLANS}")
+        log(f"phase 17 (b): lock-order recorder: {locks['edges']} edges over {locks['nodes']} "
+            f"locks, acyclic; plan-purity recorder: {plans['plans']} plan(s) committed, no "
+            f"same-plan/different-bytes; {GATE_PLANS} units, launches {launches}, "
+            f"{wall:.2f} s ({smi})")
+        return {"launches": launches, "lock_edges": locks["edges"],
+                "lock_nodes": locks["nodes"], "plans": plans["plans"], "seconds": wall}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        lockdebug.reset()
+        plandebug.reset()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def run_gates(dev, workdir: str, smi: str) -> dict:
+    """Phase 17: the port's own gates (see the module doc)."""
+    return {"lint": gate_lint(smi), "recorders": gate_recorders(dev, workdir, smi)}
+
+
 def libav_probe() -> str:
     """Whether the native media layer's libav could load here: each
     libavcodec.so.* the loader's paths (its defaults, /etc/ld.so.conf.d,
@@ -3440,6 +3551,100 @@ def libav_probe() -> str:
             f"libav headers: {heads if heads else 'none found'}")
 
 
+def _libav_copy(path: str) -> str:
+    """One libavcodec copy: whether it loads (alone, else after the other
+    libraries of its folder are loaded globally: a wheel's bundled copies
+    find each other through the importing module's RPATH, not their
+    own), its avcodec_version(), whether avcodec_find_encoder_by_name
+    finds ffv1 and flac, and the libswresample/libswscale beside it."""
+    import ctypes
+    import glob
+
+    folder = os.path.dirname(path)
+    sib = {name: [os.path.basename(p) for p in sorted(glob.glob(os.path.join(folder, f"{name}*.so*")))]
+           for name in ("libswresample", "libswscale")}
+    how = "loads"
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as exc:
+        pending = [p for p in sorted(glob.glob(os.path.join(folder, "*.so*"))) if p != path]
+        while pending:
+            failed = []
+            for p in pending:
+                try:
+                    ctypes.CDLL(p, mode=ctypes.RTLD_GLOBAL)
+                except OSError:
+                    failed.append(p)
+            if len(failed) == len(pending):
+                break
+            pending = failed
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as exc2:
+            return f"{path} does not load ({exc}; with its folder loaded first: {exc2}), beside it {sib}"
+        how = f"loads once its folder is loaded first (alone: {exc})"
+    lib.avcodec_version.restype = ctypes.c_uint
+    lib.avcodec_find_encoder_by_name.restype = ctypes.c_void_p
+    lib.avcodec_find_encoder_by_name.argtypes = [ctypes.c_char_p]
+    v = lib.avcodec_version()
+    enc = {name: bool(lib.avcodec_find_encoder_by_name(name.encode()))
+           for name in ("ffv1", "flac")}
+    return (f"{path} {how}: avcodec_version {v >> 16}.{(v >> 8) & 0xFF}.{v & 0xFF}, "
+            f"encoders {enc}, beside it {sib}")
+
+
+def _wheel_libav() -> str:
+    """libavcodec copies that wheels bundle under the interpreter's
+    site-packages (`*.libs/libavcodec-*.so*`, as opencv-python and av
+    ship), imageio_ffmpeg's binary, and whether cv2 or av import."""
+    import glob
+    import importlib
+    import site
+
+    try:
+        roots = sorted({*site.getsitepackages(), site.getusersitepackages()})
+        copies = sorted({p for r in roots
+                         for pat in ("*.libs/libavcodec*.so*", "*/.libs/libavcodec*.so*")
+                         for p in glob.glob(os.path.join(r, pat))})
+        parts = [_libav_copy(p) for p in copies] or ["no wheel-bundled libavcodec"]
+        for name in ("cv2", "av", "imageio_ffmpeg"):
+            try:
+                mod = importlib.import_module(name)
+            except Exception as exc:  # noqa: BLE001 - a broken wheel is the answer, not a fault
+                parts.append(f"{name} does not import ({type(exc).__name__}: {exc})")
+                continue
+            extra = ""
+            if name == "imageio_ffmpeg":
+                try:
+                    extra = f", ffmpeg at {mod.get_ffmpeg_exe()}"
+                except Exception as exc:  # noqa: BLE001
+                    extra = f", no ffmpeg binary ({exc})"
+            parts.append(f"{name} {getattr(mod, '__version__', '?')} imports{extra}")
+        return f"site-packages {roots}: " + "; ".join(parts)
+    except Exception as exc:  # noqa: BLE001 - information only
+        return f"the probe itself failed ({type(exc).__name__}: {exc})"
+
+
+def wheel_libav_probe() -> str:
+    """_wheel_libav in a child interpreter (a bundled copy that clashes
+    with this process's libraries cannot take the run down). Printed for
+    the record; nothing depends on it, and it never fails the run."""
+    import inspect
+
+    code = ("import os\n" + inspect.getsource(_libav_copy) + inspect.getsource(_wheel_libav)
+            + "print(_wheel_libav())\n")
+    try:
+        # chainlint: disable=subprocess-hygiene (one read-only probe interpreter with a timeout; whatever it prints or however it ends is only logged)
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=120)
+    except subprocess.TimeoutExpired:
+        return "the probe timed out after 120 s"
+    out = proc.stdout.strip()
+    if proc.returncode == 0 and out:
+        return out
+    return f"the probe exited {proc.returncode}: {out[-500:]} {proc.stderr[-500:]}"
+
+
 def module_probe() -> str:
     """Which optional third-party modules import here, with their
     versions. Printed for the record; phase 14's TestConfig needs yaml."""
@@ -3469,6 +3674,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(smi)
     log(f"libav (information only): {libav_probe()}")
+    log(f"libav in wheels (information only): {wheel_libav_probe()}")
     log(f"python modules (information only): {module_probe()}")
 
     t0 = time.perf_counter()
@@ -3529,6 +3735,9 @@ def main() -> int:
     t16 = time.perf_counter()
     harness = run_harness(dev, workdir, smi)
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    gates = run_gates(dev, workdir, smi)
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -3541,6 +3750,7 @@ def main() -> int:
              "serve_wave": serve["launches"],
              "serve_control": control["launches"],
              "serve_soak": harness["launches"],
+             "serve_gates": gates["recorders"]["launches"],
              **{f"mesh_wave_{k}": v["launches"] for k, v in mesh["waves"]["runs"].items()},
              "mesh_sharded_step": mesh["sharded_step"]["launches"],
              **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()}}
@@ -3568,7 +3778,7 @@ def main() -> int:
                     "waves": waves, "downstream": downstream, "p01_ladder": ladder,
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
                     "serve": serve, "mesh": mesh, "profiled": profiled, "database": database,
-                    "control": control, "harness": harness,
+                    "control": control, "harness": harness, "gates": gates,
                     "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

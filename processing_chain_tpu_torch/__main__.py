@@ -28,6 +28,7 @@ _TOOLS = {
     "trace": ".tools.trace_tool",
     "serve-soak": ".tools.serve_soak",
     "serve-chaos": ".tools.serve_chaos",
+    "chain-lint": ".tools.chainlint.cli",
 }
 
 

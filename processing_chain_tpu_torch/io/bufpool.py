@@ -1,5 +1,5 @@
-"""Recycling pool of pre-allocated host plane blocks (trimmed copy of
-processing_chain_tpu/io/bufpool.py, without its telemetry counters).
+"""Recycling pool of pre-allocated host plane blocks (copy of
+processing_chain_tpu/io/bufpool.py, without its PC_HOST_BATCH switch).
 
 `acquire` hands back a previously released block of the same (shape,
 dtype) when one is free, else allocates, so the host frame path does not
@@ -22,10 +22,23 @@ and the device loop.
 
 from __future__ import annotations
 
-import threading
 import weakref
 
 import numpy as np
+
+from .. import telemetry as tm
+from ..utils import lockdebug
+
+_HITS = tm.counter(
+    "chain_bufpool_hits_total", "pool acquisitions served from a recycled block"
+)
+_MISSES = tm.counter(
+    "chain_bufpool_misses_total", "pool acquisitions that had to allocate"
+)
+_RECYCLED_BYTES = tm.counter(
+    "chain_bufpool_recycled_bytes_total",
+    "bytes served from recycled blocks instead of fresh allocations",
+)
 
 # free blocks kept per (shape, dtype): chunk blocks run ~100 MB at 1080p x
 # 64 frames, so an unbounded free list would pin the high-water mark
@@ -36,9 +49,11 @@ class BufferPool:
     """Keyed free lists of C-contiguous ndarrays (see module docstring)."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._free: dict[tuple, list[np.ndarray]] = {}
-        self._outstanding: dict[int, weakref.ref] = {}
+        self._lock = lockdebug.make_lock("bufpool")
+        self._free: dict[tuple, list[np.ndarray]] = {}  # guarded-by: _lock
+        self._outstanding: dict[int, weakref.ref] = {}  # guarded-by: _lock
+        self.hits = 0  # guarded-by: _lock
+        self.misses = 0  # guarded-by: _lock
 
     @staticmethod
     def _key(shape, dtype) -> tuple:
@@ -49,8 +64,17 @@ class BufferPool:
         with self._lock:
             free = self._free.get(key)
             arr = free.pop() if free else None
+            if arr is not None:
+                self.hits += 1
+            else:
+                self.misses += 1
         if arr is None:
             arr = np.empty(shape, dtype)  # allocate outside the lock
+            if tm.enabled():
+                _MISSES.inc()
+        elif tm.enabled():
+            _HITS.inc()
+            _RECYCLED_BYTES.inc(arr.nbytes)
         self._track(arr)
         return arr
 
@@ -62,6 +86,7 @@ class BufferPool:
             # holds the pool lock; a single-key dict.pop is GIL-atomic
             pool = _self()
             if pool is not None:
+                # chainlint: disable=lock-guard (GC-reentrant callback: taking _lock here can deadlock; a single-key dict.pop is GIL-atomic, see above)
                 pool._outstanding.pop(_key, None)
 
         with self._lock:
@@ -90,8 +115,9 @@ class BufferPool:
             return ref is not None and ref() is arr
 
     def stats(self) -> dict:
-        """Blocks and bytes parked on the free lists and held by the
-        pipeline (the resource monitor's pool numbers)."""
+        """Hits and misses, and the blocks and bytes parked on the free
+        lists and held by the pipeline (the resource monitor's pool
+        numbers)."""
         with self._lock:
             # outstanding bytes resolve the weakrefs on demand (a ~1 Hz
             # resource-monitor call, never a hot path): refs whose arrays
@@ -107,6 +133,9 @@ class BufferPool:
             else:
                 live = []
             return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "hit_rate": self.hits / max(1, self.hits + self.misses),
                 "free_blocks": sum(len(v) for v in self._free.values()),
                 "free_bytes": sum(a.nbytes for v in self._free.values() for a in v),
                 "outstanding": len(self._outstanding),

@@ -5,9 +5,9 @@ emits).
 
 Every name here is one the reference catalog already registers, with
 the same kind: a dashboard or report that reads the reference daemon
-reads the port's the same way, and chainlint's `telemetry-name` rule
-(which checks call sites against the reference catalog) holds for the
-port's call sites unchanged. The SLO histogram buckets and the
+reads the port's the same way. The port's `tools chain-lint`
+(tools/chainlint) checks the port's call sites against this catalog and
+this catalog against docs/TELEMETRY.md. The SLO histogram buckets and the
 artifact size classes are the reference's too.
 """
 
@@ -23,6 +23,10 @@ METRICS: dict[str, str] = {
     # engine/prefetch.py — bounded-queue pipeline
     "chain_queue_depth": "histogram",
     "chain_pipeline_wait_seconds_total": "counter",
+    # io/bufpool.py — host block recycling
+    "chain_bufpool_hits_total": "counter",
+    "chain_bufpool_misses_total": "counter",
+    "chain_bufpool_recycled_bytes_total": "counter",
     # parallel/p03_batch.py — the wave loop's host<->device copies
     "chain_device_transfer_seconds_total": "counter",
     "chain_device_transfer_bytes_total": "counter",

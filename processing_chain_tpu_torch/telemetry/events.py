@@ -114,5 +114,5 @@ EVENTS = EventLog()
 
 
 def emit(event: str, **fields) -> None:
-    EVENTS.emit(event, **fields)  # chainlint: disable=telemetry-name (registry plumbing: the name is the caller's declared literal)
+    EVENTS.emit(event, **fields)
 

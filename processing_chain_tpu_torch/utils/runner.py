@@ -205,7 +205,6 @@ def shell(
     """
     cmd_text = cmd if isinstance(cmd, str) else " ".join(map(str, cmd))
     try:
-        # chainlint: disable=subprocess-hygiene (this IS the port's shell door: the copy of the reference's runner.shell, which the rule allows by path only in the reference package)
         result = subprocess.run(
             cmd,
             shell=isinstance(cmd, str),

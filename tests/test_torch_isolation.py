@@ -137,6 +137,17 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.tools.trace_tool",
                 "processing_chain_tpu_torch.tools.serve_soak",
                 "processing_chain_tpu_torch.tools.serve_chaos",
+                "processing_chain_tpu_torch.tools.chainlint",
+                "processing_chain_tpu_torch.tools.chainlint.atomic",
+                "processing_chain_tpu_torch.tools.chainlint.baseline",
+                "processing_chain_tpu_torch.tools.chainlint.cli",
+                "processing_chain_tpu_torch.tools.chainlint.core",
+                "processing_chain_tpu_torch.tools.chainlint.locks",
+                "processing_chain_tpu_torch.tools.chainlint.ownership",
+                "processing_chain_tpu_torch.tools.chainlint.planpurity",
+                "processing_chain_tpu_torch.tools.chainlint.queue_transitions",
+                "processing_chain_tpu_torch.tools.chainlint.subproc",
+                "processing_chain_tpu_torch.tools.chainlint.telemetry_names",
                 "processing_chain_tpu_torch.__main__"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []

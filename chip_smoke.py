@@ -5,15 +5,9 @@
 
 Phases, each fatal on failure (a non-zero exit, and no result line):
   1. device: CUDA must be present; prints the card's name and power limit,
-     and, for information only, each libavcodec.so.* the loader paths and
-     find_library name and whether it loads, whether ffmpeg and ffprobe
-     are on PATH, the libav headers under the system, CUDA and conda
-     include roots, and whether yaml, pandas, PIL and matplotlib import;
-     then, in a child interpreter, each libavcodec copy a wheel bundles
-     under site-packages (`*.libs/libavcodec*.so*`): whether it loads, its
-     avcodec_version(), whether avcodec_find_encoder_by_name finds ffv1
-     and flac, the libswresample/libswscale beside it; and whether cv2,
-     av and imageio_ffmpeg (with its ffmpeg binary) import
+     the libav that io/medialib located, built csrc/media.cpp against and
+     checked (fatal when none binds), and, for information only, whether
+     yaml, pandas, PIL and matplotlib import
   2. build: compiles csrc/*.cu with nvcc (one process per source, all at
      once) and prints each kernel's registers, shared memory and spills
   3. kernel vs plain torch version at the main paths' shapes (the fused
@@ -213,10 +207,38 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      artifacts against the plain route; then utils.lockdebug.check() (at
      least one edge, acyclic) and utils.plandebug.check() (2 plans, no
      same-plan/different-bytes): edges, locks, plans and seconds
+ 18. the media boundary and p03's file-level short path, under
+     build/chip_smoke/media (removed after): (a) the libav io/medialib
+     bound (paths, versions, the layout entries its round trips passed),
+     which of h264, hevc, vp9, av1, aac and flac it decodes (h264
+     required; an absent one is named), and each committed fixture
+     (processing_chain_tpu_torch/assets/media) decoded through the port's
+     VideoReader to the per-plane md5s the JAX reader recorded, its
+     LibavProber width, height, pix_fmt, frame rate, frame count and
+     duration (within 1 ms) equal to the record, other probe fields that
+     differ from FFmpeg 5.1's printed; (b) P2STR18, a short-test database
+     written with SRC000 (1920x1080 yuv420p 60 fps, 120 frames, FLAC
+     stereo) and its segments as FFV1+FLAC through the port's VideoWriter
+     (the card's libav has no H.264 encoder), loaded with the libav
+     prober; `python -m processing_chain_tpu_torch p03` as a process on
+     cuda:0 for HRC000 (one 2 s segment) and HRC001 (a stall between two
+     1 s segments): its summary's launches (3 resize + 1 SI + 1 TI a
+     64-frame chunk) and buffer pool (hits, nothing outstanding); each
+     wo_buffer AVPVS against resize_frames_plain of its decoded segment
+     on the card (bit-exact) and its .siti.csv against si/ti_frames_plain
+     (1e-3); the stalled AVPVS's frame count against its plan, the frames
+     around its first stall against the compositor on the CPU, its audio
+     the segment's with the planned silence; frames/s, and decode, device
+     and writeback seconds of one render measured alone; (c) SRC001
+     (yuv420p10le, 32 fps, 64 frames) through the CLI with
+     `--avpvs-codec rawvideo`, which writes the FFV1 fallback, held the
+     same way (planes within a code value, SI/TI within 1e-2). The launch
+     counts join `paths` as p03_file and p03_file_10bit
 Each path's launch counts are set to 0 just before it runs and read just
-after. The last two lines of standard output are one JSON object with
-every kernel's numbers and `{"ok": true, "device": {...}}`. The card
-needs neither PIL nor libav: the spinner is built in numpy.
+after (phase 18's in the stage process, which reports them). The last two
+lines of standard output are one JSON object with every kernel's numbers
+and `{"ok": true, "device": {...}}`. Phases 1-17 need neither PIL nor a
+media file; phase 18 reads the committed spinner PNG with PIL.
 """
 
 from __future__ import annotations
@@ -239,6 +261,9 @@ import torch
 
 from processing_chain_tpu_torch.config import PostProcessing, StaticProber, TestConfig
 from processing_chain_tpu_torch.engine import prefetch as pfe
+from processing_chain_tpu_torch.io import medialib
+from processing_chain_tpu_torch.io import probe as io_probe
+from processing_chain_tpu_torch.io.video import VideoReader, VideoWriter
 from processing_chain_tpu_torch.models import avpvs, fused, segments
 from processing_chain_tpu_torch.models import cpvs as cp
 from processing_chain_tpu_torch.models import frames as fr
@@ -3507,142 +3532,348 @@ def run_gates(dev, workdir: str, smi: str) -> dict:
     return {"lint": gate_lint(smi), "recorders": gate_recorders(dev, workdir, smi)}
 
 
-def libav_probe() -> str:
-    """Whether the native media layer's libav could load here: each
-    libavcodec.so.* the loader's paths (its defaults, /etc/ld.so.conf.d,
-    the interpreter's prefixes' lib) or `find_library` name and whether
-    it opens, ffmpeg and ffprobe on PATH, and the libav headers under the
-    system, CUDA and conda include roots. Printed for the record; nothing
-    depends on it."""
-    import ctypes
-    import ctypes.util
-    import glob
+# ---------------------------------------------------------------------------
+# phase 18: the media boundary and p03's file-level short path
+# ---------------------------------------------------------------------------
 
-    # under conda, the interpreter's prefixes are the environment's and
-    # the installation's roots
-    prefixes = sorted({sys.prefix, sys.base_prefix})
-    # the loader's own paths: its defaults and /etc/ld.so.conf.d
-    lib_dirs = ["/lib", "/lib64", "/usr/lib", "/usr/lib64", "/usr/local/lib",
-                *glob.glob("/usr/lib/*-linux-gnu"), *(os.path.join(p, "lib") for p in prefixes)]
-    for conf in sorted(glob.glob("/etc/ld.so.conf.d/*.conf")):
-        with open(conf) as f:
-            lib_dirs += [ln.strip() for ln in f if ln.strip().startswith("/")]
-    names = {"libavcodec.so.59"}
-    names.update(path for d in {os.path.realpath(d) for d in lib_dirs}
-                 for path in glob.glob(os.path.join(d, "libavcodec.so*")))
-    found = ctypes.util.find_library("avcodec")
-    if found:
-        names.add(found)
-    libs = []
-    for name in sorted(names):
-        try:
-            ctypes.CDLL(name)
-            libs.append(f"{name} loads")
-        except OSError as exc:
-            libs.append(f"{name} does not load ({exc})")
-    tools = [f"{t} {'at ' + shutil.which(t) if shutil.which(t) else 'not on PATH'}"
-             for t in ("ffmpeg", "ffprobe")]
-    include_roots = ["/usr/include", *glob.glob("/usr/include/*-linux-gnu"), "/usr/local/include",
-                     "/usr/local/cuda/include", *glob.glob("/usr/local/cuda/targets/*/include"),
-                     *(os.path.join(p, "include") for p in prefixes)]
-    heads = sorted({h for r in include_roots
-                    for h in glob.glob(os.path.join(r, "libavcodec", "avcodec.h"))})
-    return (f"{'; '.join(libs)}; find_library('avcodec'): {found}; {', '.join(tools)}; "
-            f"libav headers: {heads if heads else 'none found'}")
+MEDIA_DB = "P2STR18"
+MEDIA_FPS, MEDIA_FRAMES = 60, 120       # SRC000: 2 s of a 10 s PVS at 60 fps (the cut)
+MEDIA_FPS_10, MEDIA_FRAMES_10 = 32, 64  # SRC001: 10-bit, 2 s at 32 fps
+MEDIA_SAMPLE_RATE = 48000
+# a short test at published widths: 1080p60 segments onto the pc 3840x2160
+# canvas; HRC001 has a stall between its two quality events (two 1 s
+# segments, of which the short path renders the first, as the JAX package
+# does), HRC000 one 2 s segment
+MEDIA_YAML = """\
+databaseId: {db_id}
+syntaxVersion: 6
+type: short
+qualityLevelList:
+  Q0: {{index: 0, videoCodec: h264, videoBitrate: 6000, width: 1920, height: 1080, fps: original}}
+codingList:
+  VC01: {{type: video, encoder: libx264, passes: 1, iFrameInterval: 2, preset: medium}}
+srcList:
+  SRC000: SRC000.avi
+  SRC001: SRC001.avi
+hrcList:
+  HRC000: {{videoCodingId: VC01, eventList: [[Q0, 2]]}}
+  HRC001: {{videoCodingId: VC01, eventList: [[Q0, 1], [stall, 0.5], [Q0, 1]]}}
+pvsList:
+  - {db_id}_SRC000_HRC000
+  - {db_id}_SRC000_HRC001
+  - {db_id}_SRC001_HRC000
+postProcessingList:
+  - {{type: pc, displayWidth: 3840, displayHeight: 2160, codingWidth: 3840, codingHeight: 2160}}
+"""
+MEDIA_CODECS = ("h264", "hevc", "vp9", "av1", "aac", "flac")
+FIXTURES = os.path.join(ROOT, "processing_chain_tpu_torch", "assets", "media")
 
 
-def _libav_copy(path: str) -> str:
-    """One libavcodec copy: whether it loads (alone, else after the other
-    libraries of its folder are loaded globally: a wheel's bundled copies
-    find each other through the importing module's RPATH, not their
-    own), its avcodec_version(), whether avcodec_find_encoder_by_name
-    finds ffv1 and flac, and the libswresample/libswscale beside it."""
-    import ctypes
-    import glob
+def media_binding() -> dict:
+    """(a): the libav io/medialib bound, and the committed fixtures decoded
+    through the port's VideoReader against the JAX reader's record."""
+    b = medialib.binding()
+    log(f"media boundary: {medialib.version()}")
+    log(f"media boundary: {len(b['checks'])} layout entries passed their round trips: "
+        f"{' '.join(b['checks'])}")
+    decoders = medialib.codecs(MEDIA_CODECS)
+    log(f"media boundary decoders: {json.dumps(decoders)}; absent: "
+        f"{[c for c, ok in decoders.items() if not ok] or 'none'}")
+    require(decoders["h264"], "the bound libav has no h264 decoder")
+    with open(os.path.join(FIXTURES, "fixtures.json")) as f:
+        record = json.load(f)
+    prober = io_probe.LibavProber()
+    out = {}
+    for name, want in sorted(record.items()):
+        codec = want["probe"][0]["codec_name"]
+        if not decoders.get(codec, False):
+            log(f"fixture {name}: NOT decoded, this libav has no {codec} decoder")
+            out[name] = {"decoded": False}
+            continue
+        path = os.path.join(FIXTURES, name)
+        with VideoReader(path) as r:
+            stacks, _pts = r.read_all()
+        md5 = [[hashlib.md5(np.ascontiguousarray(p[k]).tobytes()).hexdigest() for p in stacks]
+               for k in range(len(_pts))]
+        require(md5 == want["md5"], f"fixture {name}: decoded planes differ from the record")
+        info = prober.src_info(path)
+        from fractions import Fraction
+        got = {"width": info["width"], "height": info["height"], "pix_fmt": info["pix_fmt"],
+               "r_frame_rate": Fraction(info["r_frame_rate"]), "frames": len(md5)}
+        ref = {k: want[k] for k in ("width", "height", "pix_fmt", "frames")}
+        ref["r_frame_rate"] = Fraction(want["r_frame_rate"])
+        require(got == ref, f"fixture {name}: probe {got} != {ref}")
+        require(abs(info["video_duration"] - want["duration"]) <= 1e-3,
+                f"fixture {name}: duration {info['video_duration']} != {want['duration']}")
+        full = {s["index"]: s for s in medialib.probe(path)["streams"]}
+        differ = {f"{s['index']}.{k}": [v, full.get(s["index"], {}).get(k)]
+                  for s in want["probe"] for k, v in s.items()
+                  if json.loads(json.dumps(full.get(s["index"], {}).get(k))) != v}
+        log(f"fixture {name}: {len(md5)} frames equal to the record (md5 of each plane), "
+            f"probe fields equal; other fields that differ from FFmpeg 5.1's: "
+            f"{json.dumps(differ) if differ else 'none'}")
+        out[name] = {"decoded": True, "frames": len(md5), "probe_differs": differ}
+    return {"version": medialib.version(), "checks": len(b["checks"]),
+            "decoders": decoders, "fixtures": out}
 
-    folder = os.path.dirname(path)
-    sib = {name: [os.path.basename(p) for p in sorted(glob.glob(os.path.join(folder, f"{name}*.so*")))]
-           for name in ("libswresample", "libswscale")}
-    how = "loads"
+
+def media_tone(n: int, seed: int) -> np.ndarray:
+    """n stereo int16 samples: two seeded tones."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(200, 900, 2)
+    t = np.arange(n)[:, None] / MEDIA_SAMPLE_RATE
+    return (np.sin(2 * np.pi * f[None, :] * t) * 9000).astype(np.int16)
+
+
+def write_media(path: str, chunks, fps: int, pix_fmt: str, audio) -> None:
+    """FFV1 (+FLAC) AVI of host chunks, written through the port's
+    VideoWriter, then moved to `path` whatever its extension (the demuxer
+    probes the bytes, not the name)."""
+    tmp = path + ".tmp.avi"
+    extra = dict(audio_codec="flac", sample_rate=MEDIA_SAMPLE_RATE, channels=2) \
+        if audio is not None else {}
+    with VideoWriter(tmp, "ffv1", SRC_W, SRC_H, pix_fmt, (fps, 1), threads=1,
+                     opts="level=3:slicecrc=1:pc_fp_workers=6", **extra) as w:
+        if audio is not None:
+            w.write_audio(audio)
+        for c in chunks:
+            w.write_batch(*c)
+    os.replace(tmp, path)
+
+
+def p03_cli(yaml_path: str, pvs_ids: list, *extra) -> tuple:
+    """`python -m processing_chain_tpu_torch p03` as a process on cuda:0:
+    (its p03 summary, wall seconds)."""
+    # -p 1: one PVS at a time, so the stage's pool-aware writeback default
+    # gives the one render every spare core (--ffv1-workers unpinned)
+    cmd = [sys.executable, "-m", "processing_chain_tpu_torch", "p03", "-c", yaml_path,
+           "-p", "1", "--filter-pvs", "|".join(pvs_ids), *extra]
+    t0 = time.perf_counter()
+    # chainlint: disable=subprocess-hygiene (the stage CLI as a process with a timeout; its exit code and log are checked)
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"p03 CLI exit {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stderr.splitlines() if "p03 summary: " in ln]
+    require(len(lines) == 1, f"p03 CLI printed no summary: {proc.stderr[-2000:]}")
+    return json.loads(lines[0].split("p03 summary: ", 1)[1]), wall
+
+
+def check_render(dev, seg_path: str, avpvs_path: str, pix_fmt: str, frames: int,
+                 keep: list = None) -> dict:
+    """An AVPVS against the plain route on the card over its decoded
+    segment: `frames` frames, u8 planes bit-exact (10-bit within a code
+    value), its .siti.csv within 1e-3 (1e-2) of si/ti_frames_plain, TI
+    chained across chunks. Returns its frame count and errors; appends the
+    decoded AVPVS chunks to `keep` when given."""
+    ten_bit = "10" in pix_fmt
+    sub = fr.chroma_subsampling(pix_fmt)
+    dims = [(DST_H, DST_W), (DST_H // sub[0], DST_W // sub[1]), (DST_H // sub[0], DST_W // sub[1])]
+    side = np.loadtxt(avpvs_path + ".siti.csv", delimiter=",", skiprows=1, ndmin=2)
+    plane_err = feat_err = 0.0
+    n = 0
+    prev = None
+    with VideoReader(seg_path) as seg, VideoReader(avpvs_path) as out:
+        require((out.width, out.height, out.pix_fmt) == (DST_W, DST_H, pix_fmt),
+                f"{avpvs_path}: {out.width}x{out.height} {out.pix_fmt}")
+        for src, got in zip(seg.iter_chunks(avpvs.CHUNK), out.iter_chunks(avpvs.CHUNK)):
+            plain = [ck.resize_frames_plain(torch.from_numpy(np.ascontiguousarray(p)).to(dev),
+                                            h, w, "bicubic") for p, (h, w) in zip(src, dims)]
+            if keep is not None:
+                keep.append([np.array(g) for g in got])
+            got_dev = [torch.from_numpy(np.ascontiguousarray(g)).to(dev) for g in got]
+            plane_err = max(plane_err, *(max_abs(a, b) for a, b in zip(got_dev, plain)))
+            t = plain[0].shape[0]
+            si = ck.si_frames_plain(plain[0]).cpu().numpy()
+            ti = ck.ti_frames_plain(plain[0], prev).cpu().numpy()
+            prev = plain[0][-1]
+            feat_err = max(feat_err, float(np.abs(side[n:n + t, 1] - si).max()),
+                           float(np.abs(side[n:n + t, 2] - ti).max()))
+            n += t
+        require(next(iter(out.iter_chunks(1)), None) is None,
+                f"{avpvs_path}: frames beyond the segment's")
+    require(n == frames, f"{avpvs_path}: {n} frames checked, not {frames}")
+    require(plane_err <= (1 if ten_bit else 0), f"{avpvs_path}: planes off the plain route by {plane_err}")
+    require(len(side) == n and feat_err <= (1e-2 if ten_bit else 1e-3),
+            f"{avpvs_path}: {len(side)} sidecar rows for {n} frames, SI/TI off by {feat_err}")
+    return {"frames": n, "plane_max_err": plane_err, "siti_max_err": feat_err}
+
+
+def check_stall(tc, pvs_id: str, spinner: str) -> dict:
+    """The stalled AVPVS: its frame count equal to its plan, the frames
+    around its first stall equal to the compositor's plain torch route on
+    the CPU, its audio the wo_buffer audio with the planned silence."""
+    pvs = tc.pvses[pvs_id]
+    wo, final = pvs.get_avpvs_wo_buffer_file_path(), pvs.get_avpvs_file_path()
+    events = pvs.get_buff_events_media_time()
+    vstream = [s for s in medialib.probe(wo)["streams"] if s["codec_type"] == "video"][0]
+    n_wo = int(vstream["nb_frames"])
+    with VideoReader(wo) as r:
+        rate, pix_fmt = r.fps, r.pix_fmt
+    plan = ov.plan_stalling(n_wo, rate, events, skipping=False, black_frame=True,
+                            n_rotations=64)
+    n_out = len(medialib.scan_packets(final, "video")["size"])  # FFV1: a packet a frame
+    require(n_out == plan.n_out, f"{final}: {n_out} frames, plan {plan.n_out}")
+    # the frames around the first stall, decoded from both files by window
+    first = int(np.flatnonzero(plan.stall_mask)[0])
+    lo, hi = max(0, first - 2), min(plan.n_out, first + 6)
+    idx = plan.src_idx[lo:hi]
+    s0 = int(idx.min())
+    with VideoReader(wo, s0 / rate, (int(idx.max()) + 1 - s0) / rate) as r:
+        src, _ = r.read_all()
+    with VideoReader(final, lo / rate, (hi - lo) / rate) as r:
+        out, _ = r.read_all()
+    require(out[0].shape[0] == hi - lo, f"{final}: window {lo}..{hi - 1} read {out[0].shape[0]}")
+    composite = avpvs.make_stall_compositor(pix_fmt, spinner, False, 64, device="cpu")
+    want = composite([torch.from_numpy(p[idx - s0]) for p in src], plan.stall_mask[lo:hi],
+                     plan.black_mask[lo:hi], plan.phase[lo:hi])
+    require(all(torch.equal(w, torch.from_numpy(o)) for w, o in zip(want, out)),
+            f"{final}: frames {lo}..{hi - 1} differ from the plain compositor")
+    a_wo, srate = medialib.decode_audio_s16(wo, channels=2)
+    a_seg, _ = medialib.decode_audio_s16(pvs.segments[0].file_path, channels=2)
+    a_out, _ = medialib.decode_audio_s16(final, channels=2)
+    require(np.array_equal(a_wo, a_seg), f"{wo}: audio differs from its segment's")
+    a_want = avpvs.insert_stall_silence(a_wo, srate, events)
+    require(np.array_equal(a_out, a_want),
+            f"{final}: audio {a_out.shape} is not the segment's with the planned silence "
+            f"{a_want.shape}")
+    return {"frames": plan.n_out, "stalled": int(plan.stall_mask.sum()), "first_stall": first,
+            "audio_samples": int(a_out.shape[0])}
+
+
+def media_split(dev, seg_path: str, avpvs_path: str, out: list, fp_workers: int) -> dict:
+    """The render's three stages alone, in this process, on the same
+    inputs: decode of the segment, the device work of pump_ready over the
+    decoded chunks (resize, quantize, SI/TI), FFV1 writeback of the AVPVS
+    frames (`out`, its decoded chunks) through the stage's writer with the
+    stage's `fp_workers`."""
+    t0 = time.perf_counter()
+    with VideoReader(seg_path) as r:
+        chunks = [[np.array(p) for p in c] for c in r.iter_chunks(avpvs.CHUNK)]
+    decode_s = time.perf_counter() - t0
+
+    class Sync:
+        def put(self, planes, recycle=None):
+            pass
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avpvs.pump_ready(iter(chunks), Sync(), avpvs.SiTiAccumulator(), DST_H, DST_W, "yuv420p",
+                     device=dev)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    path = avpvs_path + ".writeback.avi"
+    # plan-exempt: (the stage's worker count, restored after; it does not alter encoded bytes)
+    saved = os.environ.get("PC_FFV1_WORKERS")
+    os.environ["PC_FFV1_WORKERS"] = str(fp_workers)
     try:
-        lib = ctypes.CDLL(path)
-    except OSError as exc:
-        pending = [p for p in sorted(glob.glob(os.path.join(folder, "*.so*"))) if p != path]
-        while pending:
-            failed = []
-            for p in pending:
-                try:
-                    ctypes.CDLL(p, mode=ctypes.RTLD_GLOBAL)
-                except OSError:
-                    failed.append(p)
-            if len(failed) == len(pending):
-                break
-            pending = failed
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError as exc2:
-            return f"{path} does not load ({exc}; with its folder loaded first: {exc2}), beside it {sib}"
-        how = f"loads once its folder is loaded first (alone: {exc})"
-    lib.avcodec_version.restype = ctypes.c_uint
-    lib.avcodec_find_encoder_by_name.restype = ctypes.c_void_p
-    lib.avcodec_find_encoder_by_name.argtypes = [ctypes.c_char_p]
-    v = lib.avcodec_version()
-    enc = {name: bool(lib.avcodec_find_encoder_by_name(name.encode()))
-           for name in ("ffv1", "flac")}
-    return (f"{path} {how}: avcodec_version {v >> 16}.{(v >> 8) & 0xFF}.{v & 0xFF}, "
-            f"encoders {enc}, beside it {sib}")
+        t0 = time.perf_counter()
+        with avpvs._ffv1_writer(path, DST_W, DST_H, "yuv420p", MEDIA_FPS, with_audio=False) as w:
+            for c in out:
+                w.write_batch(*c)
+        writeback_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("PC_FFV1_WORKERS", None)
+        else:
+            os.environ["PC_FFV1_WORKERS"] = saved
+    os.unlink(path)
+    return {"decode_s": decode_s, "device_s": device_s, "writeback_s": writeback_s,
+            "frames": sum(c[0].shape[0] for c in chunks)}
 
 
-def _wheel_libav() -> str:
-    """libavcodec copies that wheels bundle under the interpreter's
-    site-packages (`*.libs/libavcodec-*.so*`, as opencv-python and av
-    ship), imageio_ffmpeg's binary, and whether cv2 or av import."""
-    import glob
-    import importlib
-    import site
-
+def run_media(dev, workdir: str, smi: str) -> dict:
+    """Phase 18: the media boundary and p03's file-level short path (see
+    the module doc)."""
+    binding = media_binding()
+    root = os.path.join(workdir, "media")
+    shutil.rmtree(root, ignore_errors=True)
     try:
-        roots = sorted({*site.getsitepackages(), site.getusersitepackages()})
-        copies = sorted({p for r in roots
-                         for pat in ("*.libs/libavcodec*.so*", "*/.libs/libavcodec*.so*")
-                         for p in glob.glob(os.path.join(r, pat))})
-        parts = [_libav_copy(p) for p in copies] or ["no wheel-bundled libavcodec"]
-        for name in ("cv2", "av", "imageio_ffmpeg"):
-            try:
-                mod = importlib.import_module(name)
-            except Exception as exc:  # noqa: BLE001 - a broken wheel is the answer, not a fault
-                parts.append(f"{name} does not import ({type(exc).__name__}: {exc})")
-                continue
-            extra = ""
-            if name == "imageio_ffmpeg":
-                try:
-                    extra = f", ffmpeg at {mod.get_ffmpeg_exe()}"
-                except Exception as exc:  # noqa: BLE001
-                    extra = f", no ffmpeg binary ({exc})"
-            parts.append(f"{name} {getattr(mod, '__version__', '?')} imports{extra}")
-        return f"site-packages {roots}: " + "; ".join(parts)
-    except Exception as exc:  # noqa: BLE001 - information only
-        return f"the probe itself failed ({type(exc).__name__}: {exc})"
+        return {"binding": binding, **run_media_db(dev, root, smi)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
-def wheel_libav_probe() -> str:
-    """_wheel_libav in a child interpreter (a bundled copy that clashes
-    with this process's libraries cannot take the run down). Printed for
-    the record; nothing depends on it, and it never fails the run."""
-    import inspect
+def run_media_db(dev, root: str, smi: str) -> dict:
+    t0 = time.perf_counter()
+    yaml_path = write_database(root, MEDIA_DB, MEDIA_YAML, {})
+    src_dir = os.path.dirname(yaml_path) + "/srcVid"
+    seg_dir = os.path.dirname(yaml_path) + "/videoSegments"
+    os.makedirs(seg_dir, exist_ok=True)
+    clip = synthetic_clip(MEDIA_FRAMES, 60, False, SEED + MEDIA_FRAMES)  # 60-frame chunks: 1 s each
+    tone = media_tone(MEDIA_FRAMES * MEDIA_SAMPLE_RATE // MEDIA_FPS, SEED)
+    write_media(os.path.join(src_dir, "SRC000.avi"), clip, MEDIA_FPS, "yuv420p", tone)
+    clip10 = synthetic_clip(MEDIA_FRAMES_10, avpvs.CHUNK, True, SEED + MEDIA_FRAMES_10)
+    write_media(os.path.join(src_dir, "SRC001.avi"), clip10, MEDIA_FPS_10, "yuv420p10le", None)
+    tc = TestConfig(yaml_path)  # the libav prober: both SRCs are real files now
+    half = MEDIA_SAMPLE_RATE
+    for seg in tc.segments:
+        if seg.src.src_id == "SRC001":
+            shutil.copyfile(os.path.join(src_dir, "SRC001.avi"), seg.file_path)
+        elif seg.end_time - seg.start_time == 2:
+            shutil.copyfile(os.path.join(src_dir, "SRC000.avi"), seg.file_path)
+        else:
+            k = int(seg.start_time)
+            write_media(seg.file_path, [clip[k]], MEDIA_FPS, "yuv420p",
+                        tone[k * half:(k + 1) * half])
+    write_s = time.perf_counter() - t0
+    log(f"media db: {MEDIA_DB} with {len(tc.segments)} FFV1+FLAC segments written in "
+        f"{write_s:.2f} s")
 
-    code = ("import os\n" + inspect.getsource(_libav_copy) + inspect.getsource(_wheel_libav)
-            + "print(_wheel_libav())\n")
-    try:
-        # chainlint: disable=subprocess-hygiene (one read-only probe interpreter with a timeout; whatever it prints or however it ends is only logged)
-        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                              timeout=120)
-    except subprocess.TimeoutExpired:
-        return "the probe timed out after 120 s"
-    out = proc.stdout.strip()
-    if proc.returncode == 0 and out:
-        return out
-    return f"the probe exited {proc.returncode}: {out[-500:]} {proc.stderr[-500:]}"
+    plain8 = [f"{MEDIA_DB}_SRC000_HRC000", f"{MEDIA_DB}_SRC000_HRC001"]
+    summary, wall = p03_cli(yaml_path, plain8)
+    log(f"p03 CLI (u8): {json.dumps(summary)}; wall {wall:.2f} s")
+    launches = summary["launches"]
+    n_chunks = 2 + 1  # HRC000's 120 frames, HRC001's first 60
+    want = launches_want(resize_frames_fused=3 * n_chunks, si_frames_fused=n_chunks,
+                         ti_frames_fused=n_chunks)
+    require(launches == want, f"p03 CLI launches {launches} != {want}")
+    require(summary["bufpool"]["hits"] > 0 and summary["bufpool"]["outstanding"] == 0,
+            f"p03 CLI bufpool {summary['bufpool']}")
+    pvs = tc.pvses
+    t_check = time.perf_counter()
+    kept = []
+    renders = {
+        plain8[0]: check_render(dev, pvs[plain8[0]].segments[0].file_path,
+                                pvs[plain8[0]].get_avpvs_file_path(), "yuv420p", MEDIA_FRAMES,
+                                keep=kept),
+        plain8[1]: check_render(dev, pvs[plain8[1]].segments[0].file_path,
+                                pvs[plain8[1]].get_avpvs_wo_buffer_file_path(), "yuv420p",
+                                MEDIA_FPS),
+    }
+    stall = check_stall(tc, plain8[1], avpvs.DEFAULT_SPINNER)
+    split = media_split(dev, pvs[plain8[0]].segments[0].file_path,
+                        pvs[plain8[0]].get_avpvs_file_path(), kept, summary["fp_workers"])
+    del kept
+    frames = sum(r["frames"] for r in renders.values()) + stall["frames"]
+    log(f"p03 file path u8: {frames} AVPVS frames (wo_buffer {renders[plain8[0]]['frames']} + "
+        f"{renders[plain8[1]]['frames']}, stalled {stall['frames']} with {stall['stalled']} "
+        f"stall frames from {stall['first_stall']}) in {summary['seconds']:.3f} s of stage, "
+        f"{frames / summary['seconds']:.2f} frames/s (CLI wall {wall:.2f} s with start-up); "
+        f"fp_workers {summary['fp_workers']}, threads {summary['threads']}, slices "
+        f"{summary['slices']}; one 120-frame render alone: decode {split['decode_s']:.3f} s, "
+        f"device {split['device_s']:.3f} s, writeback {split['writeback_s']:.3f} s; "
+        f"checks {time.perf_counter() - t_check:.2f} s ({smi})")
+
+    ten = f"{MEDIA_DB}_SRC001_HRC000"
+    summary10, wall10 = p03_cli(yaml_path, [ten], "--avpvs-codec", "rawvideo")
+    require(summary10["launches"] == launches_want(resize_frames_fused=3, si_frames_fused=1,
+                                                   ti_frames_fused=1),
+            f"p03 CLI 10-bit launches {summary10['launches']}")
+    codec = next(s["codec_name"] for s in medialib.probe(pvs[ten].get_avpvs_file_path())["streams"]
+                 if s["codec_type"] == "video")
+    require(codec == "ffv1", f"10-bit rawvideo request wrote {codec}, not the ffv1 fallback")
+    render10 = check_render(dev, pvs[ten].segments[0].file_path, pvs[ten].get_avpvs_file_path(),
+                            "yuv420p10le", MEDIA_FRAMES_10)
+    log(f"p03 file path 10-bit: {render10['frames']} frames (rawvideo requested, {codec} "
+        f"written), planes within {render10['plane_max_err']} of the plain route, SI/TI within "
+        f"{render10['siti_max_err']:.2e}; stage {summary10['seconds']:.3f} s, CLI wall "
+        f"{wall10:.2f} s ({smi})")
+    return {"u8": {"summary": summary, "wall_s": wall, "renders": renders, "stall": stall,
+                   "split": split, "frames": frames,
+                   "frames_per_s": frames / summary["seconds"]},
+            "10bit": {"summary": summary10, "wall_s": wall10, "render": render10},
+            "launches": launches, "launches_10bit": summary10["launches"],
+            "write_s": write_s}
 
 
 def module_probe() -> str:
@@ -3673,8 +3904,9 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     log(smi)
-    log(f"libav (information only): {libav_probe()}")
-    log(f"libav in wheels (information only): {wheel_libav_probe()}")
+    t0 = time.perf_counter()
+    log(f"libav: {medialib.version()} (io/medialib located, bound and checked it in "
+        f"{time.perf_counter() - t0:.2f} s; phase 18 holds it)")
     log(f"python modules (information only): {module_probe()}")
 
     t0 = time.perf_counter()
@@ -3738,6 +3970,9 @@ def main() -> int:
     t17 = time.perf_counter()
     gates = run_gates(dev, workdir, smi)
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    media = run_media(dev, workdir, smi)
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
@@ -3753,7 +3988,8 @@ def main() -> int:
              "serve_gates": gates["recorders"]["launches"],
              **{f"mesh_wave_{k}": v["launches"] for k, v in mesh["waves"]["runs"].items()},
              "mesh_sharded_step": mesh["sharded_step"]["launches"],
-             **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()}}
+             **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()},
+             "p03_file": media["launches"], "p03_file_10bit": media["launches_10bit"]}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
@@ -3779,7 +4015,7 @@ def main() -> int:
                     "quality": quality, "src_analysis": src_summary, "priors": priors,
                     "serve": serve, "mesh": mesh, "profiled": profiled, "database": database,
                     "control": control, "harness": harness, "gates": gates,
-                    "card": smi}))
+                    "media": media, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,9 @@ Deliberate fixes over the reference (documented in SURVEY.md quirks list):
     (reference test_config.py:620-621 keeps the raw YAML value);
   * all invariant violations raise ConfigError instead of sys.exit(1).
 
-The libav probe (`io/probe`) is not ported yet: the `Segment` frame and
-segment info accessors raise `MediaError` saying so. SRC probing goes
-through the injected prober (config/probe_api.StaticProber).
+SRC probing goes through the injected prober (config/probe_api), the
+libav one (io/probe.LibavProber) by default; the `Segment` frame and
+segment info accessors read the port's io/probe.
 """
 
 from __future__ import annotations
@@ -682,19 +682,22 @@ class Segment:
 
     def get_video_frame_info(self):
         if self.video_frame_info is None:
-            probe = _probe_module()
+            from ..io import probe
+
             self.video_frame_info = probe.get_video_frame_info(self.file_path)
         return self.video_frame_info
 
     def get_audio_frame_info(self):
         if self.audio_frame_info is None:
-            probe = _probe_module()
+            from ..io import probe
+
             self.audio_frame_info = probe.get_audio_frame_info(self.file_path)
         return self.audio_frame_info
 
     def get_segment_info(self):
         if self.segment_info is None:
-            probe = _probe_module()
+            from ..io import probe
+
             self.segment_info = probe.get_segment_info(
                 self.file_path, target_video_bitrate=self.target_video_bitrate
             )
@@ -740,16 +743,6 @@ class Segment:
             f"<Segment {self.index:04d} of {self.src.src_id}, "
             f"{self.start_time}-{self.end_time}, {self.quality_level.ql_id}>"
         )
-
-
-def _probe_module():
-    """The libav probe, imported lazily as the reference does. It is not
-    ported yet, so this raises `MediaError` (never `ImportError`)."""
-    from ..io.medialib import MediaError
-
-    raise MediaError(
-        "the libav probe (io/probe) is not ported to the PyTorch package yet: "
-        "segment frame and stream info cannot be read", kind="permanent")
 
 
 def _sha1(path: str) -> str:

@@ -54,10 +54,7 @@ class StaticProber:
 
 
 def default_prober() -> SrcProber:
-    """The real prober backed by the native libav boundary. Not ported yet:
-    raises `MediaError`; pass a `StaticProber` to `TestConfig`."""
-    from ..io.medialib import MediaError
+    """The real prober backed by the port's libav boundary."""
+    from ..io import probe
 
-    raise MediaError(
-        "the libav probe (io/probe) is not ported to the PyTorch package yet: "
-        "pass TestConfig a prober, e.g. config.StaticProber", kind="permanent")
+    return probe.LibavProber()

@@ -1,7 +1,9 @@
-"""Decode-ahead on a worker thread and the streaming frame gathers
-(trimmed copies of `Prefetcher`, processing_chain_tpu/engine/prefetch.py:
-40-253, without heartbeats, and of `stream_monotonic_gather` /
-`stream_fps_resample` :531-623, without the decoded-frame counter).
+"""Decode-ahead on a worker thread, background writeback, and the
+streaming frame gathers (trimmed copies of `Prefetcher`,
+processing_chain_tpu/engine/prefetch.py:40-253, and `AsyncWriter`
+:254-376, both without heartbeats; `iter_plane_chunks` :506-530; and
+`stream_monotonic_gather` / `stream_fps_resample` :531-623, without the
+decoded-frame counter).
 
 The prefetch queue registers in the live-queue registry the resource
 monitor samples (`live_queue_depths`), and each consumer pull records the
@@ -90,6 +92,8 @@ _WAIT = tm.counter(
     ("side",),
 )
 _WAIT_CONSUMER = _WAIT.labels(side="consumer")
+_Q_ENCODE = _Q_DEPTH.labels(queue="encode")
+_WAIT_PRODUCER = _WAIT.labels(side="producer")
 _EVENT_SAMPLE_EVERY = 64  # every Nth depth sample also lands in the event log
 
 
@@ -197,6 +201,135 @@ class Prefetcher:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def to_host(x) -> np.ndarray:
+    """An array on the host: tensors are fetched (a device tensor's fetch
+    waits for the computation that produced it), arrays pass."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+class AsyncWriter:
+    """Background writeback onto a `VideoWriter`: `put` enqueues a chunk of
+    stacked planes ([T, H, W] per plane, host arrays or tensors on any
+    device — device tensors are fetched on the writer thread so the main
+    loop never blocks on a copy); the worker hands whole chunks to the
+    writer's batched encode (one native crossing) when it has one, else
+    writes frame by frame. `close()` drains the queue, closes the writer,
+    and re-raises any worker error.
+
+    `put(..., recycle=blocks)` returns the given pooled host blocks to
+    `pool` (default: bufpool.DEFAULT_POOL) AFTER the chunk is encoded: the
+    fetch of the device outputs waits for the computation that consumed
+    those blocks, so this is the earliest point their reuse is provably
+    safe (a CPU tensor made with torch.from_numpy aliases its block)."""
+
+    def __init__(self, writer, depth: int = 4, pool=None) -> None:
+        from ..io import bufpool
+
+        self._writer = writer
+        self._pool = pool or bufpool.DEFAULT_POOL
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        _register_queue("encode", self._q)
+        self._err: Optional[BaseException] = None
+        #: seconds the worker spent fetching and encoding (writeback time)
+        self.busy_s = 0.0
+
+        def worker() -> None:
+            write_batch = getattr(self._writer, "write_batch", None)
+            while True:
+                item = self._q.get()
+                if item is _SENTINEL:
+                    return
+                chunk, recycle = item
+                if self._err is not None:
+                    # drain without writing after a failure; recycle blocks
+                    # are dropped, not released: their consuming
+                    # computation was never waited for
+                    continue
+                try:
+                    t0 = time.perf_counter()
+                    with profiling.maybe_span("writeback:encode"):
+                        planes = [to_host(p) for p in chunk]
+                        if write_batch is not None:
+                            write_batch(*planes)
+                        else:
+                            for i in range(planes[0].shape[0]):
+                                self._writer.write(*(p[i] for p in planes))
+                    self.busy_s += time.perf_counter() - t0
+                    # outputs are on the host now, so any computation that
+                    # read the recycled input blocks has completed
+                    if recycle:
+                        self._pool.release(*recycle)
+                    if tm.enabled():
+                        tm.FRAMES_ENCODED.inc(planes[0].shape[0])
+                        tm.BYTES_ENCODED.inc(sum(p.nbytes for p in planes))
+                except BaseException as exc:  # noqa: BLE001 - re-raised in close
+                    self._err = exc
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+        self._depth_sampler = _DepthSampler(_Q_ENCODE, "encode")
+
+    def put(self, planes_chunk, recycle=None) -> None:
+        if self._err is not None:
+            self._finish()
+        item = (list(planes_chunk), list(recycle) if recycle else None)
+        if tm.enabled():
+            self._depth_sampler.sample(self._q.qsize())
+            t0 = time.perf_counter()
+            self._q.put(item)
+            _WAIT_PRODUCER.inc(time.perf_counter() - t0)
+        else:
+            self._q.put(item)
+
+    def write_audio(self, samples: np.ndarray) -> None:
+        """Audio goes straight through (written once, before video)."""
+        self._writer.write_audio(samples)
+
+    def _finish(self) -> None:
+        self._q.put(_SENTINEL)
+        self._thread.join()
+        self._writer.close()
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def close(self) -> None:
+        self._finish()
+
+    def __enter__(self) -> "AsyncWriter":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is None:
+            self.close()
+        else:  # don't mask the original error; still stop the thread
+            try:
+                self.close()
+            except Exception:
+                pass
+
+
+def iter_plane_chunks(reader, chunk: int = 64, pool=None) -> Iterator[list[np.ndarray]]:
+    """Stream a `VideoReader` as per-plane [T, H, W] stacks of up to
+    `chunk` frames without materializing the whole clip: each chunk is
+    decoded through ONE native crossing into pooled blocks (hand them back
+    with `AsyncWriter.put(..., recycle=chunk)`). Any other iterable of
+    Frames is stacked frame by frame."""
+    it = getattr(reader, "iter_chunks", None)
+    if it is not None:
+        chunks = it(chunk, pool=pool)
+    else:
+        from ..io.video import iter_stacked_frame_chunks
+
+        chunks = iter_stacked_frame_chunks(reader, chunk)
+    for planes in chunks:
+        if tm.enabled():
+            tm.FRAMES_DECODED.inc(planes[0].shape[0])
+        yield planes
 
 
 class ChunkFrame(NamedTuple):

@@ -1,27 +1,29 @@
-"""AVPVS model — the p03 pixel-domain render core (port of the device
-seam of processing_chain_tpu/models/avpvs.py: CHUNK/chunk_frames :47-78,
-the canvas geometry and codec knobs that take a `Pvs` :93-257 (without
-`set_default_fp_workers`, which only the stage calls), the SI/TI sidecar
-:370-432, the wo_buffer plan and provenance :435-501, `_pump_ready`
-:504-534, and the stalling pass: SPINNER_KINEMATICS, `load_spinner`,
-`insert_stall_silence`, `make_stall_compositor` :1069-1202 and the body
-of `apply_stalling.run` :1254-1281).
+"""AVPVS model — the p03 pixel-domain core (port of
+processing_chain_tpu/models/avpvs.py: CHUNK/chunk_frames :47-78, the
+canvas geometry and writeback knobs :93-257, `_ffv1_writer` :260-297, the
+short path's `_short_rate_chunks`, `_decode_stereo` and
+`_short_segment_audio` :324-367, the SI/TI sidecar :370-432, the wo_buffer
+plan and provenance :435-501, `_pump_ready` :504-534, `_render_wo_buffer`'s
+short branch and `create_avpvs_wo_buffer` :537-643, and the stalling pass:
+SPINNER_KINEMATICS, `load_spinner`, `insert_stall_silence`,
+`make_stall_compositor` and `apply_stalling` :1069-1331).
 
-Per chunk of decoded frames: host→device copy (double-buffered,
-parallel/pipeline.iter_device_ahead) → bicubic resize of Y, U and V to the
-AVPVS canvas (models/frames.scale_yuv_frames) → round and saturate to the
-container depth (quantize_device) → per-frame SI and TI of the quantized
-luma, TI carried across chunk edges (SiTiAccumulator) → hand-off to the
-writer, which owns the device→host fetch. The stalling pass composites
-a spinner (or freezes frames) over the quantized frames on the device
-(`make_stall_compositor`, `pump_stalled`). Decode, the FFV1 writer,
-`apply_stalling`'s job and probe, and the p03 stage around this seam are
-not ported yet.
+Short tests: decode the single encoded segment → per chunk, host→device
+copy (double-buffered, parallel/pipeline.iter_device_ahead) → bicubic
+resize of Y, U and V to the AVPVS canvas (models/frames.scale_yuv_frames)
+→ round and saturate to the container depth (quantize_device) → per-frame
+SI and TI of the quantized luma, TI carried across chunk edges
+(SiTiAccumulator) → FFV1 (+FLAC) AVI on the writer thread
+(engine/prefetch.AsyncWriter). The stalling pass re-reads that AVPVS and
+composites a spinner (or freezes frames) on the device (`pump_stalled`),
+with silence inserted into the audio. The long-test branch (ROADMAP item
+5) raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import os
+from fractions import Fraction
 from typing import Optional
 
 import numpy as np
@@ -29,12 +31,16 @@ import torch
 
 from ..config.domain import Pvs
 from ..engine import prefetch as pfe
+from ..engine.jobs import Job
+from ..io import medialib
+from ..io.video import VideoReader, VideoWriter
 from ..ops import overlay as ov
 from ..ops import siti as siti_ops
 from ..parallel.pipeline import iter_device_ahead
 from ..store import keys as store_keys
 from ..utils import fsio
 from ..utils.device import resolve_device
+from ..utils.log import get_logger
 from . import frames as fr
 
 CHUNK = 64  # frames per device batch (accelerator default; see chunk_frames)
@@ -132,8 +138,7 @@ def ffv1_workers() -> int:
     at 8 (0 on a 1-2 core host — the pool only adds queue overhead when
     there is no core for it to run on). The p03 stage refines the default
     to (spare cores)/(job-pool width) so `-p` runs don't oversubscribe
-    (stages/p03_generate_avpvs in the JAX
-    package; the stage is not ported yet). FFV1 is intra-only, so frames encode
+    (stages/p03_generate_avpvs). FFV1 is intra-only, so frames encode
     independently on private contexts and scale with cores where slice
     threading (the reference's `-threads 4`, lib/ffmpeg.py:1047) tops
     out at slices-per-frame."""
@@ -150,6 +155,27 @@ def ffv1_workers() -> int:
             ) from None
     ncpu = os.cpu_count() or 1
     return 0 if ncpu <= 2 else min(ncpu - 1, 8)
+
+
+def set_default_fp_workers(pool_width: int) -> None:
+    """Install the POOL-AWARE fp-worker default into the env (no-op when
+    PC_FFV1_WORKERS is already pinned by the operator or a flag):
+    `pool_width` concurrent jobs each opening (cores-1) contexts would
+    oversubscribe the host, so the spare cores are divided across the
+    pool. Called by the p03 stage."""
+    # plan-exempt: (presence probe for the pool-aware default; the byte-relevant outcome is the recorded ffv1_slices)
+    if "PC_FFV1_WORKERS" not in os.environ:
+        ncpu = os.cpu_count() or 1
+        per_job = (ncpu - 1) // max(1, pool_width) if ncpu > 2 else 0
+        # plan-exempt: (the pool-aware default; the worker count does not alter encoded bytes)
+        os.environ["PC_FFV1_WORKERS"] = str(max(0, min(per_job, 8)))
+    # plan-exempt: (presence probe for the pool-aware default; the byte-relevant outcome is the recorded ffv1_slices)
+    if "PC_FFV1_THREADS" not in os.environ:
+        # the serial writers' slice-threading default must also divide
+        # across the pool
+        ncpu = os.cpu_count() or 1
+        # plan-exempt: (the pool-aware default; its slice effect is the recorded ffv1_slices)
+        os.environ["PC_FFV1_THREADS"] = str(max(1, ncpu // max(1, pool_width)))
 
 
 #: slice counts the FFV1 encoder accepts (ffv1enc slice tiling table)
@@ -210,6 +236,84 @@ def ffv1_effective_slices() -> int:
     PC_FFV1_THREADS-derived default both flow into cache keys through
     THIS value — fold it into any plan whose artifact is FFV1-encoded."""
     return ffv1_effective_coding()["slices"]
+
+
+def _ffv1_writer(path: str, w: int, h: int, pix_fmt: str, rate: float,
+                 with_audio: bool, sample_rate: int = 48000,
+                 audio_codec: str = "pcm_s16le") -> VideoWriter:
+    frac = Fraction(rate).limit_denominator(1001)
+    audio = dict(audio_codec=audio_codec, sample_rate=sample_rate, channels=2) if with_audio else {}
+    if avpvs_codec() == "rawvideo":
+        if "10" in pix_fmt:
+            # AVI has no fourcc for planar 10-bit rawvideo: every later
+            # read would decode garbage. FFV1 carries 10-bit losslessly.
+            get_logger().warning(
+                "%s: rawvideo cannot carry 10-bit %s in AVI (no fourcc; "
+                "reads back as garbage) — falling back to ffv1",
+                path, pix_fmt,
+            )
+        else:
+            return VideoWriter(path, "rawvideo", w, h, pix_fmt,
+                               (frac.numerator, frac.denominator), **audio)
+    # FFV1 level 3 + slicecrc stream integrity (reference :1047: -level 3
+    # -coder 1 -context 1 -slicecrc 1). Serial writes get slice threading
+    # sized to the thread count; with fp workers, parallelism moves from
+    # slices to whole frames (gop=1) and per-context threading drops to 1.
+    eff = ffv1_effective_coding()
+    opts = "level=3:coder=1:context=1:slicecrc=1"
+    if eff["fp_workers"] > 0:
+        opts += f":pc_fp_workers={eff['fp_workers']}"
+    else:
+        opts += f":slices={eff['slices']}"
+    return VideoWriter(path, "ffv1", w, h, pix_fmt, (frac.numerator, frac.denominator),
+                       threads=eff["threads"], opts=opts, **audio)
+
+
+def _frames_as_tensors(reader):
+    """A reader's Frames as `.planes` CPU tensors (no copy): the frame
+    interface of the port's streaming gathers."""
+    for frame in reader:
+        yield pfe.ChunkFrame([torch.from_numpy(p) for p in frame.planes])
+
+
+def _short_rate_chunks(pvs: Pvs, reader: VideoReader, avpvs_src_fps: bool,
+                       force_60_fps: bool, device=None):
+    """(canvas rate, decoded chunk stream) for the short path: native
+    segment frame rate unless -z/-f60 (reference create_avpvs_short
+    :940-1000)."""
+    seg_fps = reader.fps
+    rate = pvs.src.get_fps() if avpvs_src_fps else (60.0 if force_60_fps else seg_fps)
+    chunk = chunk_frames(device)
+    chunks = (
+        pfe.stream_fps_resample(_frames_as_tensors(reader), seg_fps, rate, chunk)
+        if rate != seg_fps
+        else pfe.iter_plane_chunks(reader, chunk)
+    )
+    return rate, chunks
+
+
+def _decode_stereo(path: str, start: float = 0.0, duration: float = 0.0):
+    """(samples[n, 2] int16, rate): decode with libswresample's stereo
+    remix — the ffmpeg `-ac 2` the reference applies in audio_mux
+    (lib/ffmpeg.py:1284)."""
+    return medialib.decode_audio_s16(path, start, duration, channels=2)
+
+
+def _short_segment_audio(seg):
+    """The short path carries the encoded segment's audio into the AVPVS
+    as FLAC (reference create_avpvs_short's `-c:a flac`,
+    lib/ffmpeg.py:995). (samples, rate) or (None, rate)."""
+    try:
+        samples, srate = _decode_stereo(seg.file_path)
+    except medialib.MediaError as exc:
+        # no-audio-stream and decode-failure are one exception type; the
+        # warning keeps a real failure from silently shipping an
+        # audio-less AVPVS
+        get_logger().warning("%s: no audio carried into AVPVS (%s)", seg.filename, exc)
+        return None, 48000
+    if samples.size == 0:
+        return None, srate
+    return samples, srate
 
 
 def _wo_buffer_out_path(pvs: Pvs) -> str:
@@ -288,11 +392,6 @@ def siti_sidecar_path(avpvs_path: str) -> str:
     return avpvs_path + ".siti.csv"
 
 
-def _host(x) -> np.ndarray:
-    """A feature array on the host: tensors are fetched, numpy passes."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 class SiTiAccumulator:
     """Per-frame SI/TI of the upscaled luma, computed on the device during
     the AVPVS render while the frames are already there, so downstream
@@ -323,8 +422,8 @@ class SiTiAccumulator:
         if not self.si:
             return None
         path = siti_sidecar_path(avpvs_path)
-        si = np.concatenate([_host(s) for s in self.si])
-        ti = np.concatenate([_host(t) for t in self.ti])
+        si = np.concatenate([pfe.to_host(s) for s in self.si])
+        ti = np.concatenate([pfe.to_host(t) for t in self.ti])
 
         # atomic: an interrupted write must never leave a truncated
         # sidecar next to a complete AVPVS
@@ -362,6 +461,58 @@ def pump_ready(ready, writer, feat: SiTiAccumulator, h: int, w: int,
         quant = fr.quantize_device(scaled, ten_bit)
         feat.update(quant[0])
         writer.put(quant, recycle=chunk)
+
+
+def _render_wo_buffer(pvs: Pvs, out_path: str, w: int, h: int, pix_fmt: str,
+                      avpvs_src_fps: bool, force_60_fps: bool, feat: SiTiAccumulator,
+                      device=None) -> None:
+    """The decode → device rescale → FFV1(+audio) render body: the single
+    segment at its native frame rate unless -z/-f60, decoded ahead on a
+    prefetch thread, encoded on the writer thread."""
+    if not pvs.test_config.is_short():
+        raise NotImplementedError(
+            f"{pvs.pvs_id}: long-test AVPVS rendering (per-segment canvas "
+            "resampling, SRC audio mux) is ROADMAP Queue A item 5")
+    seg = pvs.segments[0]
+    audio, srate = _short_segment_audio(seg)
+    with VideoReader(seg.file_path) as reader:
+        rate, chunks = _short_rate_chunks(pvs, reader, avpvs_src_fps, force_60_fps, device)
+        with pfe.AsyncWriter(_ffv1_writer(
+            out_path, w, h, pix_fmt, rate, with_audio=audio is not None,
+            sample_rate=srate, audio_codec="flac",
+        )) as writer:
+            if audio is not None:
+                writer.write_audio(audio)
+            with pfe.Prefetcher(chunks, depth=2) as pre:
+                pump_ready(pre, writer, feat, h, w, pix_fmt, device)
+
+
+def create_avpvs_wo_buffer(pvs: Pvs, avpvs_src_fps: bool = False,
+                           force_60_fps: bool = False, device=None) -> Optional[Job]:
+    """The decode+rescale(+audio) stage producing the pre-stalling AVPVS
+    (or the final one when the HRC has no buffering), on `device` (`None`
+    means `cuda:0`)."""
+    out_path = _wo_buffer_out_path(pvs)
+    w, h = avpvs_dimensions(pvs)
+    pix_fmt = pvs.get_pix_fmt_for_avpvs()
+
+    def run() -> str:
+        SiTiAccumulator.discard(out_path)  # never leave a stale sidecar
+        feat = SiTiAccumulator()
+        _render_wo_buffer(pvs, out_path, w, h, pix_fmt, avpvs_src_fps, force_60_fps,
+                          feat, device)
+        feat.write(out_path)
+        return out_path
+
+    return Job(
+        label=f"avpvs {pvs.pvs_id}",
+        output_path=out_path,
+        fn=run,
+        logfile_path=pvs.get_logfile_path(),
+        plan=_wo_buffer_plan(pvs, w, h, pix_fmt, avpvs_src_fps, force_60_fps, device),
+        sidecar_suffixes=(".siti.csv",),
+        provenance=_wo_buffer_provenance(pvs, w, h, pix_fmt),
+    )
 
 
 #: Versioned record of the bufferer-kinematics ASSUMPTIONS baked into
@@ -503,3 +654,90 @@ def pump_stalled(frames, plan: ov.StallPlan, composite, writer,
                 plan.black_mask[start: start + sel_len],
                 plan.phase[start: start + sel_len],
             ))
+
+
+def apply_stalling(pvs: Pvs, spinner_path: Optional[str] = None, n_rotations: int = 64,
+                   device=None) -> Optional[Job]:
+    """The bufferer pass (reference p03:216-260): re-render the wo_buffer
+    AVPVS with stall insertions (spinner over black frames) or
+    frame-freeze skipping, composited on `device` (`None` means
+    `cuda:0`)."""
+    if not pvs.has_buffering():
+        return None
+    in_path = pvs.get_avpvs_wo_buffer_file_path()
+    out_path = pvs.get_avpvs_file_path()
+    skipping = pvs.has_framefreeze()
+    events = pvs.get_buff_events_media_time()
+
+    def run() -> str:
+        with VideoReader(in_path) as probe_reader:
+            rate = probe_reader.fps
+            pix_fmt = probe_reader.pix_fmt
+            w, hgt = probe_reader.width, probe_reader.height
+        # frame count without a decode pass: container metadata, else a
+        # packet scan (FFV1 is intra-only: one packet per frame)
+        vstreams = [s for s in medialib.probe(in_path)["streams"]
+                    if s["codec_type"] == "video"]
+        n = int(vstreams[0].get("nb_frames") or 0) if vstreams else 0
+        if n <= 0:
+            n = len(medialib.scan_packets(in_path, "video")["size"])
+        plan = ov.plan_stalling(n, rate, events, skipping=skipping, black_frame=True,
+                                n_rotations=n_rotations)
+        composite = make_stall_compositor(pix_fmt, spinner_path, skipping, n_rotations,
+                                          device=device)
+        # audio: decode, insert stall silence at wallclock positions
+        audio = None
+        srate = 48000
+        try:
+            # the wo_buffer AVPVS is stereo by construction; channels=2
+            # pins the writer contract against a surprise layout
+            audio, srate = _decode_stereo(in_path)
+        except medialib.MediaError:
+            audio = None
+        if audio is not None and audio.size and not skipping:
+            audio = insert_stall_silence(audio, srate, events)
+        with VideoReader(in_path) as reader, pfe.AsyncWriter(_ffv1_writer(
+            out_path, w, hgt, pix_fmt, rate,
+            with_audio=audio is not None and audio.size > 0, sample_rate=srate,
+        )) as writer:
+            if audio is not None and audio.size:
+                writer.write_audio(audio)
+            pump_stalled(_frames_as_tensors(reader), plan, composite, writer,
+                         chunk_frames(device))
+        return out_path
+
+    lf = pvs.get_logfile_path()
+    prov = {
+        "pvs": pvs.pvs_id,
+        "mode": "skipping" if skipping else "spinner-stall",
+        "events": events,
+    }
+    if not skipping:
+        prov["spinner_kinematics"] = dict(SPINNER_KINEMATICS, n_rotations=n_rotations)
+    # plan: the wo_buffer render is THE input (its digest covers every
+    # upstream knob transitively), plus the stall schedule and spinner
+    plan = {
+        "op": "avpvs_stalling",
+        "input": store_keys.file_ref(in_path),
+        "events": [[float(e[0]), float(e[1])] for e in events],
+        "mode": "skipping" if skipping else "spinner-stall",
+        "spinner": (store_keys.file_ref(spinner_path)
+                    if not skipping and spinner_path else None),
+        "kinematics": (dict(SPINNER_KINEMATICS, n_rotations=n_rotations)
+                       if not skipping else None),
+        # requested, not effective: the input's pix_fmt is unknown until
+        # run time, so a 10-bit ffv1 fallback over-invalidates on codec
+        # flips rather than under-invalidating
+        "codec": avpvs_codec(),
+        "ffv1_slices": ffv1_effective_slices(),
+    }
+    return Job(
+        label=f"stalling {pvs.pvs_id}",
+        output_path=out_path,
+        fn=run,
+        plan=plan,
+        # own provenance file: the wo_buffer render already owns
+        # logs/<pvs>.log and a shared path would overwrite it
+        logfile_path=(lf[:-4] if lf.endswith(".log") else lf) + "_stalling.log",
+        provenance=prov,
+    )

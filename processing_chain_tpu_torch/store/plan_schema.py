@@ -109,6 +109,20 @@ ENV_INPUTS: dict[str, dict] = {
                   "shards WHICH process renders each lane; per-artifact "
                   "bytes are topology-invariant",
     },
+    "PC_LIBAV_DIRS": {
+        "status": "exempt",
+        "reason": "names the folder io/medialib binds libav from; the "
+                  "copy bound must pass the struct layout check, and "
+                  "decoded frames are held identical across libavs (FFV1 "
+                  "bytes may differ between libav versions, a difference "
+                  "the plan does not key, as the JAX package's does not)",
+    },
+    "PC_FUSE_P04": {
+        "status": "exempt",
+        "reason": "routing only: the port's p03 stage refuses the fused "
+                  "p03+p04 fan-out it does not have yet (ROADMAP item 8); "
+                  "no artifact byte depends on the read",
+    },
     "LOCAL_RANK": {
         "status": "exempt",
         "reason": "picks the card a process joins NCCL on; the kernels "

@@ -1,13 +1,14 @@
-"""Process-wide active-store slot (trimmed copy of
-processing_chain_tpu/store/runtime.py, without the stage CLI's
-`configure_from_args`).
+"""Process-wide active-store slot (copy of
+processing_chain_tpu/store/runtime.py).
 
-The engine consults `active()` at plan and commit time; the serve
-service configures it to its store at construction.
+The engine consults `active()` at plan and commit time; the stage CLI
+configures it from its flags, the serve service to its store at
+construction.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from .store import ArtifactStore
@@ -25,6 +26,20 @@ def configure(root: Optional[str],
     global _ACTIVE
     _ACTIVE = ArtifactStore(root, tier_spec=tiers) if root else None
     return _ACTIVE
+
+
+def configure_from_args(args) -> Optional[ArtifactStore]:
+    """CLI wiring: --no-store wins, then --store DIR, then PC_STORE_DIR;
+    the tier spec comes from --store-tiers, then PC_STORE_TIERS.
+    Always reassigns the slot so successive in-process dispatches (tests,
+    orchestrators) never inherit a previous run's store by accident."""
+    if getattr(args, "no_store", False):
+        return configure(None)
+    # plan-exempt: (names WHERE the store lives, never what an artifact contains)
+    root = getattr(args, "store", None) or os.environ.get("PC_STORE_DIR") or None
+    # plan-exempt: (names WHERE artifact bytes are placed, never what they contain)
+    tiers = getattr(args, "store_tiers", None) or os.environ.get("PC_STORE_TIERS") or None
+    return configure(root, tiers=tiers)
 
 
 def active() -> Optional[ArtifactStore]:

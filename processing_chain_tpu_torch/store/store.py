@@ -1,9 +1,7 @@
 """CAS object directory with atomic commits and integrity-verified reads
-(copy of processing_chain_tpu/store/store.py without the adoption of
-pre-store outputs, which waits for the port's stage CLI, and without the
-libav read-back probe: the port has no media boundary, so its probe is
-the reference's answer when no decoder loads, none). Every commit feeds
-the PC_PLAN_DEBUG plan-purity recorder (utils/plandebug).
+(copy of processing_chain_tpu/store/store.py). Every commit feeds the
+PC_PLAN_DEBUG plan-purity recorder (utils/plandebug); media objects get
+the container read-back probe through the port's media boundary.
 
 On-disk layout under the store root (docs/STORE.md):
 
@@ -11,6 +9,9 @@ On-disk layout under the store root (docs/STORE.md):
     manifests/<plan_hash>.json        one manifest per cached plan
     tmp/                              in-flight commits (pid-unique names)
     pins.json                         {plan_hash: label} GC roots
+    seen-paths.jsonl                  every output path ever bound (the
+                                      adoption ledger: survives manifest
+                                      eviction/corruption drops)
     digest-cache.json                 stat-keyed input digest cache
 
 Commit protocol: artifact bytes are hardlinked (copied across devices)
@@ -24,7 +25,10 @@ Read protocol (`serve_hit`): the manifest's object is spot-checked
 then materialized to the legacy output path by hardlink when possible.
 A mismatch anywhere counts `chain_store_corrupt_total`, drops the
 manifest, and the caller rebuilds — corruption converts to a cache miss,
-never to a served artifact.
+never to a served artifact. Media objects additionally get a container
+read-back probe (open + decode one frame) at commit, which rejects the
+write-time corruption class the round-5 advisor reproduced (10-bit
+rawvideo muxed into AVI reads back as garbage) before it can be cached.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from . import keys
 from .backends import BackendIntegrityError
 from .backends.local import _link_or_copy
 from .tiers import TieredStore
-from ..utils import plandebug
+from ..utils import lockdebug, plandebug
 
 STORE_HITS = tm.counter(
     "chain_store_hits_total", "jobs served from the artifact store", ("runner",)
@@ -59,6 +63,10 @@ STORE_CORRUPT = tm.counter(
     "chain_store_corrupt_total",
     "integrity failures detected on read (digest or container probe)",
 )
+STORE_ADOPTIONS = tm.counter(
+    "chain_store_adoptions_total",
+    "pre-store artifacts adopted on first sight (legacy skip-existing parity)",
+)
 STORE_BYTES = tm.gauge(
     "chain_store_object_bytes", "bytes held in the store's object directory"
 )
@@ -68,6 +76,10 @@ STORE_OBJECTS = tm.gauge(
 
 #: full-digest verification threshold for ordinary (non-deep) reads
 _FULL_VERIFY_MAX = 64 << 20
+
+#: containers worth a read-back probe (everything the chain muxes)
+_MEDIA_EXTS = {".avi", ".mp4", ".mkv", ".webm", ".mov"}
+
 
 class StoreCorruption(RuntimeError):
     """An artifact failed integrity verification (digest mismatch or a
@@ -126,12 +138,47 @@ class Manifest:
         return [self.object, *self.sidecars.values(), *self.extras.values()]
 
 
+def _probe_readback(path: str) -> Optional[dict]:
+    """Open a media container and decode one frame; a summary dict on
+    success, None for non-media files or when the native media boundary
+    is unavailable in this environment, StoreCorruption when the file
+    does not read back."""
+    if os.path.splitext(path)[1].lower() not in _MEDIA_EXTS:
+        return None
+    try:
+        from ..io import medialib
+        medialib.ensure_loaded()
+    except Exception:
+        return None  # no decoder on this host: digest checks still apply
+    from ..io.medialib import MediaError
+    from ..io.video import VideoReader
+
+    try:
+        streams = medialib.probe(path).get("streams", [])
+        with VideoReader(path) as reader:
+            decoded = 0
+            for _ in reader:
+                decoded += 1
+                break
+            if decoded == 0:
+                raise MediaError("no frames decodable")
+            return {
+                "pix_fmt": reader.pix_fmt,
+                "width": reader.width,
+                "height": reader.height,
+                "fps": round(reader.fps, 6),
+                "streams": len(streams),
+            }
+    except MediaError as exc:
+        raise StoreCorruption(f"{path}: container read-back failed: {exc}") from exc
+
+
 class ArtifactStore:
     """Content-addressed store rooted at one directory. Thread-compatible
     with the chain's job pools: commits are tmp+rename (last writer of an
     identical object wins, harmlessly), manifests are whole-file atomic
-    writes, and the digest cache carries its own lock (plan hashes are
-    resolved on JobRunner workers)."""
+    writes, and the digest cache and adoption ledger carry their own
+    locks (commit-time hash re-resolution runs on JobRunner workers)."""
 
     def __init__(self, root: str, tier_spec: Optional[str] = None) -> None:
         self.root = os.path.abspath(root)
@@ -150,6 +197,13 @@ class ArtifactStore:
             self.tiers = TieredStore.single(self.objects_dir, self.tmp_dir)
         self.digests = keys.DigestCache(os.path.join(self.root, "digest-cache.json"))
         self._pins_path = os.path.join(self.root, "pins.json")
+        #: lazily-built set of output paths the store has ever bound
+        #: (manifests ∪ the durable seen-paths ledger) — the
+        #: adopt-vs-rebuild discriminator (see should_adopt)
+        self._known_paths: Optional[set[str]] = None
+        self._paths_path = os.path.join(self.root, "seen-paths.jsonl")
+        self._paths_lock = lockdebug.make_lock("store_paths")
+        self._seen_paths: Optional[set[str]] = None  # lazy ledger cache
         #: incrementally-maintained gauge state ({"objects", "bytes"});
         #: None until the first update_gauges walk
         self._gauge_stats: Optional[dict] = None
@@ -258,6 +312,54 @@ class ArtifactStore:
 
         atomic_write(self._pins_path, _write)
 
+    # ---------------------------------------------------- adoption ledger
+
+    def _load_seen_paths(self) -> set[str]:
+        """The ledger, loaded once per store object (JSONL: one JSON
+        string per line; a torn last line from a crash is skipped)."""
+        if self._seen_paths is None:
+            seen: set[str] = set()
+            try:
+                with open(self._paths_path) as f:
+                    for line in f:
+                        line = line.strip()
+                        if not line:
+                            continue
+                        try:
+                            entry = json.loads(line)
+                        except ValueError:
+                            continue  # torn tail from a crashed appender
+                        if isinstance(entry, str):
+                            seen.add(entry)
+            except OSError:
+                pass
+            self._seen_paths = seen
+        return self._seen_paths
+
+    def _record_seen_path(self, path: str) -> None:
+        """Durably record an output path the store has bound. The ledger
+        must outlive the manifest: GC eviction (or a corruption drop)
+        removes the manifest but leaves the materialized output on disk,
+        and without this record a later run with a CHANGED plan would
+        re-adopt those stale bytes instead of rebuilding (defeating
+        hash-equality staleness exactly where it matters). O(1) per
+        commit: append-only JSONL, deduped through the in-memory cache.
+        Best-effort: a persistence failure degrades to the legacy
+        adoption trust."""
+        path = os.path.abspath(path)
+        with self._paths_lock:
+            seen = self._load_seen_paths()
+            if path in seen:
+                return
+            seen.add(path)
+            if self._known_paths is not None:
+                self._known_paths.add(path)
+            try:
+                with open(self._paths_path, "a") as f:
+                    f.write(json.dumps(path) + "\n")
+            except OSError:
+                pass
+
     # -------------------------------------------------------------- commit
 
     def _ingest(self, path: str) -> dict:
@@ -281,27 +383,48 @@ class ArtifactStore:
         output_path: str,
         producer: str = "",
         provenance: Optional[dict] = None,
+        sidecar_suffixes: tuple = (),
+        extra_outputs: tuple = (),
+        adopted: bool = False,
     ) -> Manifest:
-        """Bind `plan_hash` to the artifact at `output_path`. The
-        reference runs a container read-back probe here, before
-        ingestion, and binds sidecars and companion files too; the port
-        commits one file and has no decoder, so `media` is None as in
-        the reference on a host where none loads. Manifests the
-        reference wrote with sidecars and extras are read, verified,
-        served and collected in full."""
+        """Bind `plan_hash` to the artifact at `output_path` (plus any
+        existing `output_path + suffix` sidecars and `extra_outputs`
+        companion files at their own absolute paths). The container
+        read-back probe runs BEFORE ingestion: an artifact that does not
+        decode is rejected here, at the boundary where rebuilding is
+        cheap, instead of being served as a 'verified' cache hit later."""
+        media = _probe_readback(output_path)
         digest = self._ingest(output_path)
+        sidecars = {}
+        for suffix in sidecar_suffixes:
+            side = output_path + suffix
+            if os.path.isfile(side):
+                sidecars[suffix] = self._ingest(side)
+        extras = {}
+        base = os.path.dirname(os.path.abspath(output_path))
+        for extra in extra_outputs:
+            if os.path.isfile(extra):
+                rel = os.path.relpath(os.path.abspath(extra), base)
+                extras[rel] = self._ingest(extra)
         st = os.stat(output_path)
+        provenance = dict(provenance or {})
+        if adopted:
+            provenance["adopted"] = True
         manifest = Manifest(
             plan_hash=plan_hash,
             object=digest,
             producer=producer,
             created_at=time.time(),
             chain_version=keys.chain_version(),
-            provenance=dict(provenance or {}),
+            provenance=provenance,
+            media=media,
+            sidecars=sidecars,
+            extras=extras,
             materialized={"path": os.path.abspath(output_path),
                           "size": st.st_size, "mtime_ns": st.st_mtime_ns},
         )
         self._write_manifest(manifest)
+        self._record_seen_path(output_path)
         # plan-purity recorder (PC_PLAN_DEBUG, utils/plandebug): every
         # commit binds plan hash -> content digest; two different byte
         # streams under one hash fail the suite's sessionfinish gate
@@ -309,6 +432,23 @@ class ArtifactStore:
                          scope=self.root)
         self.update_gauges()
         return manifest
+
+    def should_adopt(self, output_path: str) -> bool:
+        """Whether an existing output the store has never seen should be
+        adopted (committed as-is under the current plan hash) instead of
+        rebuilt. True exactly when the store has never bound this path —
+        neither a live manifest nor the durable seen-paths ledger (which
+        survives GC eviction and corruption drops) knows it. Pre-store
+        artifacts keep the legacy skip-existing trust on the first
+        store-enabled run; a path the store HAS tracked whose plan hash
+        no longer matches is genuinely stale and must rebuild."""
+        if self._known_paths is None:
+            self._known_paths = {
+                m.materialized["path"]
+                for m in self.iter_manifests()
+                if m.materialized
+            } | self._load_seen_paths()
+        return os.path.abspath(output_path) not in self._known_paths
 
     # ---------------------------------------------------------------- read
 
@@ -369,7 +509,7 @@ class ArtifactStore:
         """Unlink every object of `manifest` that fails verification. The
         bytes must go WITH the manifest: the rebuild produces the same
         content digest, and `_ingest` dedupes on object existence — a
-        corrupt object left in place would be silently reused and
+        corrupt object left in place would be silently re-adopted and
         re-detected on every later run."""
         for digest in manifest.all_digests():
             try:
@@ -480,6 +620,7 @@ class ArtifactStore:
                     "size": st.st_size, "mtime_ns": st.st_mtime_ns,
                 }
                 self._write_manifest(manifest)
+                self._record_seen_path(dest)
             else:
                 # main output untouched, but a companion may have been
                 # deleted out-of-band (e.g. -r removed an intermediate's

@@ -23,6 +23,14 @@ METRICS: dict[str, str] = {
     # engine/prefetch.py — bounded-queue pipeline
     "chain_queue_depth": "histogram",
     "chain_pipeline_wait_seconds_total": "counter",
+    # io/video.py, io/medialib.py, io/sharedscan.py — the media boundary:
+    # chunk-granular crossings, decoder opens, demux/parse passes that are
+    # not decoder opens, and the shared post-encode scan cache
+    "chain_io_batch_calls_total": "counter",
+    "chain_io_decoder_opens_total": "counter",
+    "chain_io_scan_passes_total": "counter",
+    "chain_io_sharedscan_hits_total": "counter",
+    "chain_io_sharedscan_misses_total": "counter",
     # io/bufpool.py — host block recycling
     "chain_bufpool_hits_total": "counter",
     "chain_bufpool_misses_total": "counter",
@@ -43,6 +51,7 @@ METRICS: dict[str, str] = {
     # store/store.py
     "chain_store_hits_total": "counter",
     "chain_store_misses_total": "counter",
+    "chain_store_adoptions_total": "counter",
     "chain_store_corrupt_total": "counter",
     "chain_store_object_bytes": "gauge",
     "chain_store_objects": "gauge",

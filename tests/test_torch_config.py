@@ -374,19 +374,27 @@ def test_config_model_case_equal_in_both_packages(case, tmp_path):
 
 
 def test_no_prober_raises_media_error(tmp_path):
-    """Without a prober the port needs the libav probe, which it does not
-    have yet: a MediaError saying so, never an ImportError."""
+    """Without a prober both packages probe the SRC through their libav
+    boundary: this database's SRC is an empty placeholder, so the parse
+    succeeds and a MediaError (never an ImportError) is deferred to what
+    touches the SRC, classified `poison`; the segment accessors read
+    segment files that do not exist and raise MediaError naming the
+    open."""
+    from processing_chain_tpu.io.medialib import MediaError as JMediaError
     from processing_chain_tpu_torch.io.medialib import MediaError
 
     yaml_path, _ = write_short_db(tmp_path)
-    with pytest.raises(MediaError, match="libav probe"):
-        db.TORCH.TestConfig(yaml_path)
+    for pkg, err in ((db.JAX, JMediaError), (db.TORCH, MediaError)):
+        src = pkg.TestConfig(yaml_path).srcs["SRC000"]
+        assert isinstance(src.probe_error, err)
+        with pytest.raises(err, match="unprobeable") as exc:
+            src.stream_info
+        assert exc.value.kind == "poison"
     tc = _load(db.TORCH, yaml_path, write_short_db(tmp_path)[1])
     seg = next(iter(tc.segments))
     for fn in (seg.get_video_frame_info, seg.get_audio_frame_info, seg.get_segment_info):
-        with pytest.raises(MediaError, match="libav probe") as exc:
+        with pytest.raises(MediaError, match="open_input"):
             fn()
-        assert exc.value.kind == "permanent"
 
 
 def test_unprobeable_src_defers_as_poison(tmp_path):

@@ -148,6 +148,12 @@ def test_fresh_interpreter_imports_no_jax():
                 "processing_chain_tpu_torch.tools.chainlint.queue_transitions",
                 "processing_chain_tpu_torch.tools.chainlint.subproc",
                 "processing_chain_tpu_torch.tools.chainlint.telemetry_names",
+                "processing_chain_tpu_torch.io.medialib",
+                "processing_chain_tpu_torch.io.probe",
+                "processing_chain_tpu_torch.io.sharedscan",
+                "processing_chain_tpu_torch.io.video",
+                "processing_chain_tpu_torch.cli",
+                "processing_chain_tpu_torch.stages.p03_generate_avpvs",
                 "processing_chain_tpu_torch.__main__"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -166,6 +172,22 @@ def test_no_forbidden_import_in_source(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, node.lineno, names)
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(PKG, "csrc", n) for n in os.listdir(os.path.join(PKG, "csrc"))),
+    ids=os.path.basename)
+def test_native_source_includes_nothing_of_the_jax_package_or_libav(path):
+    """csrc/ builds from the repo alone: no JAX-package file, and the
+    media boundary declares what it calls of libav instead of including
+    its headers."""
+    import re
+
+    with open(path) as f:
+        includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]", f.read(), re.M)
+    assert includes
+    assert not [i for i in includes if "processing_chain_tpu" in i or "native/" in i
+                or i.startswith(("libav", "libsw"))]
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

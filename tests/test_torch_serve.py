@@ -566,8 +566,10 @@ def test_job_serves_committed_plan_from_store(tmp_path):
     """JAX counterpart: tests/test_store.py::
     test_corrupt_store_object_triggers_exactly_one_rebuild. A job whose
     plan the store holds is skipped and its output materialized; a
-    same-size corruption of the object is a miss that reruns the job;
-    a runner with no active store refuses the job."""
+    same-size corruption of the object is a miss that reruns the job.
+    Without an active store a job keeps the legacy skip-existing
+    semantics, as in the JAX package: it runs while its output is
+    missing."""
     out = str(tmp_path / "art" / "x.bin")
     os.makedirs(os.path.dirname(out))
 
@@ -578,8 +580,9 @@ def test_job_serves_committed_plan_from_store(tmp_path):
     def job():
         return Job(label="j", output_path=out, fn=write, plan={"op": "w"})
 
-    with pytest.raises(ChainError, match="active artifact store"):
-        JobRunner(name="none").add(job())
+    legacy = JobRunner(name="none")
+    legacy.add(job())
+    assert len(legacy.jobs) == 1 and store_runtime.active() is None
     store = store_runtime.configure(str(tmp_path / "store"))
     try:
         runner = JobRunner(name="cold")

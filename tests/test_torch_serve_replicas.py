@@ -266,8 +266,8 @@ def test_scheduler_quarantines_permanent_failures(tmp_path):
     """End-to-end through the scheduler: a ChainError(kind='permanent')
     lands the record in 'quarantined' on the FIRST attempt — no retry
     burn — and on_failed fires with the quarantined record."""
-    # the port's job runner needs an active store (the reference's
-    # also runs storeless, with the legacy skip-existing check)
+    # with a store the job runner keys by plan hash (without one it keeps
+    # the legacy skip-existing check, as the reference's does)
     store_runtime.configure(str(tmp_path / "store"))
     tm.enable()
     try:
@@ -303,8 +303,8 @@ def test_scheduler_backoff_delays_transient_retry(tmp_path):
     """Retry pacing through the scheduler: with a transient failure the
     second attempt waits out the exponential backoff instead of
     refiring within milliseconds."""
-    # the port's job runner needs an active store (the reference's
-    # also runs storeless, with the legacy skip-existing check)
+    # with a store the job runner keys by plan hash (without one it keeps
+    # the legacy skip-existing check, as the reference's does)
     store_runtime.configure(str(tmp_path / "store"))
     tm.enable()
     try:

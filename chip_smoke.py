@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (processing_chain_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase, then the result lines
+    python3 chip_smoke.py --phases 16,18    # phases 1-2, then these alone
+    python3 chip_smoke.py --steadiness 8 [--against DIR]
+                                            # phase 16's wall-clock gates, repeated
 
-Phases, each fatal on failure (a non-zero exit, and no result line):
+Phases, each fatal on failure: the run stops there and prints one line,
+`chip_smoke: FAILED in phase <n> (<name>): <message>`, exits 1 and prints
+no result line. Each phase's start is logged with its number and name,
+its end with its seconds:
   1. device: CUDA must be present; prints the card's name and power limit,
      the libav that io/medialib located, built csrc/media.cpp against and
      checked (fatal when none binds), and, for information only, whether
@@ -207,7 +213,7 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      artifacts against the plain route; then utils.lockdebug.check() (at
      least one edge, acyclic) and utils.plandebug.check() (2 plans, no
      same-plan/different-bytes): edges, locks, plans and seconds
- 18. the media boundary and p03's file-level short path, under
+ 18. the media boundary and p03's file-level single-device route, under
      build/chip_smoke/media (removed after): (a) the libav io/medialib
      bound (paths, versions, the layout entries its round trips passed),
      which of h264, hevc, vp9, av1, aac and flac it decodes (h264
@@ -221,19 +227,37 @@ Phases, each fatal on failure (a non-zero exit, and no result line):
      stereo) and its segments as FFV1+FLAC through the port's VideoWriter
      (the card's libav has no H.264 encoder), loaded with the libav
      prober; `python -m processing_chain_tpu_torch p03` as a process on
-     cuda:0 for HRC000 (one 2 s segment) and HRC001 (a stall between two
-     1 s segments): its summary's launches (3 resize + 1 SI + 1 TI a
-     64-frame chunk) and buffer pool (hits, nothing outstanding); each
-     wo_buffer AVPVS against resize_frames_plain of its decoded segment
-     on the card (bit-exact) and its .siti.csv against si/ti_frames_plain
-     (1e-3); the stalled AVPVS's frame count against its plan, the frames
-     around its first stall against the compositor on the CPU, its audio
-     the segment's with the planned silence; frames/s, and decode, device
-     and writeback seconds of one render measured alone; (c) SRC001
-     (yuv420p10le, 32 fps, 64 frames) through the CLI with
-     `--avpvs-codec rawvideo`, which writes the FFV1 fallback, held the
-     same way (planes within a code value, SI/TI within 1e-2). The launch
-     counts join `paths` as p03_file and p03_file_10bit
+     cuda:0 for HRC000 (one 2 s segment), HRC001 (a stall between two
+     1 s segments) and HRC002 (two frame freezes, (d)): its summary's
+     launches (3 resize + 1 SI + 1 TI a 64-frame chunk), decoder opens
+     (one a rendered segment, two a stall pass) and buffer pool (hits,
+     nothing outstanding); each wo_buffer AVPVS against
+     resize_frames_plain of its decoded segment on the card (bit-exact)
+     and its .siti.csv against si/ti_frames_plain (1e-3); the stalled
+     AVPVS's frame count against its plan, the frames at each edge of its
+     stall against the compositor on the CPU, its audio the segment's
+     with the planned silence; frames/s, and decode, device and writeback
+     seconds of one render measured alone; (c) SRC001 (yuv420p10le, 32
+     fps, 64 frames) through the CLI with `--avpvs-codec rawvideo`, which
+     writes the FFV1 fallback, held the same way (planes within a code
+     value, SI/TI within 1e-2); (d) HRC002, two frame freezes (0.25 s and
+     0.5 s) after a 1 s segment, from (b)'s CLI run: its frozen AVPVS as
+     long as the wo_buffer render, the frames at each freeze's edges
+     equal to the compositor's plain route on the CPU over the skipping
+     plan's gather, its audio untouched; (e) P2LTR18, the same SRC as a
+     long test (two 1 s FFV1+FLAC segments, a 0.5 s stall at the join)
+     through the CLI: launches from its segments' canvas chunks (3 resize
+     + 1 SI + 1 TI a chunk, a segment never sharing one), the stage's
+     decoder opens (one a segment), the 120-frame wo_buffer AVPVS against
+     the plain route over its segments decoded in turn (bit-exact, SI/TI
+     within 1e-3, TI chained across the join), its audio the SRC's over
+     the PVS's 2 s, the 150-frame stalled AVPVS as in (b). The launch
+     counts join `paths` as p03_file, p03_file_10bit and p03_file_long
+`--steadiness N` runs no phase: it repeats phase 16's three wall-clock
+gates N times as processes (the pack bench's e2e tail, the chaos self-test's
+and the chaos run's 50 ms warm p50), in turns over this checkout and each
+`--against` checkout (a parent unpacked beside it), their roots where phase
+16 puts them; it logs each reading and the failures by gate and checkout.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 18's in the stage process, which reports them). The last two
 lines of standard output are one JSON object with every kernel's numbers
@@ -243,7 +267,9 @@ media file; phase 18 reads the committed spinner PNG with PIL.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import itertools
 import json
 import os
 import queue
@@ -252,6 +278,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 from types import SimpleNamespace
@@ -1029,6 +1056,7 @@ class KeepSink:
     @property
     def frames(self) -> int:
         return sum(c[0].shape[0] for c in self.chunks)
+
 
 
 def run_downstream(dev, label: str, frames: int, pix_fmt: str, events, skipping: bool,
@@ -2914,13 +2942,14 @@ def _control_body(srcs, tenant="lab-a") -> dict:
             "params": dict(CONTROL_GEO)}
 
 
-def _tool(args: list, timeout: float) -> subprocess.CompletedProcess:
+def _tool(args: list, timeout: float, cwd: str = ROOT,
+          check: bool = True) -> subprocess.CompletedProcess:
     """One `python -m processing_chain_tpu_torch tools ...` process from
-    the checkout; a non-zero exit fails the run."""
+    the checkout `cwd`; with `check`, a non-zero exit fails the run."""
     # chainlint: disable=subprocess-hygiene (one tool process with a timeout; its exit code is checked by the caller)
     proc = subprocess.run([sys.executable, "-m", "processing_chain_tpu_torch", "tools", *args],
-                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
-    require(proc.returncode == 0, f"tools {args[0]}: exit {proc.returncode}: "
+                          cwd=cwd, capture_output=True, text=True, timeout=timeout)
+    require(not check or proc.returncode == 0, f"tools {args[0]}: exit {proc.returncode}: "
             f"{proc.stderr[-2000:]}")
     return proc
 
@@ -3411,6 +3440,46 @@ def harness_trace(root: str, req: str, chrome: str, label: str) -> int:
     return len(events)
 
 
+def harness_steadiness(rounds: int, checkouts: list, smi: str) -> dict:
+    """`--steadiness N`: phase 16's wall-clock gates N times over each
+    checkout in turn (see the module doc). Returns the failures by
+    checkout and gate."""
+    base = os.path.join(ROOT, "build", "chip_smoke", "harness")
+    failed = {os.path.relpath(c, ROOT): {"pack": 0, "self_test": 0, "chaos": 0}
+              for c in checkouts}
+    for i in range(rounds):
+        for c in checkouts:
+            root = os.path.join(base, f"steady{i}")
+            shutil.rmtree(root, ignore_errors=True)
+            gates = failed[os.path.relpath(c, ROOT)]
+            try:
+                proc = _tool(["serve-soak", "--pack-bench", "--root", root + "/pack"], 300,
+                             cwd=c, check=False)
+                modes = json.loads(proc.stdout.strip().splitlines()[-1])["modes"]
+                gates["pack"] += proc.returncode != 0
+                line = (f"pack e2e p95 count {modes['count']['e2e_p95_s']} s, cost "
+                        f"{modes['cost']['e2e_p95_s']} s (rc {proc.returncode})")
+                proc = _tool(["serve-chaos", "--self-test", "--root", root + "/self"], 300,
+                             cwd=c, check=False)
+                gates["self_test"] += proc.returncode != 0
+                missed = [ln.split("FAILED: ", 1)[1] for ln in proc.stderr.splitlines()
+                          if "clean pass FAILED" in ln]
+                line += f"; self-test rc {proc.returncode}{': ' + missed[0] if missed else ''}"
+                if i % 4 == 0:
+                    proc = _tool(["serve-chaos", "--corrupt-corpus", "--root", root + "/chaos"],
+                                 400, cwd=c, check=False)
+                    report = json.loads([ln for ln in proc.stdout.splitlines()
+                                         if ln.startswith("{")][-1])
+                    gates["chaos"] += proc.returncode != 0
+                    line += (f"; chaos warm p50 {report['warm_request_ms']['p50']} ms, p90 "
+                             f"{report['warm_request_ms']['p90']} ms (rc {proc.returncode})")
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            log(f"steadiness {i} {os.path.relpath(c, ROOT)}: {line} ({smi})")
+    log(f"steadiness: failures over {rounds} rounds (chaos every 4th) {failed}")
+    return failed
+
+
 def run_harness(dev, workdir: str, smi: str) -> dict:
     """Phase 16: the serve fleet's proof harnesses (see the module doc)."""
     base = os.path.join(workdir, "harness")
@@ -3558,10 +3627,35 @@ srcList:
 hrcList:
   HRC000: {{videoCodingId: VC01, eventList: [[Q0, 2]]}}
   HRC001: {{videoCodingId: VC01, eventList: [[Q0, 1], [stall, 0.5], [Q0, 1]]}}
+  HRC002: {{videoCodingId: VC01, eventList: [[Q0, 1], [freeze, 0.25], [freeze, 0.5]]}}
 pvsList:
   - {db_id}_SRC000_HRC000
   - {db_id}_SRC000_HRC001
+  - {db_id}_SRC000_HRC002
   - {db_id}_SRC001_HRC000
+postProcessingList:
+  - {{type: pc, displayWidth: 3840, displayHeight: 2160, codingWidth: 3840, codingHeight: 2160}}
+"""
+# the same SRC as a long test: two 1 s FFV1+FLAC segments onto the pc
+# 3840x2160 canvas at 60 fps, with the SRC's audio, a 0.5 s stall at the
+# join (120 frames, then 150 stalled)
+LONG_DB = "P2LTR18"
+LONG_YAML = """\
+databaseId: {db_id}
+syntaxVersion: 6
+type: long
+segmentDuration: 1
+qualityLevelList:
+  Q0: {{index: 0, videoCodec: h264, videoBitrate: 6000, width: 1920, height: 1080, fps: original, audioCodec: aac, audioBitrate: 128}}
+codingList:
+  VC01: {{type: video, encoder: libx264, passes: 1, iFrameInterval: 2, preset: medium}}
+  AC01: {{type: audio, encoder: aac}}
+srcList:
+  SRC000: SRC000.avi
+hrcList:
+  HRC000: {{videoCodingId: VC01, audioCodingId: AC01, eventList: [[Q0, 1], [stall, 0.5], [Q0, 1]]}}
+pvsList:
+  - {db_id}_SRC000_HRC000
 postProcessingList:
   - {{type: pc, displayWidth: 3840, displayHeight: 2160, codingWidth: 3840, codingHeight: 2160}}
 """
@@ -3658,13 +3752,47 @@ def p03_cli(yaml_path: str, pvs_ids: list, *extra) -> tuple:
     return json.loads(lines[0].split("p03 summary: ", 1)[1]), wall
 
 
-def check_render(dev, seg_path: str, avpvs_path: str, pix_fmt: str, frames: int,
+class FrameTaker:
+    """A decoded file's chunks, taken `t` frames at a time whatever the
+    file's own chunking (a long test's segments give chunks of their own
+    lengths)."""
+
+    def __init__(self, chunks) -> None:
+        self._it = iter(chunks)
+        self._buf = None
+
+    def take(self, t: int) -> list:
+        parts = []
+        while t > 0:
+            if self._buf is None or self._buf[0].shape[0] == 0:
+                self._buf = [np.array(p) for p in next(self._it)]
+            k = min(t, self._buf[0].shape[0])
+            parts.append([p[:k] for p in self._buf])
+            self._buf = [p[k:] for p in self._buf]
+            t -= k
+        return [np.concatenate([q[i] for q in parts]) for i in range(len(parts[0]))]
+
+    def exhausted(self) -> bool:
+        if self._buf is not None and self._buf[0].shape[0]:
+            return False
+        return next(self._it, None) is None
+
+
+def decoded_chunks(path: str):
+    """A file's decoded chunks (host planes), the reader closed after."""
+    with VideoReader(path) as r:
+        yield from r.iter_chunks(avpvs.CHUNK)
+
+
+def check_render(dev, src_chunks, avpvs_path: str, pix_fmt: str, frames: int,
                  keep: list = None) -> dict:
-    """An AVPVS against the plain route on the card over its decoded
-    segment: `frames` frames, u8 planes bit-exact (10-bit within a code
-    value), its .siti.csv within 1e-3 (1e-2) of si/ti_frames_plain, TI
-    chained across chunks. Returns its frame count and errors; appends the
-    decoded AVPVS chunks to `keep` when given."""
+    """An AVPVS against the plain route on the card over its source chunks
+    (a short test's decoded segment; a long test's segments on the canvas
+    time grid, in order): `frames` frames, u8 planes bit-exact (10-bit
+    within a code value), its .siti.csv within 1e-3 (1e-2) of
+    si/ti_frames_plain, TI chained across chunks and segment joins.
+    Returns its frame count and errors; appends the decoded AVPVS chunks
+    to `keep` when given."""
     ten_bit = "10" in pix_fmt
     sub = fr.chroma_subsampling(pix_fmt)
     dims = [(DST_H, DST_W), (DST_H // sub[0], DST_W // sub[1]), (DST_H // sub[0], DST_W // sub[1])]
@@ -3672,25 +3800,26 @@ def check_render(dev, seg_path: str, avpvs_path: str, pix_fmt: str, frames: int,
     plane_err = feat_err = 0.0
     n = 0
     prev = None
-    with VideoReader(seg_path) as seg, VideoReader(avpvs_path) as out:
+    with VideoReader(avpvs_path) as out:
         require((out.width, out.height, out.pix_fmt) == (DST_W, DST_H, pix_fmt),
                 f"{avpvs_path}: {out.width}x{out.height} {out.pix_fmt}")
-        for src, got in zip(seg.iter_chunks(avpvs.CHUNK), out.iter_chunks(avpvs.CHUNK)):
-            plain = [ck.resize_frames_plain(torch.from_numpy(np.ascontiguousarray(p)).to(dev),
+        taker = FrameTaker(out.iter_chunks(avpvs.CHUNK))
+        for src in src_chunks:
+            plain = [ck.resize_frames_plain(torch.as_tensor(np.ascontiguousarray(p)).to(dev),
                                             h, w, "bicubic") for p, (h, w) in zip(src, dims)]
-            if keep is not None:
-                keep.append([np.array(g) for g in got])
-            got_dev = [torch.from_numpy(np.ascontiguousarray(g)).to(dev) for g in got]
-            plane_err = max(plane_err, *(max_abs(a, b) for a, b in zip(got_dev, plain)))
             t = plain[0].shape[0]
+            got = taker.take(t)
+            if keep is not None:
+                keep.append(got)
+            got_dev = [torch.from_numpy(g).to(dev) for g in got]
+            plane_err = max(plane_err, *(max_abs(a, b) for a, b in zip(got_dev, plain)))
             si = ck.si_frames_plain(plain[0]).cpu().numpy()
             ti = ck.ti_frames_plain(plain[0], prev).cpu().numpy()
             prev = plain[0][-1]
             feat_err = max(feat_err, float(np.abs(side[n:n + t, 1] - si).max()),
                            float(np.abs(side[n:n + t, 2] - ti).max()))
             n += t
-        require(next(iter(out.iter_chunks(1)), None) is None,
-                f"{avpvs_path}: frames beyond the segment's")
+        require(taker.exhausted(), f"{avpvs_path}: frames beyond the source's")
     require(n == frames, f"{avpvs_path}: {n} frames checked, not {frames}")
     require(plane_err <= (1 if ten_bit else 0), f"{avpvs_path}: planes off the plain route by {plane_err}")
     require(len(side) == n and feat_err <= (1e-2 if ten_bit else 1e-3),
@@ -3699,45 +3828,78 @@ def check_render(dev, seg_path: str, avpvs_path: str, pix_fmt: str, frames: int,
 
 
 def check_stall(tc, pvs_id: str, spinner: str) -> dict:
-    """The stalled AVPVS: its frame count equal to its plan, the frames
-    around its first stall equal to the compositor's plain torch route on
-    the CPU, its audio the wo_buffer audio with the planned silence."""
+    """The stalled or frozen AVPVS: its frame count equal to its plan (a
+    freeze's to its wo_buffer render's), the frames at each edge of each
+    stall or freeze equal to the compositor's plain torch route on the CPU
+    over the plan's gather, its audio the wo_buffer audio with the planned
+    silence (a freeze's untouched), and the wo_buffer audio what the
+    render carries (`wo_audio`)."""
     pvs = tc.pvses[pvs_id]
     wo, final = pvs.get_avpvs_wo_buffer_file_path(), pvs.get_avpvs_file_path()
     events = pvs.get_buff_events_media_time()
-    vstream = [s for s in medialib.probe(wo)["streams"] if s["codec_type"] == "video"][0]
-    n_wo = int(vstream["nb_frames"])
+    skipping = pvs.has_framefreeze()
+    n_wo = len(medialib.scan_packets(wo, "video")["size"])  # FFV1: a packet a frame
     with VideoReader(wo) as r:
         rate, pix_fmt = r.fps, r.pix_fmt
-    plan = ov.plan_stalling(n_wo, rate, events, skipping=False, black_frame=True,
+    plan = ov.plan_stalling(n_wo, rate, events, skipping=skipping, black_frame=True,
                             n_rotations=64)
-    n_out = len(medialib.scan_packets(final, "video")["size"])  # FFV1: a packet a frame
-    require(n_out == plan.n_out, f"{final}: {n_out} frames, plan {plan.n_out}")
-    # the frames around the first stall, decoded from both files by window
-    first = int(np.flatnonzero(plan.stall_mask)[0])
-    lo, hi = max(0, first - 2), min(plan.n_out, first + 6)
-    idx = plan.src_idx[lo:hi]
-    s0 = int(idx.min())
-    with VideoReader(wo, s0 / rate, (int(idx.max()) + 1 - s0) / rate) as r:
+    n_out = len(medialib.scan_packets(final, "video")["size"])
+    require(n_out == plan.n_out and plan.stall_mask.any() and (n_out == n_wo) == skipping,
+            f"{final}: {n_out} frames, plan {plan.n_out} with {int(plan.stall_mask.sum())} "
+            f"stalled, wo_buffer {n_wo}")
+    # the edges: where the mask starts or ends, and each freeze's start
+    # (back-to-back freezes join in the mask); 2 frames before each to 5
+    # after it, merged
+    mask = np.asarray(plan.stall_mask, bool)
+    edges = set(np.flatnonzero(np.diff(np.r_[False, mask, False].astype(np.int8))).tolist())
+    if skipping:
+        edges |= {int(round(t * rate)) for t, _ in ov.buff_event_pairs(events)}
+    windows = []
+    for e in sorted(edges):
+        lo, hi = max(0, e - 2), min(n_out, e + 6)
+        if windows and lo <= windows[-1][1]:
+            windows[-1][1] = max(windows[-1][1], hi)
+        elif lo < hi:
+            windows.append([lo, hi])
+    # both files decoded once, over the span of the windows
+    lo0, hi0 = windows[0][0], windows[-1][1]
+    s0, s1 = int(plan.src_idx[lo0:hi0].min()), int(plan.src_idx[lo0:hi0].max()) + 1
+    with VideoReader(wo, s0 / rate, (s1 - s0) / rate) as r:
         src, _ = r.read_all()
-    with VideoReader(final, lo / rate, (hi - lo) / rate) as r:
+    with VideoReader(final, lo0 / rate, (hi0 - lo0) / rate) as r:
         out, _ = r.read_all()
-    require(out[0].shape[0] == hi - lo, f"{final}: window {lo}..{hi - 1} read {out[0].shape[0]}")
-    composite = avpvs.make_stall_compositor(pix_fmt, spinner, False, 64, device="cpu")
-    want = composite([torch.from_numpy(p[idx - s0]) for p in src], plan.stall_mask[lo:hi],
-                     plan.black_mask[lo:hi], plan.phase[lo:hi])
-    require(all(torch.equal(w, torch.from_numpy(o)) for w, o in zip(want, out)),
-            f"{final}: frames {lo}..{hi - 1} differ from the plain compositor")
+    require(src[0].shape[0] == s1 - s0 and out[0].shape[0] == hi0 - lo0,
+            f"{final}: frames {lo0}..{hi0 - 1} read {out[0].shape[0]}, wo_buffer frames "
+            f"{s0}..{s1 - 1} read {src[0].shape[0]}")
+    composite = avpvs.make_stall_compositor(pix_fmt, None if skipping else spinner, skipping,
+                                            64, device="cpu")
+    for lo, hi in windows:
+        idx = plan.src_idx[lo:hi] - s0
+        want = composite([torch.from_numpy(p[idx]) for p in src], plan.stall_mask[lo:hi],
+                         plan.black_mask[lo:hi], plan.phase[lo:hi])
+        require(all(torch.equal(w, torch.from_numpy(o[lo - lo0:hi - lo0]))
+                    for w, o in zip(want, out)),
+                f"{final}: frames {lo}..{hi - 1} differ from the plain compositor")
     a_wo, srate = medialib.decode_audio_s16(wo, channels=2)
-    a_seg, _ = medialib.decode_audio_s16(pvs.segments[0].file_path, channels=2)
     a_out, _ = medialib.decode_audio_s16(final, channels=2)
-    require(np.array_equal(a_wo, a_seg), f"{wo}: audio differs from its segment's")
-    a_want = avpvs.insert_stall_silence(a_wo, srate, events)
+    require(np.array_equal(a_wo, wo_audio(pvs)), f"{wo}: audio differs from what it carries")
+    a_want = a_wo if skipping else avpvs.insert_stall_silence(a_wo, srate, events)
     require(np.array_equal(a_out, a_want),
-            f"{final}: audio {a_out.shape} is not the segment's with the planned silence "
-            f"{a_want.shape}")
-    return {"frames": plan.n_out, "stalled": int(plan.stall_mask.sum()), "first_stall": first,
+            f"{final}: audio {a_out.shape} is not the wo_buffer's "
+            f"{'untouched' if skipping else 'with the planned silence'} {a_want.shape}")
+    return {"frames": plan.n_out, "stalled": int(mask.sum()),
+            "first_stall": int(np.flatnonzero(mask)[0]),
+            "checked": [f"{lo}..{hi - 1}" for lo, hi in windows],
             "audio_samples": int(a_out.shape[0])}
+
+
+def wo_audio(pvs) -> np.ndarray:
+    """The stereo audio a wo_buffer AVPVS carries: a short test's first
+    segment's, a long test's SRC's over the PVS's total duration."""
+    if pvs.test_config.is_short():
+        return medialib.decode_audio_s16(pvs.segments[0].file_path, channels=2)[0]
+    total = float(sum(s.get_segment_duration() for s in pvs.segments))
+    return medialib.decode_audio_s16(pvs.src.file_path, 0.0, total, channels=2)[0]
 
 
 def media_split(dev, seg_path: str, avpvs_path: str, out: list, fp_workers: int) -> dict:
@@ -3820,34 +3982,49 @@ def run_media_db(dev, root: str, smi: str) -> dict:
         f"{write_s:.2f} s")
 
     plain8 = [f"{MEDIA_DB}_SRC000_HRC000", f"{MEDIA_DB}_SRC000_HRC001"]
-    summary, wall = p03_cli(yaml_path, plain8)
+    frozen = f"{MEDIA_DB}_SRC000_HRC002"
+    summary, wall = p03_cli(yaml_path, plain8 + [frozen])
     log(f"p03 CLI (u8): {json.dumps(summary)}; wall {wall:.2f} s")
     launches = summary["launches"]
-    n_chunks = 2 + 1  # HRC000's 120 frames, HRC001's first 60
-    want = launches_want(resize_frames_fused=3 * n_chunks, si_frames_fused=n_chunks,
-                         ti_frames_fused=n_chunks)
+    # HRC000's 120 frames; HRC001's and HRC002's first segment, 60 each
+    want = chunk_launches(len(stream_chunks([MEDIA_FRAMES, MEDIA_FPS, MEDIA_FPS],
+                                            avpvs.chunk_frames(dev))))
     require(launches == want, f"p03 CLI launches {launches} != {want}")
+    require(summary["renders"] == 3 and summary["stalls"] == 2,
+            f"p03 CLI: {summary['renders']} renders, {summary['stalls']} stalls")
+    # one decoder open a rendered segment; a stall pass opens its input
+    # twice (its geometry, then its frames)
+    require(summary["decoder_opens"] == {"render": 3, "stall": 4},
+            f"p03 CLI decoder opens {summary['decoder_opens']}")
     require(summary["bufpool"]["hits"] > 0 and summary["bufpool"]["outstanding"] == 0,
             f"p03 CLI bufpool {summary['bufpool']}")
     pvs = tc.pvses
     t_check = time.perf_counter()
     kept = []
     renders = {
-        plain8[0]: check_render(dev, pvs[plain8[0]].segments[0].file_path,
+        plain8[0]: check_render(dev, decoded_chunks(pvs[plain8[0]].segments[0].file_path),
                                 pvs[plain8[0]].get_avpvs_file_path(), "yuv420p", MEDIA_FRAMES,
                                 keep=kept),
-        plain8[1]: check_render(dev, pvs[plain8[1]].segments[0].file_path,
+        plain8[1]: check_render(dev, decoded_chunks(pvs[plain8[1]].segments[0].file_path),
                                 pvs[plain8[1]].get_avpvs_wo_buffer_file_path(), "yuv420p",
                                 MEDIA_FPS),
     }
     stall = check_stall(tc, plain8[1], avpvs.DEFAULT_SPINNER)
+    t_freeze = time.perf_counter()
+    freeze = check_stall(tc, frozen, avpvs.DEFAULT_SPINNER)
+    log(f"phase 18 (d): freeze {frozen}: {freeze['frames']} frames as its wo_buffer render, "
+        f"{freeze['stalled']} of them frozen, frames {freeze['checked']} equal to the plain "
+        f"compositor on the CPU, audio untouched ({freeze['audio_samples']} samples); check "
+        f"{time.perf_counter() - t_freeze:.2f} s ({smi})")
     split = media_split(dev, pvs[plain8[0]].segments[0].file_path,
                         pvs[plain8[0]].get_avpvs_file_path(), kept, summary["fp_workers"])
     del kept
-    frames = sum(r["frames"] for r in renders.values()) + stall["frames"]
+    frames = (sum(r["frames"] for r in renders.values()) + stall["frames"]
+              + 2 * freeze["frames"])
     log(f"p03 file path u8: {frames} AVPVS frames (wo_buffer {renders[plain8[0]]['frames']} + "
-        f"{renders[plain8[1]]['frames']}, stalled {stall['frames']} with {stall['stalled']} "
-        f"stall frames from {stall['first_stall']}) in {summary['seconds']:.3f} s of stage, "
+        f"{renders[plain8[1]]['frames']} + {freeze['frames']}, stalled {stall['frames']} with "
+        f"{stall['stalled']} stall frames from {stall['first_stall']}, frozen "
+        f"{freeze['frames']}) in {summary['seconds']:.3f} s of stage, "
         f"{frames / summary['seconds']:.2f} frames/s (CLI wall {wall:.2f} s with start-up); "
         f"fp_workers {summary['fp_workers']}, threads {summary['threads']}, slices "
         f"{summary['slices']}; one 120-frame render alone: decode {split['decode_s']:.3f} s, "
@@ -3857,23 +4034,101 @@ def run_media_db(dev, root: str, smi: str) -> dict:
     ten = f"{MEDIA_DB}_SRC001_HRC000"
     summary10, wall10 = p03_cli(yaml_path, [ten], "--avpvs-codec", "rawvideo")
     require(summary10["launches"] == launches_want(resize_frames_fused=3, si_frames_fused=1,
-                                                   ti_frames_fused=1),
-            f"p03 CLI 10-bit launches {summary10['launches']}")
+                                                   ti_frames_fused=1)
+            and summary10["decoder_opens"] == {"render": 1, "stall": 0},
+            f"p03 CLI 10-bit launches {summary10['launches']}, decoder opens "
+            f"{summary10['decoder_opens']}")
     codec = next(s["codec_name"] for s in medialib.probe(pvs[ten].get_avpvs_file_path())["streams"]
                  if s["codec_type"] == "video")
     require(codec == "ffv1", f"10-bit rawvideo request wrote {codec}, not the ffv1 fallback")
-    render10 = check_render(dev, pvs[ten].segments[0].file_path, pvs[ten].get_avpvs_file_path(),
+    render10 = check_render(dev, decoded_chunks(pvs[ten].segments[0].file_path),
+                            pvs[ten].get_avpvs_file_path(),
                             "yuv420p10le", MEDIA_FRAMES_10)
     log(f"p03 file path 10-bit: {render10['frames']} frames (rawvideo requested, {codec} "
         f"written), planes within {render10['plane_max_err']} of the plain route, SI/TI within "
         f"{render10['siti_max_err']:.2e}; stage {summary10['seconds']:.3f} s, CLI wall "
         f"{wall10:.2f} s ({smi})")
+    t_long = time.perf_counter()
+    long_test = media_long(dev, root, clip, tone, smi)
+    log(f"phase 18 (e), the long test: {time.perf_counter() - t_long:.1f} s")
     return {"u8": {"summary": summary, "wall_s": wall, "renders": renders, "stall": stall,
-                   "split": split, "frames": frames,
+                   "freeze": freeze, "split": split, "frames": frames,
                    "frames_per_s": frames / summary["seconds"]},
             "10bit": {"summary": summary10, "wall_s": wall10, "render": render10},
+            "long": long_test,
             "launches": launches, "launches_10bit": summary10["launches"],
+            "launches_long": long_test["summary"]["launches"],
             "write_s": write_s}
+
+
+def stream_chunks(frame_counts: list, chunk: int) -> list:
+    """The chunk lengths of streams of these frame counts, each cut into
+    `chunk`-frame chunks (a long test's segment never shares a chunk)."""
+    return [min(chunk, f - k) for f in frame_counts for k in range(0, f, chunk)]
+
+
+def chunk_launches(n: int) -> dict:
+    """The kernel launches of rendering n chunks: 3 resize (Y, U, V), 1 SI
+    and 1 TI a chunk."""
+    return launches_want(resize_frames_fused=3 * n, si_frames_fused=n, ti_frames_fused=n)
+
+
+def media_long(dev, root: str, clip: list, tone: np.ndarray, smi: str) -> dict:
+    """Phase 18 (e): P2LTR18, the media SRC as a long test, through the p03
+    CLI: launches from its segments' canvas chunks, the stage's decoder
+    opens (one a segment), the wo_buffer AVPVS against the plain route
+    over its segments decoded in turn, its audio the SRC's, the stalled
+    AVPVS."""
+    t0 = time.perf_counter()
+    yaml_path = write_database(root, LONG_DB, LONG_YAML, {})
+    write_media(os.path.join(os.path.dirname(yaml_path), "srcVid", "SRC000.avi"), clip,
+                MEDIA_FPS, "yuv420p", tone)
+    tc = TestConfig(yaml_path)
+    half = MEDIA_SAMPLE_RATE
+    os.makedirs(os.path.dirname(yaml_path) + "/videoSegments", exist_ok=True)
+    for seg in tc.segments:
+        k = int(seg.start_time)
+        write_media(seg.file_path, [clip[k]], MEDIA_FPS, "yuv420p",
+                    tone[k * half:(k + 1) * half])
+    pvs_id = f"{LONG_DB}_SRC000_HRC000"
+    pvs = tc.pvses[pvs_id]
+    rate = avpvs.canvas_fps(pvs)
+    per_seg = [int(round(seg.duration * rate)) for seg in pvs.segments]
+    write_s = time.perf_counter() - t0
+
+    summary, wall = p03_cli(yaml_path, [pvs_id])
+    require(summary["renders"] == 1 and summary["stalls"] == 1,
+            f"p03 CLI long: {summary['renders']} renders, {summary['stalls']} stalls")
+    want = chunk_launches(len(stream_chunks(per_seg, avpvs.chunk_frames(dev))))
+    require(summary["launches"] == want, f"p03 CLI long launches {summary['launches']} != {want}")
+    # one decoder open a segment; the stall pass opens its input twice
+    opens = summary["decoder_opens"]
+    require(opens == {"render": len(pvs.segments), "stall": 2},
+            f"p03 CLI long: decoder opens {opens} for {len(pvs.segments)} segments")
+    t_check = time.perf_counter()
+    # the plain route's input: each segment decoded in turn (the SRC's
+    # rate is the canvas's, so the canvas gather keeps every frame)
+    require(rate == MEDIA_FPS, f"long: canvas {rate} fps, segments {MEDIA_FPS}")
+    src_chunks = itertools.chain.from_iterable(decoded_chunks(seg.file_path)
+                                               for seg in pvs.segments)
+    render = check_render(dev, src_chunks, pvs.get_avpvs_wo_buffer_file_path(), "yuv420p",
+                          sum(per_seg))
+    stall = check_stall(tc, pvs_id, avpvs.DEFAULT_SPINNER)
+    check_s = time.perf_counter() - t_check
+    frames = render["frames"] + stall["frames"]
+    log(f"phase 18 (e): long {pvs_id}: {len(pvs.segments)} segments of {per_seg} canvas frames "
+        f"(decoder opens {opens}), wo_buffer {render['frames']} frames equal to the plain "
+        f"route (planes within {render['plane_max_err']}, SI/TI within "
+        f"{render['siti_max_err']:.2e}, TI chained across the join), audio the SRC's over "
+        f"{sum(s.get_segment_duration() for s in pvs.segments):.1f} s; stalled "
+        f"{stall['frames']} frames with {stall['stalled']} stall frames from "
+        f"{stall['first_stall']}; launches {summary['launches']}; {frames} AVPVS frames in "
+        f"{summary['seconds']:.3f} s of stage, {frames / summary['seconds']:.2f} frames/s, CLI "
+        f"wall {wall:.2f} s; written in {write_s:.2f} s, checks {check_s:.2f} s ({smi})")
+    return {"summary": summary, "wall_s": wall, "segments": per_seg, "decoder_opens": opens,
+            "render": render, "stall": stall, "frames": frames,
+            "frames_per_s": frames / summary["seconds"], "write_s": write_s,
+            "check_s": check_s}
 
 
 def module_probe() -> str:
@@ -3891,89 +4146,167 @@ def module_probe() -> str:
     return "; ".join(found)
 
 
-def main() -> int:
+class Phases:
+    """The phase the smoke is in, so a failure can name it. `with
+    phases(n, name):` logs the phase's start with its number and name, and
+    its seconds at its end."""
+
+    def __init__(self) -> None:
+        self.current = (0, "start-up")
+
+    @contextlib.contextmanager
+    def __call__(self, n: int, name: str):
+        self.current = (n, name)
+        log(f"phase {n} ({name}): start")
+        t0 = time.perf_counter()
+        yield
+        log(f"phase {n}: {time.perf_counter() - t0:.1f} s")
+
+
+#: the phases `--phases` may run alone: each needs only the device and the
+#: kernels built by phases 1 and 2
+ALONE = (3, 14, 15, 16, 17, 18)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=None,
+                        help=f"comma-separated phases of {ALONE} to run after phases 1-2, "
+                             "to find a fault (the result lines are printed only by a "
+                             "run of every phase)")
+    parser.add_argument("--steadiness", type=int, default=0, metavar="N",
+                        help="run no phase: repeat phase 16's wall-clock gates N times")
+    parser.add_argument("--against", action="append", default=[], metavar="DIR",
+                        help="with --steadiness, also a checkout to run them from, in turns")
+    args = parser.parse_args(argv)
+    only = None
+    if args.phases:
+        only = sorted({int(v) for v in args.phases.split(",")})
+        bad = [n for n in only if n not in ALONE]
+        if bad:
+            parser.error(f"--phases: {bad} cannot run alone (those that can: {ALONE})")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
-    dev = torch.device("cuda", 0)
+    phases = Phases()
+    if args.steadiness:
+        harness_steadiness(args.steadiness,
+                           [ROOT] + [os.path.abspath(d) for d in args.against], device_line())
+        return 0
+    try:
+        return run_smoke(phases, only)
+    except Exception as exc:  # noqa: BLE001 - the boundary that names the failing phase
+        traceback.print_exc()
+        n, name = phases.current
+        what = str(exc) if isinstance(exc, SmokeFailure) else f"{type(exc).__name__}: {exc}"
+        what = " | ".join(ln.strip() for ln in what.splitlines() if ln.strip())
+        print(f"chip_smoke: FAILED in phase {n} ({name}): {what[:4000]}", flush=True)
+        return 1
+
+
+def device_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     # chainlint: disable=subprocess-hygiene (one read-only nvidia-smi query with a timeout; check=True fails the run)
-    smi = subprocess.run(
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    log(smi)
-    t0 = time.perf_counter()
-    log(f"libav: {medialib.version()} (io/medialib located, bound and checked it in "
-        f"{time.perf_counter() - t0:.2f} s; phase 18 holds it)")
-    log(f"python modules (information only): {module_probe()}")
 
-    t0 = time.perf_counter()
-    _build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s")
-    for name in _build.SOURCES:
-        log(f"ptxas {name}.cu:\n{_build.ptxas_report(name).rstrip()}")
 
-    err = check_kernels(dev)
+def run_smoke(phases: Phases, only) -> int:
+    """Phases 1-18 (or phases 1-2 and `only`), then the result lines."""
+    dev = torch.device("cuda", 0)
+    with phases(1, "device"):
+        smi = device_line()
+        log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+            f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        log(smi)
+        t0 = time.perf_counter()
+        log(f"libav: {medialib.version()} (io/medialib located, bound and checked it in "
+            f"{time.perf_counter() - t0:.2f} s; phase 18 holds it)")
+        log(f"python modules (information only): {module_probe()}")
+    with phases(2, "build"):
+        t0 = time.perf_counter()
+        _build.build()
+        log(f"build: {time.perf_counter() - t0:.2f} s")
+        for name in _build.SOURCES:
+            log(f"ptxas {name}.cu:\n{_build.ptxas_report(name).rstrip()}")
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
-    main8 = run_main_path(dev, CLIP_FRAMES, "yuv420p", workdir)
-    main10 = run_main_path(dev, CLIP_FRAMES_10BIT, "yuv420p10le", workdir)
-    flagship = run_flagship(dev)
-    waves = {label: run_wave(dev, label, lengths, four, workdir)
-             for label, lengths, four in WAVE_CASES}
-    log(f"wave render (production mesh): {waves['production']['frames_per_s']:.2f} frames/s "
-        f"beside pump_ready {main8['frames_per_s']:.2f} frames/s, same run")
-    downstream = {
-        "u8": run_downstream(dev, "u8 stall", CLIP_FRAMES, "yuv420p", [[2.0, 1.0], [7.5, 0.5]],
-                             False, pc_fps=30.0, preview=True, want_frames=690),
-        "10bit": run_downstream(dev, "10-bit freeze", CLIP_FRAMES_10BIT, "yuv420p10le",
-                                [[0.5, 0.4]], True, pc_fps=CANVAS_FPS, preview=False,
-                                want_frames=CLIP_FRAMES_10BIT),
-    }
-    timing = time_kernels(dev)
-    t9 = time.perf_counter()
-    sources = ladder_sources()
-    ladder = {}
-    for label, source, width, fps_spec, pix_fmt in LADDER_RUNS:
-        chunks, src_h, src_w = sources[source]
-        ladder[label] = run_ladder(dev, label, chunks, src_h, src_w, width, fps_spec, pix_fmt)
-    quality = {"u8": run_quality(dev, "u8", CLIP_FRAMES, "yuv420p"),
-               "10bit": run_quality(dev, "10-bit", CLIP_FRAMES_10BIT, "yuv420p10le")}
-    src_summary = {"2160p": run_src_analysis(dev, "2160p", sources["2160p"][0]),
-                   "2160p10": run_src_analysis(dev, "2160p10", sources["2160p10"][0])}
-    del sources
-    priors = run_priors(dev)
-    log(f"phases 9-10: {time.perf_counter() - t9:.1f} s")
-    t11 = time.perf_counter()
-    serve = run_serve(dev, workdir)
-    err["siti_frames_fused_batch"] = max(err["siti_frames_fused_batch"],
-                                         serve["siti_batch_max_err"])
-    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
-    t12 = time.perf_counter()
-    mesh = run_mesh(dev, workdir)
-    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
-    t13 = time.perf_counter()
-    profiled = run_profiled(dev, workdir, waves["production"], main8, timing)
-    profiled["serve"] = serve.pop("observed")
-    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
-    t14 = time.perf_counter()
-    database = run_database(dev, workdir)
-    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
-    t15 = time.perf_counter()
-    control = run_control(dev, workdir)
-    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
-    t16 = time.perf_counter()
-    harness = run_harness(dev, workdir, smi)
-    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
-    t17 = time.perf_counter()
-    gates = run_gates(dev, workdir, smi)
-    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
-    t18 = time.perf_counter()
-    media = run_media(dev, workdir, smi)
-    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
+    if only is not None:
+        alone = {3: ("kernels against their plain versions", lambda: check_kernels(dev)),
+                 14: ("the database", lambda: run_database(dev, workdir)),
+                 15: ("the serve control plane", lambda: run_control(dev, workdir)),
+                 16: ("the proof harnesses", lambda: run_harness(dev, workdir, smi)),
+                 17: ("the port's gates", lambda: run_gates(dev, workdir, smi)),
+                 18: ("the media boundary and p03's file path",
+                      lambda: run_media(dev, workdir, smi))}
+        for n in only:
+            with phases(n, alone[n][0]):
+                alone[n][1]()
+        log(f"chip_smoke: phases 1, 2 and {only} passed; a run of a subset prints no result")
+        return 0
 
+    with phases(3, "kernels against their plain versions"):
+        err = check_kernels(dev)
+    with phases(4, "the p03 device seam"):
+        main8 = run_main_path(dev, CLIP_FRAMES, "yuv420p", workdir)
+        main10 = run_main_path(dev, CLIP_FRAMES_10BIT, "yuv420p10le", workdir)
+    with phases(5, "the flagship step"):
+        flagship = run_flagship(dev)
+    with phases(6, "the wave render"):
+        waves = {label: run_wave(dev, label, lengths, four, workdir)
+                 for label, lengths, four in WAVE_CASES}
+        log(f"wave render (production mesh): {waves['production']['frames_per_s']:.2f} "
+            f"frames/s beside pump_ready {main8['frames_per_s']:.2f} frames/s, same run")
+    with phases(7, "the downstream render"):
+        downstream = {
+            "u8": run_downstream(dev, "u8 stall", CLIP_FRAMES, "yuv420p",
+                                 [[2.0, 1.0], [7.5, 0.5]], False, pc_fps=30.0, preview=True,
+                                 want_frames=690),
+            "10bit": run_downstream(dev, "10-bit freeze", CLIP_FRAMES_10BIT, "yuv420p10le",
+                                    [[0.5, 0.4]], True, pc_fps=CANVAS_FPS, preview=False,
+                                    want_frames=CLIP_FRAMES_10BIT),
+        }
+    with phases(8, "kernel timing"):
+        timing = time_kernels(dev)
+    with phases(9, "p01's quality ladder"):
+        sources = ladder_sources()
+        ladder = {}
+        for label, source, width, fps_spec, pix_fmt in LADDER_RUNS:
+            chunks, src_h, src_w = sources[source]
+            ladder[label] = run_ladder(dev, label, chunks, src_h, src_w, width, fps_spec,
+                                       pix_fmt)
+    with phases(10, "the quality tools"):
+        quality = {"u8": run_quality(dev, "u8", CLIP_FRAMES, "yuv420p"),
+                   "10bit": run_quality(dev, "10-bit", CLIP_FRAMES_10BIT, "yuv420p10le")}
+        src_summary = {"2160p": run_src_analysis(dev, "2160p", sources["2160p"][0]),
+                       "2160p10": run_src_analysis(dev, "2160p10", sources["2160p10"][0])}
+        del sources
+        priors = run_priors(dev)
+    with phases(11, "the serve path"):
+        serve = run_serve(dev, workdir)
+        err["siti_frames_fused_batch"] = max(err["siti_frames_fused_batch"],
+                                             serve["siti_batch_max_err"])
+    with phases(12, "the (pvs, time) mesh"):
+        mesh = run_mesh(dev, workdir)
+    with phases(13, "the profiling plane"):
+        profiled = run_profiled(dev, workdir, waves["production"], main8, timing)
+        profiled["serve"] = serve.pop("observed")
+    with phases(14, "the database"):
+        database = run_database(dev, workdir)
+    with phases(15, "the serve control plane"):
+        control = run_control(dev, workdir)
+    with phases(16, "the proof harnesses"):
+        harness = run_harness(dev, workdir, smi)
+    with phases(17, "the port's gates"):
+        gates = run_gates(dev, workdir, smi)
+    with phases(18, "the media boundary and p03's file path"):
+        media = run_media(dev, workdir, smi)
+
+    phases.current = (19, "the result lines")
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
              **{f"wave_{k}": v["launches"] for k, v in waves.items()},
@@ -3989,7 +4322,8 @@ def main() -> int:
              **{f"mesh_wave_{k}": v["launches"] for k, v in mesh["waves"]["runs"].items()},
              "mesh_sharded_step": mesh["sharded_step"]["launches"],
              **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()},
-             "p03_file": media["launches"], "p03_file_10bit": media["launches_10bit"]}
+             "p03_file": media["launches"], "p03_file_10bit": media["launches_10bit"],
+             "p03_file_long": media["launches_long"]}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",

@@ -1,11 +1,11 @@
 """Decode-ahead on a worker thread, background writeback, and the
 streaming frame gathers (trimmed copies of `Prefetcher`,
-processing_chain_tpu/engine/prefetch.py:40-253, and `AsyncWriter`
-:254-376, both without heartbeats; `iter_plane_chunks` :506-530; and
-`stream_monotonic_gather` / `stream_fps_resample` :531-623, without the
-decoded-frame counter).
+processing_chain_tpu/engine/prefetch.py:40-253, `AsyncWriter` :254-376
+and `MultiSegmentPrefetcher` :378-505, all without heartbeats;
+`iter_plane_chunks` :506-530; and `stream_monotonic_gather` /
+`stream_fps_resample` :531-623, without the decoded-frame counter).
 
-The prefetch queue registers in the live-queue registry the resource
+Each prefetch queue registers in the live-queue registry the resource
 monitor samples (`live_queue_depths`), and each consumer pull records the
 queue depth (`chain_queue_depth`) and the time the consumer sat blocked
 (`chain_pipeline_wait_seconds_total{side="consumer"}`, the attribution
@@ -130,16 +130,19 @@ def _put_until_stop(q: queue.Queue, item: Any, stop: threading.Event) -> bool:
     return False
 
 
-def _drain_join(q: queue.Queue, thread: threading.Thread) -> None:
-    """With the stop flag set, keep the queue drained (so no worker put
-    can block) until the worker thread has exited."""
-    while thread.is_alive():
-        try:
-            while True:
-                q.get_nowait()
-        except queue.Empty:
-            pass
-        thread.join(timeout=0.1)
+def _drain_join(queues: list, threads: list) -> None:
+    """With the stop flag set, keep every queue drained (so no worker put
+    can block) until every worker thread has exited: callers tear down
+    native readers right after, which must not race a live decode."""
+    while any(t.is_alive() for t in threads):
+        for q in queues:
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        for t in threads:
+            t.join(timeout=0.1)
 
 
 class Prefetcher:
@@ -194,9 +197,94 @@ class Prefetcher:
         """Abandon the stream (e.g. on a downstream error). Blocks until the
         worker has exited; the wait is bounded by one in-flight item."""
         self._stop.set()
-        _drain_join(self._q, self._thread)
+        _drain_join([self._q], [self._thread])
 
     def __enter__(self) -> "Prefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class MultiSegmentPrefetcher:
+    """Decode several segment chunk-streams concurrently, yielding chunks
+    strictly in stream order (stream 0's chunks, then stream 1's, ...).
+
+    `factories[i]` is a zero-argument callable returning segment i's chunk
+    iterator; up to `workers` of them run on worker threads at once, each
+    buffering into its own bounded queue of `depth` chunks. The consumer
+    sees exactly the serially chained stream, while decode overlaps the
+    segment joins (native decode releases the GIL).
+
+    An error in stream k is raised when the consumer reaches stream k's
+    position (earlier streams' chunks still flow), and `close()` stops
+    every worker and waits for it."""
+
+    def __init__(self, factories, workers: int = 2, depth: int = 2) -> None:
+        self._factories = list(factories)
+        self._n = len(self._factories)
+        self._queues = [queue.Queue(maxsize=max(1, depth)) for _ in range(self._n)]
+        for q in self._queues:
+            _register_queue("decode", q)
+        self._errs: list[Optional[BaseException]] = [None] * self._n
+        self._stop = threading.Event()
+        self._next = 0  # next unclaimed stream index
+        self._claim_lock = lockdebug.make_lock("prefetch_claim")
+        self._depth_sampler = _DepthSampler(_Q_DECODE, "decode")
+
+        def worker() -> None:
+            while not self._stop.is_set():
+                with self._claim_lock:
+                    idx = self._next
+                    if idx >= self._n:
+                        return
+                    self._next = idx + 1
+                q = self._queues[idx]
+                try:
+                    src = iter(self._factories[idx]())
+                    while True:
+                        with profiling.maybe_span("prefetch:decode"):
+                            item = next(src, _EXHAUSTED)
+                        if item is _EXHAUSTED:
+                            break
+                        _put_until_stop(q, item, self._stop)
+                        if self._stop.is_set():
+                            return
+                except BaseException as exc:  # noqa: BLE001 - re-raised in consumer
+                    self._errs[idx] = exc
+                _put_until_stop(q, _SENTINEL, self._stop)
+
+        self._threads = [threading.Thread(target=worker, daemon=True)
+                         for _ in range(max(1, min(workers, self._n)))]
+        for t in self._threads:
+            t.start()
+
+    def __iter__(self) -> Iterator[Any]:
+        for idx, q in enumerate(self._queues):
+            while True:
+                if tm.enabled():
+                    self._depth_sampler.sample(q.qsize())
+                    t0 = time.perf_counter()
+                    item = q.get()
+                    _WAIT_CONSUMER.inc(time.perf_counter() - t0)
+                else:
+                    item = q.get()
+                if item is _SENTINEL:
+                    err, self._errs[idx] = self._errs[idx], None
+                    if err is not None:
+                        raise err
+                    break
+                yield item
+
+    def close(self) -> None:
+        """Abandon every stream. Blocks until every worker has exited (they
+        own native readers whose teardown must not race the caller's)."""
+        self._stop.set()
+        with self._claim_lock:
+            self._next = self._n  # no new claims
+        _drain_join(self._queues, self._threads)
+
+    def __enter__(self) -> "MultiSegmentPrefetcher":
         return self
 
     def __exit__(self, *exc) -> None:

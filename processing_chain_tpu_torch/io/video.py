@@ -19,6 +19,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .. import telemetry as tm
+from ..utils import lockdebug
 from . import bufpool, medialib
 from .medialib import MediaError, MPVideoDesc
 
@@ -36,6 +37,16 @@ _DECODER_OPENS = tm.counter(
     "(PC_FUSE_P04, models/fused) is a measurable invariant, not a "
     "code-review assertion",
 )
+#: the same opens counted whether telemetry is on or off (the p03 stage's
+#: summary line reports its own from `decoder_opens()`)
+_OPENS_LOCK = lockdebug.make_lock("decoder_opens")
+_opens = 0
+
+
+def decoder_opens() -> int:
+    """VideoReader decoder opens in this process so far."""
+    with _OPENS_LOCK:
+        return _opens
 
 
 @dataclass
@@ -145,6 +156,9 @@ class VideoReader:
             self._fail_open(f"{path}: packed format {self.container_pix_fmt!r} with "
                             f"{desc.bytes_per_sample} bytes/sample unsupported (packed "
                             f"deinterleave is 8-bit only)")
+        global _opens
+        with _OPENS_LOCK:
+            _opens += 1
         if tm.enabled():
             _DECODER_OPENS.inc()
 

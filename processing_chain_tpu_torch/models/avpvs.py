@@ -1,12 +1,14 @@
 """AVPVS model — the p03 pixel-domain core (port of
-processing_chain_tpu/models/avpvs.py: CHUNK/chunk_frames :47-78, the
-canvas geometry and writeback knobs :93-257, `_ffv1_writer` :260-297, the
+processing_chain_tpu/models/avpvs.py: CHUNK/chunk_frames :47-78,
+`_decode_workers` :80-91, the canvas geometry and writeback knobs
+:93-257, `_ffv1_writer` :260-297, `_segment_canvas_chunks` :300-321, the
 short path's `_short_rate_chunks`, `_decode_stereo` and
-`_short_segment_audio` :324-367, the SI/TI sidecar :370-432, the wo_buffer
-plan and provenance :435-501, `_pump_ready` :504-534, `_render_wo_buffer`'s
-short branch and `create_avpvs_wo_buffer` :537-643, and the stalling pass:
-SPINNER_KINEMATICS, `load_spinner`, `insert_stall_silence`,
-`make_stall_compositor` and `apply_stalling` :1069-1331).
+`_short_segment_audio` :324-367, the SI/TI sidecar :370-432, the
+wo_buffer plan and provenance :435-501, `_pump_ready` :504-534,
+`_render_wo_buffer` and `create_avpvs_wo_buffer` :537-643 without the
+fused fan-out, and the stalling pass: SPINNER_KINEMATICS, `load_spinner`,
+`insert_stall_silence`, `make_stall_compositor` and `apply_stalling`
+:1069-1331).
 
 Short tests: decode the single encoded segment → per chunk, host→device
 copy (double-buffered, parallel/pipeline.iter_device_ahead) → bicubic
@@ -14,10 +16,13 @@ resize of Y, U and V to the AVPVS canvas (models/frames.scale_yuv_frames)
 → round and saturate to the container depth (quantize_device) → per-frame
 SI and TI of the quantized luma, TI carried across chunk edges
 (SiTiAccumulator) → FFV1 (+FLAC) AVI on the writer thread
-(engine/prefetch.AsyncWriter). The stalling pass re-reads that AVPVS and
-composites a spinner (or freezes frames) on the device (`pump_stalled`),
-with silence inserted into the audio. The long-test branch (ROADMAP item
-5) raises NotImplementedError.
+(engine/prefetch.AsyncWriter). Long tests: every segment is decoded onto
+the canvas time grid (`_segment_canvas_chunks`), several at once
+(engine/prefetch.MultiSegmentPrefetcher), and the chained stream takes
+the same device path, TI carried across the segment joins, beside the
+SRC's stereo audio over the PVS's duration. The stalling pass re-reads
+that AVPVS and composites a spinner (or freezes frames) on the device
+(`pump_stalled`), with silence inserted into the audio of a stall.
 """
 
 from __future__ import annotations
@@ -72,6 +77,19 @@ def chunk_frames(device=None) -> int:
     if pinned is not None:
         return max(1, pinned)
     return CHUNK if resolve_device(device).type == "cuda" else 16
+
+
+def _decode_workers() -> int:
+    """Concurrent segment decoders for the long path
+    (engine/prefetch.MultiSegmentPrefetcher). Default 2: decode overlaps
+    the segment joins with bounded memory; PC_DECODE_WORKERS raises it
+    where host decode feeds the card too slowly, and 1 decodes the
+    segments strictly one after another."""
+    try:
+        # plan-exempt: (prefetch width; MultiSegmentPrefetcher preserves segment order, identical stream at any width)
+        return max(1, int(os.environ.get("PC_DECODE_WORKERS", "2")))
+    except ValueError:
+        return 2
 
 
 def avpvs_dimensions(pvs: Pvs, post_proc_id: int = 0) -> tuple[int, int]:
@@ -276,6 +294,31 @@ def _frames_as_tensors(reader):
         yield pfe.ChunkFrame([torch.from_numpy(p) for p in frame.planes])
 
 
+def _segment_canvas_chunks(seg, rate: float, device=None):
+    """Decode one encoded segment and yield [T, H, W] plane chunks (CPU
+    tensors) on the canvas time grid: exactly round(duration * rate)
+    frames, trailing outputs repeating the last decoded frame (the
+    reference's nullsrc-canvas semantics, lib/ffmpeg.py:1037-1038).
+    Never holds more than one chunk of decoded frames; `device` is the
+    render's, which sets the chunk length."""
+    with VideoReader(seg.file_path) as reader:
+        seg_fps = reader.fps
+        n_out = int(round(seg.duration * rate))
+        got_any = False
+        for chunk in pfe.stream_monotonic_gather(
+            _frames_as_tensors(reader),
+            lambda k: int(np.floor(k / rate * seg_fps + 0.5)),
+            n_out,
+            chunk_frames(device),
+        ):
+            got_any = True
+            yield chunk
+    # a segment whose duration rounds to zero canvas frames yields
+    # nothing; only a frameless source is an error
+    if not got_any and n_out > 0:
+        raise medialib.MediaError(f"no frames in segment {seg.file_path}")
+
+
 def _short_rate_chunks(pvs: Pvs, reader: VideoReader, avpvs_src_fps: bool,
                        force_60_fps: bool, device=None):
     """(canvas rate, decoded chunk stream) for the short path: native
@@ -466,32 +509,44 @@ def pump_ready(ready, writer, feat: SiTiAccumulator, h: int, w: int,
 def _render_wo_buffer(pvs: Pvs, out_path: str, w: int, h: int, pix_fmt: str,
                       avpvs_src_fps: bool, force_60_fps: bool, feat: SiTiAccumulator,
                       device=None) -> None:
-    """The decode → device rescale → FFV1(+audio) render body: the single
-    segment at its native frame rate unless -z/-f60, decoded ahead on a
-    prefetch thread, encoded on the writer thread."""
-    if not pvs.test_config.is_short():
-        raise NotImplementedError(
-            f"{pvs.pvs_id}: long-test AVPVS rendering (per-segment canvas "
-            "resampling, SRC audio mux) is ROADMAP Queue A item 5")
-    seg = pvs.segments[0]
-    audio, srate = _short_segment_audio(seg)
-    with VideoReader(seg.file_path) as reader:
-        rate, chunks = _short_rate_chunks(pvs, reader, avpvs_src_fps, force_60_fps, device)
-        with pfe.AsyncWriter(_ffv1_writer(
-            out_path, w, h, pix_fmt, rate, with_audio=audio is not None,
-            sample_rate=srate, audio_codec="flac",
-        )) as writer:
-            if audio is not None:
-                writer.write_audio(audio)
-            with pfe.Prefetcher(chunks, depth=2) as pre:
-                pump_ready(pre, writer, feat, h, w, pix_fmt, device)
+    """The decode → device rescale → FFV1(+audio) render body, decoded
+    ahead on prefetch threads and encoded on the writer thread. A short
+    test renders its single segment at its native frame rate unless
+    -z/-f60, with the segment's audio; a long test every segment on the
+    canvas time grid, chained in order, with the SRC's stereo audio over
+    the PVS's total duration."""
+    if pvs.test_config.is_short():
+        seg = pvs.segments[0]
+        audio, srate = _short_segment_audio(seg)
+        with VideoReader(seg.file_path) as reader:
+            rate, chunks = _short_rate_chunks(pvs, reader, avpvs_src_fps, force_60_fps, device)
+            with pfe.AsyncWriter(_ffv1_writer(
+                out_path, w, h, pix_fmt, rate, with_audio=audio is not None,
+                sample_rate=srate, audio_codec="flac",
+            )) as writer:
+                if audio is not None:
+                    writer.write_audio(audio)
+                with pfe.Prefetcher(chunks, depth=2) as pre:
+                    pump_ready(pre, writer, feat, h, w, pix_fmt, device)
+        return
+    rate = canvas_fps(pvs, avpvs_src_fps)
+    total = float(sum(s.get_segment_duration() for s in pvs.segments))
+    samples, srate = _decode_stereo(pvs.src.file_path, 0.0, total)
+    with pfe.AsyncWriter(_ffv1_writer(
+        out_path, w, h, pix_fmt, rate, with_audio=True, sample_rate=srate,
+    )) as writer:
+        writer.write_audio(samples)
+        factories = [(lambda s=seg: _segment_canvas_chunks(s, rate, device))
+                     for seg in pvs.segments]
+        with pfe.MultiSegmentPrefetcher(factories, workers=_decode_workers(), depth=2) as pre:
+            pump_ready(pre, writer, feat, h, w, pix_fmt, device)
 
 
 def create_avpvs_wo_buffer(pvs: Pvs, avpvs_src_fps: bool = False,
                            force_60_fps: bool = False, device=None) -> Optional[Job]:
-    """The decode+rescale(+audio) stage producing the pre-stalling AVPVS
-    (or the final one when the HRC has no buffering), on `device` (`None`
-    means `cuda:0`)."""
+    """The decode+rescale(+concat+audio) stage producing the pre-stalling
+    AVPVS (or the final one when the HRC has no buffering), on `device`
+    (`None` means `cuda:0`)."""
     out_path = _wo_buffer_out_path(pvs)
     w, h = avpvs_dimensions(pvs)
     pix_fmt = pvs.get_pix_fmt_for_avpvs()
@@ -661,13 +716,19 @@ def apply_stalling(pvs: Pvs, spinner_path: Optional[str] = None, n_rotations: in
     """The bufferer pass (reference p03:216-260): re-render the wo_buffer
     AVPVS with stall insertions (spinner over black frames) or
     frame-freeze skipping, composited on `device` (`None` means
-    `cuda:0`)."""
+    `cuda:0`).
+
+    A freeze HRC's buffer events are bare durations; the plan and the
+    provenance record them as the (media time, duration) pairs
+    ops/overlay.plan_stalling lays them out to. The JAX package's
+    `apply_stalling` raises on them building its plan (:1302)."""
     if not pvs.has_buffering():
         return None
     in_path = pvs.get_avpvs_wo_buffer_file_path()
     out_path = pvs.get_avpvs_file_path()
     skipping = pvs.has_framefreeze()
     events = pvs.get_buff_events_media_time()
+    pairs = [[t, d] for t, d in ov.buff_event_pairs(events)]
 
     def run() -> str:
         with VideoReader(in_path) as probe_reader:
@@ -710,7 +771,9 @@ def apply_stalling(pvs: Pvs, spinner_path: Optional[str] = None, n_rotations: in
     prov = {
         "pvs": pvs.pvs_id,
         "mode": "skipping" if skipping else "spinner-stall",
-        "events": events,
+        # a stall's pairs as the domain gives them, so the provenance log
+        # reads as the JAX package's does
+        "events": pairs if skipping else events,
     }
     if not skipping:
         prov["spinner_kinematics"] = dict(SPINNER_KINEMATICS, n_rotations=n_rotations)
@@ -719,7 +782,7 @@ def apply_stalling(pvs: Pvs, spinner_path: Optional[str] = None, n_rotations: in
     plan = {
         "op": "avpvs_stalling",
         "input": store_keys.file_ref(in_path),
-        "events": [[float(e[0]), float(e[1])] for e in events],
+        "events": pairs,
         "mode": "skipping" if skipping else "spinner-stall",
         "spinner": (store_keys.file_ref(spinner_path)
                     if not skipping and spinner_path else None),

@@ -98,18 +98,9 @@ class _SkipSchedule:
 
     def __init__(self, fps: float, events, emit: Callable) -> None:
         fps = float(fps)
-        norm = []
-        t_cursor = 0.0
-        for ev in events:
-            # bare durations freeze back-to-back from t=0 (the .buff
-            # freeze format carries no positions) — plan_stalling parity
-            if isinstance(ev, (list, tuple)):
-                norm.append((float(ev[0]), float(ev[1])))
-            else:
-                norm.append((t_cursor, float(ev)))
-                t_cursor += float(ev)
         self._ranges = [
-            (int(round(t * fps)), int(round((t + d) * fps))) for t, d in norm
+            (int(round(t * fps)), int(round((t + d) * fps)))
+            for t, d in ov.buff_event_pairs(events)  # plan_stalling parity
         ]
         self._emit = emit
         anchors: list[int] = []

@@ -57,6 +57,21 @@ class StallPlan:
         return len(self.src_idx)
 
 
+def buff_event_pairs(buff_events) -> list:
+    """Buffer events as (media time, duration) float pairs, in their
+    order: a pair passes through, and bare durations (the .buff freeze
+    format, which carries no positions) freeze back to back from t=0."""
+    pairs = []
+    t_cursor = 0.0
+    for ev in buff_events:
+        if isinstance(ev, (list, tuple)):
+            pairs.append((float(ev[0]), float(ev[1])))
+        else:
+            pairs.append((t_cursor, float(ev)))
+            t_cursor += float(ev)
+    return pairs
+
+
 def plan_stalling(
     n_frames: int,
     fps: float,
@@ -74,15 +89,7 @@ def plan_stalling(
     from t=0 since the freeze format carries no positions.
     """
     if skipping:
-        # normalize bare durations to [[t, d]] back-to-back
-        events = []
-        t_cursor = 0.0
-        for ev in buff_events:
-            if isinstance(ev, (list, tuple)):
-                events.append((float(ev[0]), float(ev[1])))
-            else:
-                events.append((t_cursor, float(ev)))
-                t_cursor += float(ev)
+        events = buff_event_pairs(buff_events)
         src_idx = np.arange(n_frames, dtype=np.int32)
         stall = np.zeros(n_frames, np.int8)
         for t, d in events:

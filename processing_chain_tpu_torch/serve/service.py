@@ -702,7 +702,11 @@ class ChainServeService:
                  if ph not in warm_plans and not _in_flight(ph)],
                 self.admission_budget_s,
                 self.tenant_budget_s,
-                self.queue.outstanding_cost(normalized["tenant"]),
+                # only the tenant budget reads the backlog: without one,
+                # submit stays off the queue lock, which workers hold
+                # across their fsyncs
+                self.queue.outstanding_cost(normalized["tenant"])
+                if self.tenant_budget_s is not None else 0.0,
             )
         except cost.AdmissionError:
             _REQ_TOTAL.labels(state="rejected").inc()
@@ -732,7 +736,11 @@ class ChainServeService:
             self._requests[req_id] = doc
             for plan_hash in plans:
                 self._plan_waiters.setdefault(plan_hash, set()).add(req_id)
-        self._persist_request(doc)
+        if len(warm_plans) < len(plans):
+            # a request with cold units is on disk while they run (peers
+            # adopt it if this replica dies); an all-warm one is durable
+            # once, as done, before submit answers
+            self._persist_request(doc)
         self.cost_ledger.admitted(normalized["tenant"], predicted_s)
         outcomes = {"warm": 0, "enqueued": 0, "attached": 0,
                     "quarantined": 0}

@@ -5,9 +5,9 @@ p03_generateAvPvs.py:62-267).
 Two phases on one device: every eligible PVS's wo_buffer render
 (models/avpvs.create_avpvs_wo_buffer), then, once those bytes exist, the
 stalling pass of each PVS with buffering (models/avpvs.apply_stalling).
-The stage never takes a route the JAX package would not take, so it
-refuses, naming the ROADMAP item that ports the route, where the JAX
-package would go elsewhere: a long-test database (item 5), PC_FUSE_P04
+Short and long tests both take it. The stage never takes a route the
+JAX package would not take, so it refuses, naming the ROADMAP item that
+ports the route, where the JAX package would go elsewhere: PC_FUSE_P04
 (the fused p04 fan-out, item 8), and more than one visible card without
 a `-g` pin (the batch route over the mesh, item 7).
 """
@@ -23,6 +23,7 @@ from .. import telemetry as tm
 from ..config import TestConfig
 from ..engine.jobs import JobRunner, device_stage_parallelism
 from ..io import bufpool
+from ..io import video as io_video
 from ..models import avpvs as av
 from ..ops import cuda_kernels
 from ..parallel.distributed import local_shard
@@ -38,12 +39,7 @@ def _fused_p04_enabled() -> bool:
     return os.environ.get("PC_FUSE_P04", "").strip().lower() in ("1", "true", "yes", "on")
 
 
-def _refuse_unported(cli_args, test_config: TestConfig) -> None:
-    if test_config.is_long():
-        raise ChainError(
-            f"p03: {test_config.database_id} is a long-test database; its AVPVS "
-            "render (per-segment canvas resampling, SRC audio mux) is ROADMAP "
-            "Queue A item 5 of the PyTorch package")
+def _refuse_unported(cli_args) -> None:
     if _fused_p04_enabled() and not cli_args.dry_run:
         raise ChainError(
             "p03: PC_FUSE_P04 asks for the fused p03+p04 fan-out, ROADMAP Queue A "
@@ -68,7 +64,7 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
             cli_args.test_config, cli_args.filter_src, cli_args.filter_hrc,
             cli_args.filter_pvs,
         )
-    _refuse_unported(cli_args, test_config)
+    _refuse_unported(cli_args)
     pvs_par = device_stage_parallelism(cli_args.parallelism, "p03")
     runner = JobRunner(force=cli_args.force, dry_run=cli_args.dry_run,
                        parallelism=pvs_par, name="p03")
@@ -101,6 +97,7 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
     HEARTBEATS.stage_items("p03", len(eligible))
     launches0 = dict(cuda_kernels.LAUNCHES)
     pool0 = bufpool.DEFAULT_POOL.stats()
+    opens0 = io_video.decoder_opens()
     t0 = time.perf_counter()
     for pvs in eligible:
         runner.add(av.create_avpvs_wo_buffer(
@@ -108,6 +105,7 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
     # two phases: stalling reads the wo_buffer outputs of phase one, and is
     # planned only now, so its plan input holds this run's bytes
     rendered = runner.run()
+    opens1 = io_video.decoder_opens()
     for pvs in eligible:
         stall_runner.add(av.apply_stalling(pvs, spinner_path=spinner, device=device))
     stalled = stall_runner.run()
@@ -118,6 +116,8 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
             "seconds": round(time.perf_counter() - t0, 6),
             **av.ffv1_effective_coding(),
             "launches": {k: v - launches0.get(k, 0) for k, v in cuda_kernels.LAUNCHES.items()},
+            "decoder_opens": {"render": opens1 - opens0,
+                              "stall": io_video.decoder_opens() - opens1},
             "bufpool": {"hits": pool["hits"] - pool0["hits"],
                         "misses": pool["misses"] - pool0["misses"],
                         "outstanding": pool["outstanding"]},

@@ -81,6 +81,12 @@ ENV_INPUTS: dict[str, dict] = {
                   "frame stream is identical at any chunking (pinned by "
                   "the batch-vs-single parity tests)",
     },
+    "PC_DECODE_WORKERS": {
+        "status": "exempt",
+        "reason": "segment-decode prefetch width; MultiSegmentPrefetcher "
+                  "preserves segment order, so the decoded stream is "
+                  "identical at any width",
+    },
     "PC_STORE_DIR": {
         "status": "exempt",
         "reason": "names WHERE the store lives, never what any artifact "

@@ -133,7 +133,6 @@ def pack_bench(args) -> int:
     from ..serve.queue import DurableQueue
     from ..serve.scheduler import Scheduler
     from ..store import keys
-    from ..store import runtime as store_runtime
 
     log = get_logger()
     tm.enable()
@@ -163,9 +162,6 @@ def pack_bench(args) -> int:
     for mode in ("count", "cost"):
         mroot = os.path.join(root, mode)
         queue = DurableQueue(os.path.join(mroot, "queue"))
-        # the port's job runner commits through an active store (the
-        # reference's runs without one)
-        store_runtime.configure(os.path.join(mroot, "store"))
         try:
             for i, work_ms in enumerate(work):
                 unit = Unit(database="P2STR01", src=f"SRC{100 + i:03d}",
@@ -235,7 +231,6 @@ def pack_bench(args) -> int:
                     f"{mode}: {len(e2e)}/{len(work)} units completed")
         finally:
             queue.close()
-            store_runtime.configure(None)
     count_m, cost_m = report["modes"].get("count"), \
         report["modes"].get("cost")
     if count_m and cost_m and None not in (

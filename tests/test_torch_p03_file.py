@@ -1,14 +1,18 @@
-"""p03's file-level short path in the port (models/avpvs.create_avpvs_wo_buffer
-and apply_stalling, stages/p03_generate_avpvs, cli `p03`) against the JAX
-package's single-device route on the CPU: the same database, its segments
-encoded by the JAX p01 with libx264 here, rendered by each package into its
-own copy, the AVPVS decoded and compared.
+"""p03's file-level single-device route in the port
+(models/avpvs.create_avpvs_wo_buffer and apply_stalling,
+stages/p03_generate_avpvs, cli `p03`), short and long tests, against the
+JAX package's single-device route on the CPU: the same database, its
+segments encoded by the JAX p01 with libx264 here, rendered by each
+package into its own copy, the AVPVS decoded and compared. A frame-freeze
+PVS, whose stall job the JAX package cannot build (ROADMAP Queue C), is
+held against the JAX package's device half on the same wo_buffer file.
 
 Every test that runs the stage restores PC_FFV1_WORKERS/PC_FFV1_THREADS:
 the stage installs its pool-aware defaults into os.environ, which would
 otherwise change what later tests in the same worker plan.
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -24,7 +28,9 @@ from processing_chain_tpu.io import medialib as jml
 from processing_chain_tpu.io.video import VideoReader as JReader
 from processing_chain_tpu.io.video import VideoWriter as JWriter
 from processing_chain_tpu.models import avpvs as jav
+from processing_chain_tpu.ops import overlay as jov
 from processing_chain_tpu.store import keys as jkeys
+from processing_chain_tpu_torch import telemetry as ttm
 from processing_chain_tpu_torch.cli import main as port_main
 from processing_chain_tpu_torch.config import TestConfig as TTestConfig
 from processing_chain_tpu_torch.models import avpvs as tav
@@ -64,7 +70,8 @@ SHORT_YAML = textwrap.dedent("""\
       - {type: pc, displayWidth: 320, displayHeight: 180, codingWidth: 320, codingHeight: 180, displayFrameRate: 24}
 """)
 PVSES = [f"{DB}_SRC000_HRC00{k}" for k in range(3)]
-#: the same database as a long test (tests/test_pipeline_e2e.py:244's shape)
+#: the same database as a long test (tests/test_pipeline_e2e.py:244's shape):
+#: two 1 s segments with AAC audio, a 0.5 s stall at the join
 LONG_YAML = textwrap.dedent("""\
     databaseId: P2SXM90
     syntaxVersion: 6
@@ -92,7 +99,7 @@ def _writeback_env(monkeypatch):
     them after each test, and start every test from the same unpinned
     state in both packages."""
     for name in ("PC_FFV1_WORKERS", "PC_FFV1_THREADS", "PC_FFV1_SLICES", "PC_AVPVS_CODEC",
-                 "PC_CHUNK_FRAMES", "PC_FUSE_P04", "PC_STORE_DIR"):
+                 "PC_CHUNK_FRAMES", "PC_FUSE_P04", "PC_STORE_DIR", "PC_DECODE_WORKERS"):
         monkeypatch.delenv(name, raising=False)
     # set then removed by monkeypatch at teardown, whatever the stage wrote
     monkeypatch.setenv("PC_FFV1_WORKERS", "2")
@@ -112,6 +119,13 @@ def main_log(caplog):
         logger.removeHandler(caplog.handler)
 
 
+def _summary(main_log) -> dict:
+    """The p03 stage's summary line, parsed."""
+    lines = [r.getMessage() for r in main_log.records if "p03 summary: " in r.getMessage()]
+    assert len(lines) == 1, lines
+    return json.loads(lines[0].split("p03 summary: ", 1)[1])
+
+
 @pytest.fixture(scope="module")
 def short_db(tmp_path_factory):
     """The JAX short_db (tests/test_pipeline_e2e.py:74): its segments
@@ -120,6 +134,40 @@ def short_db(tmp_path_factory):
     yaml_path = write_db(tmp, DB, SHORT_YAML, {"SRC000.avi": dict(n=48, audio=True)})
     assert jax_main(["p00", "-c", yaml_path, "-str", "1", "--skip-requirements"]) == 0
     return yaml_path
+
+
+LONG_PVS = f"{DB}_SRC000_HRC000"
+
+
+@pytest.fixture(scope="module")
+def long_db(tmp_path_factory):
+    """LONG_YAML, its two segments encoded by the JAX p01 (libx264 + AAC);
+    SRC with FLAC audio."""
+    tmp = tmp_path_factory.mktemp("longdb")
+    yaml_path = write_db(tmp, DB, LONG_YAML, {"SRC000.avi": dict(n=48, audio=True)})
+    assert jax_main(["p00", "-c", yaml_path, "-str", "1", "--skip-requirements"]) == 0
+    return yaml_path
+
+
+#: a freeze HRC over the segments the database already has: (HRC line, PVS)
+FREEZE_HRC = {
+    "short": "  HRC003: {videoCodingId: VC01, eventList: [[Q0, 2], [freeze, 0.25], [freeze, 0.5]]}\n",
+    "long": "  HRC001: {videoCodingId: VC01, audioCodingId: AC01, "
+            "eventList: [[Q0, 1], [freeze, 0.25], [Q0, 1]]}\n",
+}
+
+
+def _add_freeze(yaml_path: str, kind: str) -> str:
+    """Add the freeze HRC of `kind` and its PVS to a copied database;
+    returns the PVS id."""
+    line = FREEZE_HRC[kind]
+    pvs_id = f"{DB}_SRC000_{line.split(':')[0].strip()}"
+    with open(yaml_path) as f:
+        text = f.read()
+    text = text.replace("pvsList:\n", f"{line}pvsList:\n  - {pvs_id}\n", 1)
+    with open(yaml_path, "w") as f:
+        f.write(text)
+    return pvs_id
 
 
 def _copy(yaml_path: str, dest) -> str:
@@ -338,20 +386,15 @@ def test_p03_adopts_pre_store_outputs(short_db, tmp_path, main_log):
     assert any('"renders": 0' in r.getMessage() for r in main_log.records)
 
 
-@pytest.mark.parametrize("case", ["long", "fused", "cards", "observability", "no_cuda"])
+@pytest.mark.parametrize("case", ["fused", "cards", "observability", "no_cuda"])
 def test_p03_refuses_routes_it_does_not_have(short_db, tmp_path, monkeypatch, main_log, case):
-    """The stage never takes a route the JAX package would not take: a
-    long-test database (item 5), PC_FUSE_P04 (item 8) and several cards
-    (item 7) are refused with the item named, as are the observability
-    flags (item 6); without a device argument the CLI runs on cuda:0 and
-    refuses a host without CUDA."""
+    """The stage never takes a route the JAX package would not take:
+    PC_FUSE_P04 (item 8) and several cards (item 7) are refused with the
+    item named, as are the observability flags (item 6); without a device
+    argument the CLI runs on cuda:0 and refuses a host without CUDA."""
     ty = _copy(short_db, tmp_path / "t")
     args, device, code, message = ["p03", "-c", ty], "cpu", 1, None
-    if case == "long":
-        with open(ty, "w") as f:
-            f.write(LONG_YAML)
-        message = "item 5"
-    elif case == "fused":
+    if case == "fused":
         monkeypatch.setenv("PC_FUSE_P04", "1")
         message = "item 8"
     elif case == "cards":
@@ -369,13 +412,15 @@ def test_p03_refuses_routes_it_does_not_have(short_db, tmp_path, monkeypatch, ma
     assert os.listdir(os.path.join(os.path.dirname(ty), "avpvs")) == []
 
 
-def test_p03_process_imports_no_jax(short_db, tmp_path):
+@pytest.mark.parametrize("kind", ["short", "long"])
+def test_p03_process_imports_no_jax(short_db, long_db, tmp_path, kind):
     """A p03 run of the port, as a process on the CPU, imports no jax and
-    nothing of the JAX package."""
-    ty = _copy(short_db, tmp_path / "t")
+    nothing of the JAX package, over the short and the long database."""
+    ty = _copy(short_db if kind == "short" else long_db, tmp_path / "t")
+    pvs_id = PVSES[2] if kind == "short" else LONG_PVS
     code = ("import sys\n"
             "from processing_chain_tpu_torch.cli import main\n"
-            f"assert main(['p03', '-c', {ty!r}, '--filter-pvs', {PVSES[2]!r}],"
+            f"assert main(['p03', '-c', {ty!r}, '--filter-pvs', {pvs_id!r}],"
             " device='cpu') == 0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'processing_chain_tpu')]\n"
@@ -385,4 +430,138 @@ def test_p03_process_imports_no_jax(short_db, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "FORBIDDEN []" in proc.stdout
-    assert os.path.isfile(os.path.join(os.path.dirname(ty), "avpvs", f"{PVSES[2]}.avi"))
+    assert os.path.isfile(os.path.join(os.path.dirname(ty), "avpvs", f"{pvs_id}.avi"))
+
+
+# ------------------------------------------------------------------ long tests
+
+
+@pytest.mark.parametrize("decode_workers", ["1", "3"])
+def test_long_avpvs_wo_buffer_equals_jax(long_db, tmp_path, monkeypatch, decode_workers):
+    """The long test's wo_buffer job of each package: decoded-identical
+    AVPVS (2 s of segments on the 60 fps canvas, the SRC's stereo audio),
+    SI/TI within 1e-3 with TI chained across the segment join, equal
+    provenance and plans (but for the resize identity); the port opens
+    one decoder a segment, at any decode width."""
+    monkeypatch.setenv("PC_DECODE_WORKERS", decode_workers)
+    jy, ty = _copy(long_db, tmp_path / "j"), _copy(long_db, tmp_path / "t")
+    jjob = jav.create_avpvs_wo_buffer(JTestConfig(jy).pvses[LONG_PVS])
+    tpvs = TTestConfig(ty).pvses[LONG_PVS]
+    tjob = tav.create_avpvs_wo_buffer(tpvs, device="cpu")
+    assert tjob.label == jjob.label and tjob.sidecar_suffixes == jjob.sidecar_suffixes
+    assert tjob.provenance == jjob.provenance
+    _plans_agree(jjob.plan, tjob.plan)
+    assert tjob.plan["durations"] == [1.0, 1.0] and tjob.plan["src_audio"] is not None
+    jjob.run()
+    was = ttm.enabled()
+    ttm.enable()
+    try:
+        opens0 = ttm.REGISTRY.sum_series("chain_io_decoder_opens_total", None) or 0.0
+        tjob.run()
+        opens = ttm.REGISTRY.sum_series("chain_io_decoder_opens_total", None) - opens0
+    finally:
+        if not was:
+            ttm.disable()
+    assert opens == len(tpvs.segments) == 2
+    assert jjob.output_path.endswith("_concat_wo_buffer.avi")
+    _assert_same_avpvs(jjob.output_path, tjob.output_path)
+    assert len(_decoded(tjob.output_path)[1]) == 120
+    samples, rate = jml.decode_audio_s16(tjob.output_path)
+    want, want_rate = jml.decode_audio_s16(tpvs.src.file_path, 0.0, 2.0, channels=2)
+    assert rate == want_rate
+    np.testing.assert_array_equal(samples, want)
+
+
+def test_long_p03_main_equals_jax(long_db, tmp_path, main_log):
+    """`p03` through each package's CLI over the long database: the
+    wo_buffer render and its stalled AVPVS (120 + 30 stall frames)
+    decoded identical with the silence inserted, the same provenance
+    logs; both stall jobs over one wo_buffer file plan to one hash."""
+    jy, ty = _copy(long_db, tmp_path / "j"), _copy(long_db, tmp_path / "t")
+    assert jax_main(["p03", "-c", jy, "--skip-requirements", "-g", "0"]) == 0
+    assert port_main(["p03", "-c", ty], device="cpu") == 0
+    summary = _summary(main_log)
+    assert (summary["renders"], summary["stalls"]) == (1, 1)
+    # one decoder open a segment; the stall pass opens its input twice
+    assert summary["decoder_opens"] == {"render": 2, "stall": 2}
+    jdir, tdir = (os.path.join(os.path.dirname(y), "avpvs") for y in (jy, ty))
+    assert sorted(os.listdir(jdir)) == sorted(os.listdir(tdir))
+    avis = sorted(n for n in os.listdir(tdir) if n.endswith(".avi"))
+    assert avis == [f"{LONG_PVS}.avi", f"{LONG_PVS}_concat_wo_buffer.avi"]
+    for name in avis:
+        _assert_same_avpvs(os.path.join(jdir, name), os.path.join(tdir, name))
+    assert len(_decoded(os.path.join(tdir, avis[0]))[1]) == 150
+    jlogs, tlogs = (os.path.join(os.path.dirname(y), "logs") for y in (jy, ty))
+    assert sorted(os.listdir(jlogs)) == sorted(os.listdir(tlogs))
+    for name in os.listdir(tlogs):
+        with open(os.path.join(jlogs, name)) as a, open(os.path.join(tlogs, name)) as b:
+            assert a.read() == b.read(), name
+    jpvs, tpvs = JTestConfig(jy).pvses[LONG_PVS], TTestConfig(ty).pvses[LONG_PVS]
+    shutil.copyfile(jpvs.get_avpvs_wo_buffer_file_path(), tpvs.get_avpvs_wo_buffer_file_path())
+    from processing_chain_tpu.utils.parse_args import _DEFAULT_SPINNER as jspinner
+    from processing_chain_tpu_torch.utils.parse_args import _DEFAULT_SPINNER as tspinner
+
+    jjob = jav.apply_stalling(jpvs, spinner_path=jspinner)
+    tjob = tav.apply_stalling(tpvs, spinner_path=tspinner, device="cpu")
+    assert tjob.provenance == jjob.provenance
+    assert tkeys.plan_hash(tjob.plan, tkeys.hash_file) == \
+        jkeys.plan_hash(jjob.plan, jkeys.hash_file)
+
+
+# ------------------------------------------------------------- frame freezes
+
+
+@pytest.fixture
+def one_jax_device(monkeypatch):
+    """The JAX compositor's single-device route (the suite's 8 CPU devices
+    would shard it)."""
+    import jax
+
+    devs = jax.devices()
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: devs[:1])
+
+
+def _jax_frozen(wo_path: str, events) -> list:
+    """The JAX package's device half of a freeze: `plan_stalling` in
+    skipping mode over the wo_buffer file, its frames gathered and put
+    through `make_stall_compositor`."""
+    with JReader(wo_path) as r:
+        stacks, pts = r.read_all()
+        rate, pix_fmt = r.fps, r.pix_fmt
+    plan = jov.plan_stalling(len(pts), rate, events, skipping=True)
+    composite = jav.make_stall_compositor(pix_fmt, None, True, 64)
+    out = composite([p[plan.src_idx] for p in stacks], plan.stall_mask, plan.black_mask,
+                    plan.phase)
+    return [np.asarray(o) for o in out]
+
+
+FREEZE_PAIRS = {"short": [[0.0, 0.25], [0.25, 0.5]], "long": [[0.0, 0.25]]}
+
+
+@pytest.mark.parametrize("kind", ["short", "long"])
+def test_freeze_pvs_gets_its_avpvs_through_the_cli(short_db, long_db, tmp_path, main_log,
+                                                   one_jax_device, kind):
+    """A frame-freeze PVS through the port's CLI: exit 0, the frozen
+    AVPVS equal to the JAX package's device half on the same wo_buffer
+    file, as long as it, with its audio untouched; the stall job's plan
+    and provenance hold the events as back-to-back (t, d) pairs."""
+    ty = _copy(short_db if kind == "short" else long_db, tmp_path / "t")
+    pvs_id = _add_freeze(ty, kind)
+    assert port_main(["p03", "-c", ty, "--filter-pvs", pvs_id], device="cpu") == 0
+    summary = _summary(main_log)
+    assert (summary["renders"], summary["stalls"]) == (1, 1)
+    assert summary["decoder_opens"] == {"render": 1 if kind == "short" else 2, "stall": 2}
+    tpvs = TTestConfig(ty).pvses[pvs_id]
+    wo, final = tpvs.get_avpvs_wo_buffer_file_path(), tpvs.get_avpvs_file_path()
+    want = _jax_frozen(wo, JTestConfig(ty).pvses[pvs_id].get_buff_events_media_time())
+    (got, pts), (_, wo_pts) = _decoded(final), _decoded(wo)
+    assert pts == wo_pts and len(pts) == (48 if kind == "short" else 120)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert np.array_equal(got[0][1], got[0][0])  # frame 0 is held
+    a_wo, a_out = jml.decode_audio_s16(wo), jml.decode_audio_s16(final)
+    assert a_wo[1] == a_out[1]
+    np.testing.assert_array_equal(a_out[0], a_wo[0])
+    job = tav.apply_stalling(tpvs, device="cpu")
+    assert job.plan["events"] == FREEZE_PAIRS[kind] and job.plan["mode"] == "skipping"
+    assert job.provenance["events"] == FREEZE_PAIRS[kind]

@@ -822,6 +822,53 @@ def test_service_warm_requests_answer_in_milliseconds(serve_factory):
     assert _planned_serve_jobs() == planned
 
 
+@pytest.mark.parametrize("warm_units", [2, 1], ids=["all_warm", "one_cold"])
+def test_submit_persists_a_warm_request_once_as_done(serve_factory, monkeypatch,
+                                                     warm_units):
+    """An all-warm request reaches the disk once, already done, before
+    submit answers; a request with a cold unit is on disk as active first
+    (a peer adopts it if this replica dies), then as done."""
+    svc = serve_factory()
+    first = svc.submit(_body(srcs=("SRC100", "SRC101")))
+    assert svc.wait_request(first["request"], timeout=60.0) == "done"
+    written = []
+    persist = svc._persist_request
+
+    def record(doc):
+        written.append(doc["state"])
+        persist(doc)
+
+    monkeypatch.setattr(svc, "_persist_request", record)
+    srcs = ("SRC100", "SRC101") if warm_units == 2 else ("SRC100", "SRC102")
+    again = svc.submit(_body(srcs=srcs))
+    assert again["outcomes"]["warm"] == warm_units
+    if warm_units == 2:
+        assert again["state"] == "done" and written == ["done"]
+    else:
+        assert written[0] == "active"
+        assert svc.wait_request(again["request"], timeout=60.0) == "done"
+        assert written[-1] == "done"
+    with open(os.path.join(svc.requests_dir, again["request"] + ".json")) as f:
+        assert json.load(f)["state"] == "done"
+
+
+def test_submit_reads_the_backlog_only_for_a_tenant_budget(serve_factory, monkeypatch):
+    """Without a tenant budget, admission never reads the queue's backlog
+    (its lock is held across the workers' fsyncs); with one, a tenant over
+    budget is still refused."""
+    free = serve_factory("free")
+
+    def no_backlog(tenant=None):
+        raise AssertionError("outstanding_cost read without a tenant budget")
+
+    monkeypatch.setattr(free.queue, "outstanding_cost", no_backlog)
+    assert free.submit(_body())["outcomes"]["enqueued"] == 1
+    budgeted = serve_factory("budgeted", tenant_budget_s=1.0)
+    monkeypatch.setattr(budgeted.queue, "outstanding_cost", lambda tenant=None: 5.0)
+    with pytest.raises(Exception, match="tenant budget"):
+        budgeted.submit(_body(srcs=("SRC300",)))
+
+
 def test_service_http_api_end_to_end(serve_factory):
     """JAX counterpart: tests/test_serve.py::
     test_service_http_api_end_to_end."""

@@ -158,7 +158,7 @@ its end with its seconds:
      hashes; its launches join `paths` as db_<pvs_id>
  15. the serve control plane, under build/chip_smoke/control (removed
      after): (a) `tools fleet-doctor --soak` as a process (synthetic
-     executor), held to ALERTS_r20.json's invariants (ok, no failure, a
+     executor) on a RAM-backed root (see below), held to ALERTS_r20.json's invariants (ok, no failure, a
      silent control phase, slo_burn_queue_wait + store_eviction_regret +
      fleet_replica_stale fired and nothing outside the soak's tolerated
      set, every episode resolved, the scale signal up under the breach
@@ -182,8 +182,8 @@ its end with its seconds:
      exact launch counts, which join `paths` as serve_control; frames/s
      of each step, the ratio percentiles and the fitted scale, the
      evicted bytes and the alert set
- 16. the serve fleet's proof harnesses, under build/chip_smoke/harness
-     (removed after), at the tools' defaults (the reference's): (a) `tools
+ 16. the serve fleet's proof harnesses, on a RAM-backed root (see
+     below), at the tools' defaults (the reference's): (a) `tools
      serve-soak --executor wave --device cuda:0` in this process (8
      clients, 6 SRCs x 4 HRCs, overlap 0.5, the wave executor's 8-frame
      36x64 -> 72x128 units): rc 0 (zero duplicate executions, every
@@ -213,11 +213,13 @@ its end with its seconds:
      artifacts against the plain route; then utils.lockdebug.check() (at
      least one edge, acyclic) and utils.plandebug.check() (2 plans, no
      same-plan/different-bytes): edges, locks, plans and seconds
- 18. the media boundary and p03's file-level single-device route, under
-     build/chip_smoke/media (removed after): (a) the libav io/medialib
+ 18. the media boundary and p03's file-level single-device route, on a
+     RAM-backed root (see below; the stage CLIs' files go there, not over
+     the checkout's 9p mount): (a) the libav io/medialib
      bound (paths, versions, the layout entries its round trips passed),
      which of h264, hevc, vp9, av1, aac and flac it decodes (h264
-     required; an absent one is named), and each committed fixture
+     required; an absent one is named) and which of the rawvideo, v210
+     and prores_ks encoders it has, and each committed fixture
      (processing_chain_tpu_torch/assets/media) decoded through the port's
      VideoReader to the per-plane md5s the JAX reader recorded, its
      LibavProber width, height, pix_fmt, frame rate, frame count and
@@ -236,8 +238,8 @@ its end with its seconds:
      and its .siti.csv against si/ti_frames_plain (1e-3); the stalled
      AVPVS's frame count against its plan, the frames at each edge of its
      stall against the compositor on the CPU, its audio the segment's
-     with the planned silence; frames/s, and decode, device and writeback
-     seconds of one render measured alone; (c) SRC001 (yuv420p10le, 32
+     with the planned silence; frames/s, and each CLI process's seconds
+     before its stage starts (its start-up line); (c) SRC001 (yuv420p10le, 32
      fps, 64 frames) through the CLI with `--avpvs-codec rawvideo`, which
      writes the FFV1 fallback, held the same way (planes within a code
      value, SI/TI within 1e-2); (d) HRC002, two frame freezes (0.25 s and
@@ -251,13 +253,39 @@ its end with its seconds:
      decoder opens (one a segment), the 120-frame wo_buffer AVPVS against
      the plain route over its segments decoded in turn (bit-exact, SI/TI
      within 1e-3, TI chained across the join), its audio the SRC's over
-     the PVS's 2 s, the 150-frame stalled AVPVS as in (b). The launch
-     counts join `paths` as p03_file, p03_file_10bit and p03_file_long
+     the PVS's 2 s, the 150-frame stalled AVPVS as in (b); (f) `python -m
+     processing_chain_tpu_torch p04 -e` as one process on cuda:0 over
+     (b)'s files: HRC001 (u8, stalled: PC rawvideo UYVY422 at 3840x2160)
+     and (c)'s SRC001_HRC000 (10-bit: v210, 32 -> 60 fps), each with its
+     ProRes preview (the rawvideo, v210 and prores_ks encoders, which (a)
+     lists, required): the summary's resize launches (2 a chunk: the
+     420->422 lift), decoder opens (one a render) and buffer pool; each
+     CPVS's frame count against cpvs_plan and cpvs_out_rate, its decoded
+     planes against make_cpvs_transform with resize_frames_plain over the
+     decoded AVPVS on the card (bit-exact; v210 keeps codes 4..1019), its
+     first frame and the frames at the stall's edges against the CPU
+     route; HRC001's preview encoder input (the transform on the card)
+     against the plain route and its decoded luma against it by PSNR, both
+     previews' codec, geometry, pix_fmt and frame count from the prober;
+     the AVPVS files and sidecars untouched; frames/s and the summary's
+     decode, device and writeback seconds. The (b) and (c) CLI calls run
+     first; then (e)'s and (f)'s processes start together and run beside
+     the checks of (b)-(d), and their own checks follow. The launch counts
+     join `paths` as p03_file, p03_file_10bit, p03_file_long and p04_file
 `--steadiness N` runs no phase: it repeats phase 16's three wall-clock
 gates N times as processes (the pack bench's e2e tail, the chaos self-test's
 and the chaos run's 50 ms warm p50), in turns over this checkout and each
 `--against` checkout (a parent unpacked beside it), their roots where phase
 16 puts them; it logs each reading and the failures by gate and checkout.
+Phase 15 (a), phase 16, phase 18 and `--steadiness` root their state in a
+fresh directory under /dev/shm (tmpfs on the card's host; tempfile.mkdtemp,
+removed after), whose mount, filesystem type (/proc/mounts) and free bytes
+their first line names: phase 16's wall-clock budgets then measure the
+serve logic with its durable writes and fsyncs, and phase 18's stage
+CLIs the render, not the checkout's 9p mount. A phase fails,
+naming the reason, where that directory cannot be made. Each phase's start
+logs the smoke's elapsed seconds, and the line before the result lines is
+`chip_smoke: phases 1-18 in <s> s`.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 18's in the stage process, which reports them). The last two
 lines of standard output are one JSON object with every kernel's numbers
@@ -276,6 +304,7 @@ import queue
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -299,6 +328,7 @@ from processing_chain_tpu_torch.ops import cuda_kernels as ck
 from processing_chain_tpu_torch.ops import fps as fps_ops
 from processing_chain_tpu_torch.ops import metrics as metrics_ops
 from processing_chain_tpu_torch.ops import overlay as ov
+from processing_chain_tpu_torch.ops import pixfmt as pf
 from processing_chain_tpu_torch.ops import resize as resize_ops
 from processing_chain_tpu_torch.parallel import mesh as pmesh
 from processing_chain_tpu_torch.parallel import meshobs, p03_batch, pipeline
@@ -397,6 +427,47 @@ def require(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: where the wall-clock gates' state lives: tmpfs on the card's host, not
+#: the checkout's mount (PERF.md §6, PR 17's diagnosis)
+RAM_BASE = "/dev/shm"
+
+
+def mount_of(path: str) -> tuple:
+    """(mount point, filesystem type) of the mount holding `path`, read
+    from /proc/mounts (the longest mount point that prefixes it)."""
+    real = os.path.realpath(path)
+    best = ("/", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            point = fields[1].replace("\\040", " ")
+            if (real == point or real.startswith(point.rstrip("/") + "/")) \
+                    and len(point) >= len(best[0]):
+                best = (point, fields[2])
+    return best
+
+
+@contextlib.contextmanager
+def ram_root(label: str):
+    """A fresh directory under RAM_BASE (tempfile.mkdtemp), removed after;
+    logs it with its mount and filesystem type first. Fails, naming the
+    reason, where it cannot be made there or RAM_BASE is not tmpfs."""
+    try:
+        root = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_", dir=RAM_BASE)
+    except OSError as exc:
+        raise SmokeFailure(f"{label}: cannot make a root under {RAM_BASE}: {exc}") from exc
+    try:
+        point, fstype = mount_of(root)
+        st = os.statvfs(root)
+        log(f"{label}: root {root} on {fstype} (mount {point}, "
+            f"{st.f_bavail * st.f_frsize / 1e9:.1f} GB free)")
+        require(fstype in ("tmpfs", "ramfs"),
+                f"{label}: {RAM_BASE} is {fstype} (mount {point}), not RAM-backed")
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1057,6 +1128,19 @@ class KeepSink:
     def frames(self) -> int:
         return sum(c[0].shape[0] for c in self.chunks)
 
+
+
+def run_downstream_both(dev) -> dict:
+    """Phase 7: the u8 clip with two stalls, then the 10-bit clip with a
+    freeze (see the module doc)."""
+    return {
+        "u8": run_downstream(dev, "u8 stall", CLIP_FRAMES, "yuv420p",
+                             [[2.0, 1.0], [7.5, 0.5]], False, pc_fps=30.0, preview=True,
+                             want_frames=690),
+        "10bit": run_downstream(dev, "10-bit freeze", CLIP_FRAMES_10BIT, "yuv420p10le",
+                                [[0.5, 0.4]], True, pc_fps=CANVAS_FPS, preview=False,
+                                want_frames=CLIP_FRAMES_10BIT),
+    }
 
 
 def run_downstream(dev, label: str, frames: int, pix_fmt: str, events, skipping: bool,
@@ -3029,7 +3113,8 @@ def run_control(dev, workdir: str) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     try:
-        soak = control_soak(base)
+        with ram_root("phase 15 (a)") as ram:
+            soak = control_soak(ram)
         result = _drive_control(dev, os.path.join(base, "fleet"))
         result["soak"] = soak
         return result
@@ -3444,9 +3529,16 @@ def harness_steadiness(rounds: int, checkouts: list, smi: str) -> dict:
     """`--steadiness N`: phase 16's wall-clock gates N times over each
     checkout in turn (see the module doc). Returns the failures by
     checkout and gate."""
-    base = os.path.join(ROOT, "build", "chip_smoke", "harness")
     failed = {os.path.relpath(c, ROOT): {"pack": 0, "self_test": 0, "chaos": 0}
               for c in checkouts}
+    with ram_root("steadiness") as base:
+        _steady_rounds(rounds, checkouts, base, failed, smi)
+    log(f"steadiness: failures over {rounds} rounds (chaos every 4th) on "
+        f"{mount_of(RAM_BASE)[1]} at {RAM_BASE} {failed}")
+    return failed
+
+
+def _steady_rounds(rounds: int, checkouts: list, base: str, failed: dict, smi: str) -> None:
     for i in range(rounds):
         for c in checkouts:
             root = os.path.join(base, f"steady{i}")
@@ -3476,16 +3568,11 @@ def harness_steadiness(rounds: int, checkouts: list, smi: str) -> dict:
             finally:
                 shutil.rmtree(root, ignore_errors=True)
             log(f"steadiness {i} {os.path.relpath(c, ROOT)}: {line} ({smi})")
-    log(f"steadiness: failures over {rounds} rounds (chaos every 4th) {failed}")
-    return failed
 
 
-def run_harness(dev, workdir: str, smi: str) -> dict:
+def run_harness(dev, smi: str) -> dict:
     """Phase 16: the serve fleet's proof harnesses (see the module doc)."""
-    base = os.path.join(workdir, "harness")
-    shutil.rmtree(base, ignore_errors=True)
-    os.makedirs(base)
-    try:
+    with ram_root("phase 16") as base:
         soak_root = os.path.join(base, "soak")
         soak = harness_soak(dev, soak_root, smi)
         pack = harness_pack(os.path.join(base, "pack"), smi)
@@ -3503,8 +3590,6 @@ def run_harness(dev, workdir: str, smi: str) -> dict:
             f"stolen unit); Chrome events {events}")
         return {"soak": soak, "pack": pack, "chaos": chaos, "trace_events": events,
                 "launches": soak["launches"]}
-    finally:
-        shutil.rmtree(base, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3660,6 +3745,7 @@ postProcessingList:
   - {{type: pc, displayWidth: 3840, displayHeight: 2160, codingWidth: 3840, codingHeight: 2160}}
 """
 MEDIA_CODECS = ("h264", "hevc", "vp9", "av1", "aac", "flac")
+P04_ENCODERS = ("rawvideo", "v210", "prores_ks")  # PC UYVY422, PC 10-bit, the preview
 FIXTURES = os.path.join(ROOT, "processing_chain_tpu_torch", "assets", "media")
 
 
@@ -3674,6 +3760,8 @@ def media_binding() -> dict:
     log(f"media boundary decoders: {json.dumps(decoders)}; absent: "
         f"{[c for c, ok in decoders.items() if not ok] or 'none'}")
     require(decoders["h264"], "the bound libav has no h264 decoder")
+    encoders = medialib.codecs(P04_ENCODERS, encoder=True)
+    log(f"media boundary encoders p04 needs: {json.dumps(encoders)}")
     with open(os.path.join(FIXTURES, "fixtures.json")) as f:
         record = json.load(f)
     prober = io_probe.LibavProber()
@@ -3708,7 +3796,7 @@ def media_binding() -> dict:
             f"{json.dumps(differ) if differ else 'none'}")
         out[name] = {"decoded": True, "frames": len(md5), "probe_differs": differ}
     return {"version": medialib.version(), "checks": len(b["checks"]),
-            "decoders": decoders, "fixtures": out}
+            "decoders": decoders, "encoders": encoders, "fixtures": out}
 
 
 def media_tone(n: int, seed: int) -> np.ndarray:
@@ -3735,21 +3823,57 @@ def write_media(path: str, chunks, fps: int, pix_fmt: str, audio) -> None:
     os.replace(tmp, path)
 
 
-def p03_cli(yaml_path: str, pvs_ids: list, *extra) -> tuple:
-    """`python -m processing_chain_tpu_torch p03` as a process on cuda:0:
-    (its p03 summary, wall seconds)."""
-    # -p 1: one PVS at a time, so the stage's pool-aware writeback default
-    # gives the one render every spare core (--ffv1-workers unpinned)
-    cmd = [sys.executable, "-m", "processing_chain_tpu_torch", "p03", "-c", yaml_path,
-           "-p", "1", "--filter-pvs", "|".join(pvs_ids), *extra]
-    t0 = time.perf_counter()
-    # chainlint: disable=subprocess-hygiene (the stage CLI as a process with a timeout; its exit code and log are checked)
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    require(proc.returncode == 0, f"p03 CLI exit {proc.returncode}: {proc.stderr[-3000:]}")
-    lines = [ln for ln in proc.stderr.splitlines() if "p03 summary: " in ln]
-    require(len(lines) == 1, f"p03 CLI printed no summary: {proc.stderr[-2000:]}")
-    return json.loads(lines[0].split("p03 summary: ", 1)[1]), wall
+class StageProcess:
+    """`python -m processing_chain_tpu_torch <stage>` (p03 or p04) as a
+    process on cuda:0, its output in files beside `log_dir`. `finish()`
+    waits for it and returns (its summary, wall seconds); `stop()` kills it
+    where it still runs (the smoke leaves no process behind)."""
+
+    def __init__(self, stage: str, yaml_path: str, pvs_ids: list, *extra,
+                 log_dir: str) -> None:
+        # -p 1: one job at a time, so the stage's pool-aware writeback
+        # default gives the one render every spare core (--ffv1-workers
+        # unpinned)
+        cmd = [sys.executable, "-m", "processing_chain_tpu_torch", stage, "-c", yaml_path,
+               "-p", "1", "--filter-pvs", "|".join(pvs_ids), *extra]
+        self.stage = stage
+        self.err_path = os.path.join(log_dir, f"{stage}-{os.getpid()}-{time.monotonic_ns()}.err")
+        self.t0 = time.perf_counter()
+        # chainlint: disable=atomic-write (the child's stderr stream, read back once it exits; a truncated file fails that run's checks)
+        with open(self.err_path, "w") as err:
+            # chainlint: disable=subprocess-hygiene (the stage CLI as a process that runs beside the smoke's checks; finish() waits with a timeout and checks its exit code and log, stop() kills it)
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+                                         text=True)
+
+    def finish(self, timeout: float = 600) -> tuple:
+        rc = self.proc.wait(timeout=timeout)
+        wall = time.perf_counter() - self.t0
+        with open(self.err_path) as f:
+            err = f.read()
+        stage = self.stage
+        require(rc == 0, f"{stage} CLI exit {rc}: {err[-3000:]}")
+        lines = [ln for ln in err.splitlines() if f"{stage} summary: " in ln]
+        require(len(lines) == 1, f"{stage} CLI printed no summary: {err[-2000:]}")
+        summary = json.loads(lines[0].split(f"{stage} summary: ", 1)[1])
+        # the process's seconds before its stage started, as the CLI logs them
+        start = [ln for ln in err.splitlines() if f"{stage} start-up: " in ln]
+        summary["startup"] = json.loads(start[0].split(f"{stage} start-up: ", 1)[1]) if start \
+            else None
+        return summary, wall
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def stage_cli(stage: str, yaml_path: str, pvs_ids: list, *extra, log_dir: str) -> tuple:
+    """A stage CLI process run to its end: (its summary, wall seconds)."""
+    run = StageProcess(stage, yaml_path, pvs_ids, *extra, log_dir=log_dir)
+    try:
+        return run.finish()
+    finally:
+        run.stop()
 
 
 class FrameTaker:
@@ -3784,15 +3908,13 @@ def decoded_chunks(path: str):
         yield from r.iter_chunks(avpvs.CHUNK)
 
 
-def check_render(dev, src_chunks, avpvs_path: str, pix_fmt: str, frames: int,
-                 keep: list = None) -> dict:
+def check_render(dev, src_chunks, avpvs_path: str, pix_fmt: str, frames: int) -> dict:
     """An AVPVS against the plain route on the card over its source chunks
     (a short test's decoded segment; a long test's segments on the canvas
     time grid, in order): `frames` frames, u8 planes bit-exact (10-bit
     within a code value), its .siti.csv within 1e-3 (1e-2) of
     si/ti_frames_plain, TI chained across chunks and segment joins.
-    Returns its frame count and errors; appends the decoded AVPVS chunks
-    to `keep` when given."""
+    Returns its frame count and errors."""
     ten_bit = "10" in pix_fmt
     sub = fr.chroma_subsampling(pix_fmt)
     dims = [(DST_H, DST_W), (DST_H // sub[0], DST_W // sub[1]), (DST_H // sub[0], DST_W // sub[1])]
@@ -3809,8 +3931,6 @@ def check_render(dev, src_chunks, avpvs_path: str, pix_fmt: str, frames: int,
                                             h, w, "bicubic") for p, (h, w) in zip(src, dims)]
             t = plain[0].shape[0]
             got = taker.take(t)
-            if keep is not None:
-                keep.append(got)
             got_dev = [torch.from_numpy(g).to(dev) for g in got]
             plane_err = max(plane_err, *(max_abs(a, b) for a, b in zip(got_dev, plain)))
             si = ck.si_frames_plain(plain[0]).cpu().numpy()
@@ -3851,16 +3971,10 @@ def check_stall(tc, pvs_id: str, spinner: str) -> dict:
     # (back-to-back freezes join in the mask); 2 frames before each to 5
     # after it, merged
     mask = np.asarray(plan.stall_mask, bool)
-    edges = set(np.flatnonzero(np.diff(np.r_[False, mask, False].astype(np.int8))).tolist())
+    edges = mask_edges(mask)
     if skipping:
         edges |= {int(round(t * rate)) for t, _ in ov.buff_event_pairs(events)}
-    windows = []
-    for e in sorted(edges):
-        lo, hi = max(0, e - 2), min(n_out, e + 6)
-        if windows and lo <= windows[-1][1]:
-            windows[-1][1] = max(windows[-1][1], hi)
-        elif lo < hi:
-            windows.append([lo, hi])
+    windows = edge_windows(edges, n_out)
     # both files decoded once, over the span of the windows
     lo0, hi0 = windows[0][0], windows[-1][1]
     s0, s1 = int(plan.src_idx[lo0:hi0].min()), int(plan.src_idx[lo0:hi0].max()) + 1
@@ -3902,57 +4016,12 @@ def wo_audio(pvs) -> np.ndarray:
     return medialib.decode_audio_s16(pvs.src.file_path, 0.0, total, channels=2)[0]
 
 
-def media_split(dev, seg_path: str, avpvs_path: str, out: list, fp_workers: int) -> dict:
-    """The render's three stages alone, in this process, on the same
-    inputs: decode of the segment, the device work of pump_ready over the
-    decoded chunks (resize, quantize, SI/TI), FFV1 writeback of the AVPVS
-    frames (`out`, its decoded chunks) through the stage's writer with the
-    stage's `fp_workers`."""
-    t0 = time.perf_counter()
-    with VideoReader(seg_path) as r:
-        chunks = [[np.array(p) for p in c] for c in r.iter_chunks(avpvs.CHUNK)]
-    decode_s = time.perf_counter() - t0
-
-    class Sync:
-        def put(self, planes, recycle=None):
-            pass
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    avpvs.pump_ready(iter(chunks), Sync(), avpvs.SiTiAccumulator(), DST_H, DST_W, "yuv420p",
-                     device=dev)
-    torch.cuda.synchronize()
-    device_s = time.perf_counter() - t0
-    path = avpvs_path + ".writeback.avi"
-    # plan-exempt: (the stage's worker count, restored after; it does not alter encoded bytes)
-    saved = os.environ.get("PC_FFV1_WORKERS")
-    os.environ["PC_FFV1_WORKERS"] = str(fp_workers)
-    try:
-        t0 = time.perf_counter()
-        with avpvs._ffv1_writer(path, DST_W, DST_H, "yuv420p", MEDIA_FPS, with_audio=False) as w:
-            for c in out:
-                w.write_batch(*c)
-        writeback_s = time.perf_counter() - t0
-    finally:
-        if saved is None:
-            os.environ.pop("PC_FFV1_WORKERS", None)
-        else:
-            os.environ["PC_FFV1_WORKERS"] = saved
-    os.unlink(path)
-    return {"decode_s": decode_s, "device_s": device_s, "writeback_s": writeback_s,
-            "frames": sum(c[0].shape[0] for c in chunks)}
-
-
-def run_media(dev, workdir: str, smi: str) -> dict:
+def run_media(dev, smi: str) -> dict:
     """Phase 18: the media boundary and p03's file-level short path (see
     the module doc)."""
     binding = media_binding()
-    root = os.path.join(workdir, "media")
-    shutil.rmtree(root, ignore_errors=True)
-    try:
+    with ram_root("phase 18") as root:
         return {"binding": binding, **run_media_db(dev, root, smi)}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
 
 
 def run_media_db(dev, root: str, smi: str) -> dict:
@@ -3983,7 +4052,8 @@ def run_media_db(dev, root: str, smi: str) -> dict:
 
     plain8 = [f"{MEDIA_DB}_SRC000_HRC000", f"{MEDIA_DB}_SRC000_HRC001"]
     frozen = f"{MEDIA_DB}_SRC000_HRC002"
-    summary, wall = p03_cli(yaml_path, plain8 + [frozen])
+    ten = f"{MEDIA_DB}_SRC001_HRC000"
+    summary, wall = stage_cli("p03", yaml_path, plain8 + [frozen], log_dir=root)
     log(f"p03 CLI (u8): {json.dumps(summary)}; wall {wall:.2f} s")
     launches = summary["launches"]
     # HRC000's 120 frames; HRC001's and HRC002's first segment, 60 each
@@ -3998,66 +4068,72 @@ def run_media_db(dev, root: str, smi: str) -> dict:
             f"p03 CLI decoder opens {summary['decoder_opens']}")
     require(summary["bufpool"]["hits"] > 0 and summary["bufpool"]["outstanding"] == 0,
             f"p03 CLI bufpool {summary['bufpool']}")
-    pvs = tc.pvses
-    t_check = time.perf_counter()
-    kept = []
-    renders = {
-        plain8[0]: check_render(dev, decoded_chunks(pvs[plain8[0]].segments[0].file_path),
-                                pvs[plain8[0]].get_avpvs_file_path(), "yuv420p", MEDIA_FRAMES,
-                                keep=kept),
-        plain8[1]: check_render(dev, decoded_chunks(pvs[plain8[1]].segments[0].file_path),
-                                pvs[plain8[1]].get_avpvs_wo_buffer_file_path(), "yuv420p",
-                                MEDIA_FPS),
-    }
-    stall = check_stall(tc, plain8[1], avpvs.DEFAULT_SPINNER)
-    t_freeze = time.perf_counter()
-    freeze = check_stall(tc, frozen, avpvs.DEFAULT_SPINNER)
-    log(f"phase 18 (d): freeze {frozen}: {freeze['frames']} frames as its wo_buffer render, "
-        f"{freeze['stalled']} of them frozen, frames {freeze['checked']} equal to the plain "
-        f"compositor on the CPU, audio untouched ({freeze['audio_samples']} samples); check "
-        f"{time.perf_counter() - t_freeze:.2f} s ({smi})")
-    split = media_split(dev, pvs[plain8[0]].segments[0].file_path,
-                        pvs[plain8[0]].get_avpvs_file_path(), kept, summary["fp_workers"])
-    del kept
-    frames = (sum(r["frames"] for r in renders.values()) + stall["frames"]
-              + 2 * freeze["frames"])
-    log(f"p03 file path u8: {frames} AVPVS frames (wo_buffer {renders[plain8[0]]['frames']} + "
-        f"{renders[plain8[1]]['frames']} + {freeze['frames']}, stalled {stall['frames']} with "
-        f"{stall['stalled']} stall frames from {stall['first_stall']}, frozen "
-        f"{freeze['frames']}) in {summary['seconds']:.3f} s of stage, "
-        f"{frames / summary['seconds']:.2f} frames/s (CLI wall {wall:.2f} s with start-up); "
-        f"fp_workers {summary['fp_workers']}, threads {summary['threads']}, slices "
-        f"{summary['slices']}; one 120-frame render alone: decode {split['decode_s']:.3f} s, "
-        f"device {split['device_s']:.3f} s, writeback {split['writeback_s']:.3f} s; "
-        f"checks {time.perf_counter() - t_check:.2f} s ({smi})")
-
-    ten = f"{MEDIA_DB}_SRC001_HRC000"
-    summary10, wall10 = p03_cli(yaml_path, [ten], "--avpvs-codec", "rawvideo")
+    summary10, wall10 = stage_cli("p03", yaml_path, [ten], "--avpvs-codec", "rawvideo",
+                                  log_dir=root)
     require(summary10["launches"] == launches_want(resize_frames_fused=3, si_frames_fused=1,
                                                    ti_frames_fused=1)
             and summary10["decoder_opens"] == {"render": 1, "stall": 0},
             f"p03 CLI 10-bit launches {summary10['launches']}, decoder opens "
             f"{summary10['decoder_opens']}")
-    codec = next(s["codec_name"] for s in medialib.probe(pvs[ten].get_avpvs_file_path())["streams"]
-                 if s["codec_type"] == "video")
-    require(codec == "ffv1", f"10-bit rawvideo request wrote {codec}, not the ffv1 fallback")
-    render10 = check_render(dev, decoded_chunks(pvs[ten].segments[0].file_path),
-                            pvs[ten].get_avpvs_file_path(),
-                            "yuv420p10le", MEDIA_FRAMES_10)
-    log(f"p03 file path 10-bit: {render10['frames']} frames (rawvideo requested, {codec} "
-        f"written), planes within {render10['plane_max_err']} of the plain route, SI/TI within "
-        f"{render10['siti_max_err']:.2e}; stage {summary10['seconds']:.3f} s, CLI wall "
-        f"{wall10:.2f} s ({smi})")
-    t_long = time.perf_counter()
-    long_test = media_long(dev, root, clip, tone, smi)
-    log(f"phase 18 (e), the long test: {time.perf_counter() - t_long:.1f} s")
+    # (e)'s p03 process (its own database) and (f)'s p04 process (over
+    # (b)'s and (c)'s AVPVS files) run beside the checks of (b)-(d)
+    long_run = media_long_start(root, clip, tone)
+    p04_run = None
+    try:
+        p04_run = P04Run(tc, yaml_path, root)
+        pvs = tc.pvses
+        t_check = time.perf_counter()
+        renders = {
+            plain8[0]: check_render(dev, decoded_chunks(pvs[plain8[0]].segments[0].file_path),
+                                    pvs[plain8[0]].get_avpvs_file_path(), "yuv420p",
+                                    MEDIA_FRAMES),
+            plain8[1]: check_render(dev, decoded_chunks(pvs[plain8[1]].segments[0].file_path),
+                                    pvs[plain8[1]].get_avpvs_wo_buffer_file_path(), "yuv420p",
+                                    MEDIA_FPS),
+        }
+        stall = check_stall(tc, plain8[1], avpvs.DEFAULT_SPINNER)
+        t_freeze = time.perf_counter()
+        freeze = check_stall(tc, frozen, avpvs.DEFAULT_SPINNER)
+        log(f"phase 18 (d): freeze {frozen}: {freeze['frames']} frames as its wo_buffer render, "
+            f"{freeze['stalled']} of them frozen, frames {freeze['checked']} equal to the plain "
+            f"compositor on the CPU, audio untouched ({freeze['audio_samples']} samples); check "
+            f"{time.perf_counter() - t_freeze:.2f} s ({smi})")
+        frames = (sum(r["frames"] for r in renders.values()) + stall["frames"]
+                  + 2 * freeze["frames"])
+        log(f"p03 file path u8: {frames} AVPVS frames (wo_buffer {renders[plain8[0]]['frames']} "
+            f"+ {renders[plain8[1]]['frames']} + {freeze['frames']}, stalled {stall['frames']} "
+            f"with {stall['stalled']} stall frames from {stall['first_stall']}, frozen "
+            f"{freeze['frames']}) in {summary['seconds']:.3f} s of stage, "
+            f"{frames / summary['seconds']:.2f} frames/s (CLI wall {wall:.2f} s with start-up); "
+            f"fp_workers {summary['fp_workers']}, threads {summary['threads']}, slices "
+            f"{summary['slices']}; checks {time.perf_counter() - t_check:.2f} s ({smi})")
+        codec = video_stream(pvs[ten].get_avpvs_file_path())["codec_name"]
+        require(codec == "ffv1", f"10-bit rawvideo request wrote {codec}, not the ffv1 fallback")
+        render10 = check_render(dev, decoded_chunks(pvs[ten].segments[0].file_path),
+                                pvs[ten].get_avpvs_file_path(),
+                                "yuv420p10le", MEDIA_FRAMES_10)
+        log(f"p03 file path 10-bit: {render10['frames']} frames (rawvideo requested, {codec} "
+            f"written), planes within {render10['plane_max_err']} of the plain route, SI/TI "
+            f"within {render10['siti_max_err']:.2e}; stage {summary10['seconds']:.3f} s, CLI "
+            f"wall {wall10:.2f} s ({smi})")
+        t_long = time.perf_counter()
+        long_test = media_long(dev, long_run, smi)
+        log(f"phase 18 (e), the long test: {time.perf_counter() - t_long:.1f} s after (b)-(d)")
+        t_p04 = time.perf_counter()
+        p04 = p04_run.finish(dev, smi)
+        log(f"phase 18 (f), p04: {time.perf_counter() - t_p04:.1f} s after (e)")
+    finally:
+        long_run["run"].stop()
+        if p04_run is not None:
+            p04_run.stop()
     return {"u8": {"summary": summary, "wall_s": wall, "renders": renders, "stall": stall,
-                   "freeze": freeze, "split": split, "frames": frames,
+                   "freeze": freeze, "frames": frames,
                    "frames_per_s": frames / summary["seconds"]},
             "10bit": {"summary": summary10, "wall_s": wall10, "render": render10},
-            "long": long_test,
+            "long": long_test, "p04": p04,
             "launches": launches, "launches_10bit": summary10["launches"],
             "launches_long": long_test["summary"]["launches"],
+            "launches_p04": p04["summary"]["launches"],
             "write_s": write_s}
 
 
@@ -4073,12 +4149,9 @@ def chunk_launches(n: int) -> dict:
     return launches_want(resize_frames_fused=3 * n, si_frames_fused=n, ti_frames_fused=n)
 
 
-def media_long(dev, root: str, clip: list, tone: np.ndarray, smi: str) -> dict:
-    """Phase 18 (e): P2LTR18, the media SRC as a long test, through the p03
-    CLI: launches from its segments' canvas chunks, the stage's decoder
-    opens (one a segment), the wo_buffer AVPVS against the plain route
-    over its segments decoded in turn, its audio the SRC's, the stalled
-    AVPVS."""
+def media_long_start(root: str, clip: list, tone: np.ndarray) -> dict:
+    """Phase 18 (e): P2LTR18, the media SRC as a long test, written, and
+    its p03 CLI process started (`media_long` waits for it)."""
     t0 = time.perf_counter()
     yaml_path = write_database(root, LONG_DB, LONG_YAML, {})
     write_media(os.path.join(os.path.dirname(yaml_path), "srcVid", "SRC000.avi"), clip,
@@ -4094,9 +4167,19 @@ def media_long(dev, root: str, clip: list, tone: np.ndarray, smi: str) -> dict:
     pvs = tc.pvses[pvs_id]
     rate = avpvs.canvas_fps(pvs)
     per_seg = [int(round(seg.duration * rate)) for seg in pvs.segments]
-    write_s = time.perf_counter() - t0
+    return {"tc": tc, "pvs_id": pvs_id, "per_seg": per_seg, "rate": rate,
+            "write_s": time.perf_counter() - t0,
+            "run": StageProcess("p03", yaml_path, [pvs_id], log_dir=root)}
 
-    summary, wall = p03_cli(yaml_path, [pvs_id])
+
+def media_long(dev, started: dict, smi: str) -> dict:
+    """Phase 18 (e): the long test's p03 CLI run waited for: launches from
+    its segments' canvas chunks, the stage's decoder opens (one a segment),
+    the wo_buffer AVPVS against the plain route over its segments decoded
+    in turn, its audio the SRC's, the stalled AVPVS."""
+    tc, pvs_id, per_seg, rate = (started[k] for k in ("tc", "pvs_id", "per_seg", "rate"))
+    pvs, write_s = tc.pvses[pvs_id], started["write_s"]
+    summary, wall = started["run"].finish()
     require(summary["renders"] == 1 and summary["stalls"] == 1,
             f"p03 CLI long: {summary['renders']} renders, {summary['stalls']} stalls")
     want = chunk_launches(len(stream_chunks(per_seg, avpvs.chunk_frames(dev))))
@@ -4131,6 +4214,237 @@ def media_long(dev, root: str, clip: list, tone: np.ndarray, smi: str) -> dict:
             "check_s": check_s}
 
 
+def file_state(paths: list) -> dict:
+    """(size, mtime_ns) of each path."""
+    return {p: (os.stat(p).st_size, os.stat(p).st_mtime_ns) for p in paths}
+
+
+def video_stream(path: str) -> dict:
+    return next(s for s in medialib.probe(path)["streams"] if s["codec_type"] == "video")
+
+
+def stall_windows(pvs, n_out: int) -> list:
+    """Frames 2 before to 5 after each edge of the PVS's stalls (merged),
+    and the first frame."""
+    wo = pvs.get_avpvs_wo_buffer_file_path()
+    if not pvs.has_buffering():
+        return [[0, 1]]
+    with VideoReader(wo) as r:
+        rate = r.fps
+    n_wo = len(medialib.scan_packets(wo, "video")["size"])
+    plan = ov.plan_stalling(n_wo, rate, pvs.get_buff_events_media_time(),
+                            skipping=pvs.has_framefreeze(), black_frame=True, n_rotations=64)
+    return edge_windows(mask_edges(plan.stall_mask), n_out, [[0, 1]])
+
+
+def mask_edges(mask) -> set:
+    """The frames where a stall mask starts or ends."""
+    mask = np.asarray(mask, bool)
+    return set(np.flatnonzero(np.diff(np.r_[False, mask, False].astype(np.int8))).tolist())
+
+
+def edge_windows(edges, n_out: int, windows: list = None) -> list:
+    """[lo, hi) windows from 2 frames before to 5 after each edge, merged,
+    appended to `windows` (a fresh list by default)."""
+    windows = [] if windows is None else windows
+    for e in sorted(edges):
+        lo, hi = max(0, e - 2), min(n_out, e + 6)
+        if windows and lo <= windows[-1][1]:
+            windows[-1][1] = max(windows[-1][1], hi)
+        elif lo < hi:
+            windows.append([lo, hi])
+    return windows
+
+
+def decoded_avpvs(pvs) -> dict:
+    """A PVS's AVPVS decoded once for phase 18 (f)'s checks: its planes,
+    rate, pix_fmt and geometry."""
+    with VideoReader(pvs.get_avpvs_file_path()) as r:
+        planes, _ = r.read_all()
+        return {"planes": planes, "fps": r.fps, "pix_fmt": r.pix_fmt,
+                "width": r.width, "height": r.height}
+
+
+def check_cpvs(dev, pvs, pp, cpvs_path: str, av: dict) -> dict:
+    """Phase 18 (f)'s checks of one PC CPVS: its frame count against
+    cpvs_plan and cpvs_out_rate, its codec, pix_fmt and geometry, its
+    decoded planes against the plain route on the card (make_cpvs_transform
+    with resize_frames_plain, over the decoded AVPVS `av` resampled with
+    the `fps=` index table), bit-exact, and its first frame and the frames
+    at the stall's edges against the CPU route."""
+    planes, av_fps, pix_fmt = av["planes"], av["fps"], av["pix_fmt"]
+    plan = cp.cpvs_plan(pvs, pp, av["height"])
+    rate = float(cp.cpvs_out_rate(plan, av_fps))
+    n_av = planes[0].shape[0]
+    n_want = n_av if rate == av_fps else int(round(n_av / av_fps * rate))
+    idx = np.minimum(np.floor(np.arange(n_want) / rate * av_fps + 0.5).astype(np.int64), n_av - 1)
+    stream = video_stream(cpvs_path)
+    n_got = len(medialib.scan_packets(cpvs_path, "video")["size"])  # a packet a frame
+    require(n_got == n_want and stream["codec_name"] == plan["vcodec"]
+            and (stream["width"], stream["height"]) == (pp.display_width, pp.display_height),
+            f"{cpvs_path}: {n_got} frames ({n_want} planned), {stream['codec_name']} "
+            f"{stream['width']}x{stream['height']} (plan {plan['vcodec']})")
+    transform = cp.make_cpvs_transform(plan, pp, pix_fmt, False)
+    packed = plan["pix_fmt"] == "uyvy422"
+
+    def as_written(planes):
+        # the decoder deinterleaves UYVY422 into planes: pack them again
+        return [pf.pack_uyvy422(*planes)] if packed else list(planes)
+
+    def as_coded(planes):
+        # v210 keeps 10-bit codes in 4..1019 (the encoder clips the two
+        # ends, reserved in SDI); UYVY422 stores every code
+        return planes if packed else [p.to(torch.int32).clamp(4, 1019).to(p.dtype)
+                                      for p in planes]
+
+    def source(lo, hi, device):
+        return [torch.from_numpy(np.ascontiguousarray(p[idx[lo:hi]])).to(device)
+                for p in planes]
+
+    windows = stall_windows(pvs, n_want)
+    err = 0.0
+    n = 0
+    with VideoReader(cpvs_path) as r:
+        for got in r.iter_chunks(avpvs.CHUNK):
+            t = got[0].shape[0]
+            with plain_resize():
+                want = as_coded(transform(source(n, n + t, dev)))
+            got_cpu = as_written([torch.from_numpy(np.array(g)) for g in got])
+            err = max(err, *(max_abs(a.to(dev), b) for a, b in zip(got_cpu, want)))
+            # the CPU route over the windows this chunk holds
+            for lo, hi in windows:
+                lo_c, hi_c = max(lo, n), min(hi, n + t)
+                if lo_c < hi_c:
+                    cpu = as_coded(transform(source(lo_c, hi_c, "cpu")))
+                    got_w = as_written([torch.from_numpy(np.array(g[lo_c - n:hi_c - n]))
+                                        for g in got])
+                    require(all(torch.equal(a, b) for a, b in zip(got_w, cpu)),
+                            f"{cpvs_path}: frames {lo_c}..{hi_c - 1} differ from the CPU route")
+            n += t
+    require(n == n_want and err == 0,
+            f"{cpvs_path}: {n} frames decoded, planes off the plain route by {err}")
+    return {"frames": n_got, "avpvs_frames": n_av, "rate": rate, "codec": stream["codec_name"],
+            "pix_fmt": plan["pix_fmt"], "plane_max_err": err,
+            "cpu_checked": [f"{lo}..{hi - 1}" for lo, hi in windows],
+            "chunks": -(-n_want // avpvs.CHUNK)}
+
+
+def check_preview(dev, pvs, av) -> dict:
+    """Phase 18 (f)'s checks of one preview: codec, geometry, pix_fmt and
+    frame count from the prober; given the decoded AVPVS `av`, its encoder
+    input (the preview transform on the card, over `av`) against the plain
+    route, bit-exact, and the decoded file's luma PSNR against it."""
+    path = pvs.get_preview_file_path()
+    if av is None:
+        src = pvs.get_avpvs_file_path()
+        with VideoReader(src) as r:
+            w, h = r.width, r.height
+        n_av = len(medialib.scan_packets(src, "video")["size"])
+    else:
+        w, h, n_av = av["width"], av["height"], av["planes"][0].shape[0]
+    stream = video_stream(path)
+    n_got = len(medialib.scan_packets(path, "video")["size"])
+    require((stream["codec_name"], stream["pix_fmt"], stream["width"], stream["height"], n_got)
+            == ("prores", "yuv422p10le", w, h, n_av),
+            f"{path}: {stream['codec_name']} {stream['pix_fmt']} {stream['width']}x"
+            f"{stream['height']}, {n_got} frames ({n_av} in the AVPVS)")
+    out = {"frames": n_got, "chunks": -(-n_av // avpvs.CHUNK)}
+    if av is None:
+        return out
+    transform = cp.make_preview_transform(av["pix_fmt"])
+    err = 0.0
+    sq = count = 0.0
+    with VideoReader(path) as r:
+        taker = FrameTaker(r.iter_chunks(avpvs.CHUNK))
+        for lo in range(0, n_av, avpvs.CHUNK):
+            src = [torch.from_numpy(np.ascontiguousarray(p[lo:lo + avpvs.CHUNK])).to(dev)
+                   for p in av["planes"]]
+            enc = transform(src)  # the kernel's route, as the stage ran it
+            with plain_resize():
+                plain = transform(src)
+            err = max(err, *(max_abs(a, b) for a, b in zip(enc, plain)))
+            dec = torch.from_numpy(taker.take(src[0].shape[0])[0].astype(np.float64)).to(dev)
+            sq += float(((dec - enc[0].to(torch.float64)) ** 2).sum())
+            count += dec.numel()
+    psnr = float(10 * np.log10(1023.0 ** 2 / max(sq / count, 1e-12)))
+    require(err == 0 and psnr >= PREVIEW_PSNR_DB,
+            f"{path}: encoder input off the plain route by {err}, luma PSNR {psnr:.2f} dB "
+            f"against it (floor {PREVIEW_PSNR_DB})")
+    out.update(encoder_input_max_err=err, luma_psnr_db=psnr)
+    return out
+
+
+#: the ProRes preview's luma PSNR floor (10-bit scale) against its encoder
+#: input (tests/test_torch_p04_file.py reads 65-67 dB on its database)
+PREVIEW_PSNR_DB = 35.0
+
+
+class P04Run:
+    """Phase 18 (f): `python -m processing_chain_tpu_torch p04 -e` as one
+    process on cuda:0 over (b)'s stalled HRC001 (u8: PC rawvideo UYVY422)
+    and (c)'s SRC001_HRC000 (10-bit: v210), started once their AVPVS files
+    exist; `finish()` waits for it and holds its summary's launches,
+    decoder opens and buffer pool, each CPVS and preview (HRC001's in full,
+    the 10-bit one probed), and the AVPVS files and sidecars untouched."""
+
+    def __init__(self, tc, yaml_path: str, root: str) -> None:
+        encoders = medialib.codecs(P04_ENCODERS, encoder=True)
+        missing = [c for c, ok in encoders.items() if not ok]
+        require(not missing, f"p04: the bound libav has no {', '.join(missing)} encoder")
+        self.tc, self.encoders = tc, encoders
+        self.u8, self.ten = f"{MEDIA_DB}_SRC000_HRC001", f"{MEDIA_DB}_SRC001_HRC000"
+        pvs = tc.pvses
+        self.inputs = [f for pid in (self.u8, self.ten)
+                       for f in (pvs[pid].get_avpvs_file_path(),
+                                 pvs[pid].get_avpvs_wo_buffer_file_path())
+                       for f in (f, avpvs.siti_sidecar_path(f)) if os.path.isfile(f)]
+        self.before = file_state(self.inputs)
+        self.run = StageProcess("p04", yaml_path, [self.u8, self.ten], "-e", log_dir=root)
+
+    def stop(self) -> None:
+        self.run.stop()
+
+    def finish(self, dev, smi: str) -> dict:
+        summary, wall = self.run.finish()
+        log(f"p04 CLI: {json.dumps(summary)}; wall {wall:.2f} s")
+        require(file_state(self.inputs) == self.before, "p04 touched an AVPVS or its sidecar")
+        u8, ten, pvs = self.u8, self.ten, self.tc.pvses
+        t_check = time.perf_counter()
+        pp = self.tc.post_processings[0]
+        avs = {pid: decoded_avpvs(pvs[pid]) for pid in (u8, ten)}
+        cpvs = {pid: check_cpvs(dev, pvs[pid], pp, pvs[pid].get_cpvs_file_path("pc"), avs[pid])
+                for pid in (u8, ten)}
+        previews = {u8: check_preview(dev, pvs[u8], avs[u8]),
+                    ten: check_preview(dev, pvs[ten], None)}
+        del avs
+        check_s = time.perf_counter() - t_check
+        # two resize launches (U, V: the 420->422 lift) a chunk of each render
+        chunks = sum(r["chunks"] for r in [*cpvs.values(), *previews.values()])
+        want = launches_want(resize_frames_fused=2 * chunks)
+        require(summary["launches"] == want, f"p04 CLI launches {summary['launches']} != {want}")
+        require(summary["renders"] == 4 and summary["decoder_opens"] == 4,
+                f"p04 CLI: {summary['renders']} renders, {summary['decoder_opens']} decoder opens")
+        require(summary["bufpool"]["hits"] > 0 and summary["bufpool"]["outstanding"] == 0,
+                f"p04 CLI bufpool {summary['bufpool']}")
+        frames = summary["frames"]
+        log(f"phase 18 (f): p04 {u8} PC {cpvs[u8]['codec']} {cpvs[u8]['pix_fmt']} "
+            f"{cpvs[u8]['frames']} frames at {cpvs[u8]['rate']} fps, {ten} PC "
+            f"{cpvs[ten]['codec']} {cpvs[ten]['frames']} frames ({cpvs[ten]['avpvs_frames']} "
+            f"AVPVS frames at {cpvs[ten]['rate']} fps), both equal to the plain route on the card "
+            f"and frames {cpvs[u8]['cpu_checked']} / {cpvs[ten]['cpu_checked']} to the CPU "
+            f"route; previews {previews[u8]['frames']} / {previews[ten]['frames']} frames, "
+            f"encoder input equal to the plain route, decoded at "
+            f"{previews[u8]['luma_psnr_db']:.2f} dB; launches {summary['launches']}, decoder "
+            f"opens {summary['decoder_opens']}, bufpool {summary['bufpool']}; {frames} frames in "
+            f"{summary['seconds']:.3f} s of stage, {frames / summary['seconds']:.2f} frames/s "
+            f"(decode {summary['decode_s']:.3f} s, device {summary['device_s']:.3f} s, "
+            f"writeback {summary['writeback_s']:.3f} s), CLI wall {wall:.2f} s with start-up, "
+            f"beside (e)'s process and the checks of (b)-(d); checks {check_s:.2f} s ({smi})")
+        return {"summary": summary, "wall_s": wall, "cpvs": cpvs, "previews": previews,
+                "frames_per_s": frames / summary["seconds"], "check_s": check_s,
+                "encoders": self.encoders}
+
+
 def module_probe() -> str:
     """Which optional third-party modules import here, with their
     versions. Printed for the record; phase 14's TestConfig needs yaml."""
@@ -4153,11 +4467,15 @@ class Phases:
 
     def __init__(self) -> None:
         self.current = (0, "start-up")
+        self.t0 = time.perf_counter()
+
+    def elapsed(self) -> float:
+        return time.perf_counter() - self.t0
 
     @contextlib.contextmanager
     def __call__(self, n: int, name: str):
         self.current = (n, name)
-        log(f"phase {n} ({name}): start")
+        log(f"phase {n} ({name}): start at {self.elapsed():.1f} s")
         t0 = time.perf_counter()
         yield
         log(f"phase {n}: {time.perf_counter() - t0:.1f} s")
@@ -4165,7 +4483,7 @@ class Phases:
 
 #: the phases `--phases` may run alone: each needs only the device and the
 #: kernels built by phases 1 and 2
-ALONE = (3, 14, 15, 16, 17, 18)
+ALONE = (3, 7, 14, 15, 16, 17, 18)
 
 
 def main(argv=None) -> int:
@@ -4237,12 +4555,13 @@ def run_smoke(phases: Phases, only) -> int:
     os.makedirs(workdir, exist_ok=True)
     if only is not None:
         alone = {3: ("kernels against their plain versions", lambda: check_kernels(dev)),
+                 7: ("the downstream render", lambda: run_downstream_both(dev)),
                  14: ("the database", lambda: run_database(dev, workdir)),
                  15: ("the serve control plane", lambda: run_control(dev, workdir)),
-                 16: ("the proof harnesses", lambda: run_harness(dev, workdir, smi)),
+                 16: ("the proof harnesses", lambda: run_harness(dev, smi)),
                  17: ("the port's gates", lambda: run_gates(dev, workdir, smi)),
                  18: ("the media boundary and p03's file path",
-                      lambda: run_media(dev, workdir, smi))}
+                      lambda: run_media(dev, smi))}
         for n in only:
             with phases(n, alone[n][0]):
                 alone[n][1]()
@@ -4262,14 +4581,7 @@ def run_smoke(phases: Phases, only) -> int:
         log(f"wave render (production mesh): {waves['production']['frames_per_s']:.2f} "
             f"frames/s beside pump_ready {main8['frames_per_s']:.2f} frames/s, same run")
     with phases(7, "the downstream render"):
-        downstream = {
-            "u8": run_downstream(dev, "u8 stall", CLIP_FRAMES, "yuv420p",
-                                 [[2.0, 1.0], [7.5, 0.5]], False, pc_fps=30.0, preview=True,
-                                 want_frames=690),
-            "10bit": run_downstream(dev, "10-bit freeze", CLIP_FRAMES_10BIT, "yuv420p10le",
-                                    [[0.5, 0.4]], True, pc_fps=CANVAS_FPS, preview=False,
-                                    want_frames=CLIP_FRAMES_10BIT),
-        }
+        downstream = run_downstream_both(dev)
     with phases(8, "kernel timing"):
         timing = time_kernels(dev)
     with phases(9, "p01's quality ladder"):
@@ -4300,13 +4612,14 @@ def run_smoke(phases: Phases, only) -> int:
     with phases(15, "the serve control plane"):
         control = run_control(dev, workdir)
     with phases(16, "the proof harnesses"):
-        harness = run_harness(dev, workdir, smi)
+        harness = run_harness(dev, smi)
     with phases(17, "the port's gates"):
         gates = run_gates(dev, workdir, smi)
     with phases(18, "the media boundary and p03's file path"):
-        media = run_media(dev, workdir, smi)
+        media = run_media(dev, smi)
 
     phases.current = (19, "the result lines")
+    total = phases.elapsed()
     paths = {"pump_ready_u8": main8["launches"], "pump_ready_10bit": main10["launches"],
              **{k: v["launches"] for k, v in flagship.items()},
              **{f"wave_{k}": v["launches"] for k, v in waves.items()},
@@ -4323,7 +4636,7 @@ def run_smoke(phases: Phases, only) -> int:
              "mesh_sharded_step": mesh["sharded_step"]["launches"],
              **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()},
              "p03_file": media["launches"], "p03_file_10bit": media["launches_10bit"],
-             "p03_file_long": media["launches_long"]}
+             "p03_file_long": media["launches_long"], "p04_file": media["launches_p04"]}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",
@@ -4350,6 +4663,7 @@ def run_smoke(phases: Phases, only) -> int:
                     "serve": serve, "mesh": mesh, "profiled": profiled, "database": database,
                     "control": control, "harness": harness, "gates": gates,
                     "media": media, "card": smi}))
+    log(f"chip_smoke: phases 1-18 in {total:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

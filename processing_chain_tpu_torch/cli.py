@@ -1,7 +1,8 @@
 """The stage command line of the port (counterpart of
-processing_chain_tpu/cli.py:49-260 and `main` :393, for `p03` only):
+processing_chain_tpu/cli.py:49-260 and `main` :393, for `p03` and `p04`):
 
     python -m processing_chain_tpu_torch p03 -c DB/DB.yaml [-f60] [-z] …
+    python -m processing_chain_tpu_torch p04 -c DB/DB.yaml [-e] [-a] [-ccrf N] …
 
 The flags are the JAX package's (utils/parse_args), so one command line
 drives either package. The stage runs on `cuda:0`, or on the card `-g N`
@@ -14,7 +15,10 @@ are refused. ConfigError, ChainError, MediaError and a missing device exit
 
 from __future__ import annotations
 
+import json
+import os
 import sys
+import time
 from typing import Optional, Sequence
 
 from .config.errors import ConfigError
@@ -45,31 +49,62 @@ def setup_logger(verbose: bool = False):
     return logger
 
 
-def _dispatch_p03(argv: Sequence[str], device=None) -> int:
-    args = pa.parse_args("p03", 3, argv)
+#: the stages the port runs, by name: (script number, module name)
+STAGES = {"p03": (3, "p03_generate_avpvs"), "p04": (4, "p04_generate_cpvs")}
+
+
+def _process_seconds() -> Optional[float]:
+    """Seconds since this process started (/proc/self/stat's start time
+    against /proc/uptime), or None where /proc does not tell."""
+    try:
+        with open("/proc/self/stat") as f:
+            start = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        return round(uptime - start / os.sysconf("SC_CLK_TCK"), 3)
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
+    import importlib
+
+    startup = {"to_main_s": _process_seconds()}
+    t0 = time.perf_counter()
+    args = pa.parse_args(stage, STAGES[stage][0], argv)
     log = setup_logger(args.verbose)
     given = [f"--{f.replace('_', '-')}" for f in _OBSERVABILITY_FLAGS
              if getattr(args, f, None) is not None]
     if given:
-        log.error("p03: %s: the run's observability flags are ROADMAP Queue A item 6 "
-                  "of the PyTorch package", ", ".join(given))
+        log.error("%s: %s: the run's observability flags are ROADMAP Queue A item 6 "
+                  "of the PyTorch package", stage, ", ".join(given))
         return 2
     try:
         dev = resolve_device(device) if device is not None else select_device(args.set_gpu_loc)
     except DeviceError as exc:
-        log.error("p03: %s", exc)
+        log.error("%s: %s", stage, exc)
         return 1
+    startup["device_s"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
     if not args.skip_requirements and not check_requirements(need_device=dev.type == "cuda"):
         return 1
+    startup["requirements_s"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
     from .store import runtime as store_runtime
-    from .stages import p03_generate_avpvs
 
+    module = importlib.import_module(f".stages.{STAGES[stage][1]}", __package__)
     store = store_runtime.configure_from_args(args)
     if store is not None:
         log.info("artifact store: %s", store.root)
-    log.info("p03 on %s", dev)
+    startup["stage_import_s"] = round(time.perf_counter() - t0, 3)
+    # where a process's seconds go before the stage starts: the
+    # interpreter and imports, the device pick, the requirements check
+    # (libav located, bound and its layout round trips), the stage's
+    # modules
+    log.info("%s start-up: %s", stage, json.dumps(startup))
+    log.info("%s on %s", stage, dev)
     try:
-        p03_generate_avpvs.run(args, device=dev)
+        module.run(args, device=dev)
     except (ConfigError, ChainError, MediaError) as exc:
         log.error("%s", exc)
         return 1
@@ -81,13 +116,13 @@ def _dispatch_p03(argv: Sequence[str], device=None) -> int:
 
 
 def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
-    """`p03 …` runs the stage; `device` (a torch device or its name)
-    overrides the card the flags select."""
+    """`p03 …` or `p04 …` runs the stage; `device` (a torch device or its
+    name) overrides the card the flags select."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "p03":
-        sys.stderr.write("usage: python -m processing_chain_tpu_torch p03 -c DB.yaml …\n")
+    if not argv or argv[0] not in STAGES:
+        sys.stderr.write("usage: python -m processing_chain_tpu_torch p03|p04 -c DB.yaml …\n")
         return 2
-    return _dispatch_p03(argv[1:], device)
+    return _dispatch_stage(argv[0], argv[1:], device)
 
 
 if __name__ == "__main__":

@@ -312,12 +312,16 @@ class AsyncWriter:
     `pool` (default: bufpool.DEFAULT_POOL) AFTER the chunk is encoded: the
     fetch of the device outputs waits for the computation that consumed
     those blocks, so this is the earliest point their reuse is provably
-    safe (a CPU tensor made with torch.from_numpy aliases its block)."""
+    safe (a CPU tensor made with torch.from_numpy aliases its block).
 
-    def __init__(self, writer, depth: int = 4, pool=None) -> None:
+    `fetch` maps each plane to a host array on the writer thread
+    (default `to_host`)."""
+
+    def __init__(self, writer, depth: int = 4, pool=None, fetch=None) -> None:
         from ..io import bufpool
 
         self._writer = writer
+        fetch = fetch or to_host
         self._pool = pool or bufpool.DEFAULT_POOL
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         _register_queue("encode", self._q)
@@ -340,7 +344,7 @@ class AsyncWriter:
                 try:
                     t0 = time.perf_counter()
                     with profiling.maybe_span("writeback:encode"):
-                        planes = [to_host(p) for p in chunk]
+                        planes = [fetch(p) for p in chunk]
                         if write_batch is not None:
                             write_batch(*planes)
                         else:

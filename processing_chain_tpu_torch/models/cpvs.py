@@ -1,7 +1,10 @@
-"""CPVS model — the per-chunk device half of p04 (port of
-processing_chain_tpu/models/cpvs.py: `normalize_rms`, `_limit_frames`,
-`cpvs_plan` :106-170, `t_cap_frames`, `cpvs_out_rate`,
-`make_cpvs_transform` :189-246 and `make_preview_transform` :381-399).
+"""CPVS model — the p04 stage (port of processing_chain_tpu/models/
+cpvs.py: `normalize_rms`, `_avpvs_chunks` :60, `_limit_frames`,
+`trim_normalize_long_audio` :85, `_audio_for_long` :98, `cpvs_plan`
+:106-170, `t_cap_frames`, `make_cpvs_transform` :189-246,
+`open_cpvs_writer` :249, `cpvs_out_rate`, `create_cpvs` :298,
+`make_preview_transform` :381-399, `open_preview_writer` :404 and
+`create_preview` :428).
 
 PC context: AVPVS → 420→422 chroma (packed UYVY422 for 8-bit, planar
 yuv422p10le for v210) → centered pad to the display canvas when the
@@ -10,22 +13,57 @@ tablet: 10-bit → 8-bit, then bicubic scale to the display dims, or pad
 only. Preview: 422 10-bit. The transforms take and return tensors on
 one device and never fetch to the host: the writer does.
 
-Not ported yet: the writers, `create_cpvs`, `create_preview` and the
-long-test audio helpers.
+A render job decodes the AVPVS on a prefetch thread, copies each chunk
+to the device ahead of its compute (parallel/pipeline.iter_device_ahead),
+applies the transform there, and hands the result to the writer thread,
+which fetches it through pinned memory and encodes it. Its plan records
+the port's resize identity (`plan_resize_method(device)`,
+"torch-auto:<device type>"), where the JAX package records its own.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+import time
 from fractions import Fraction
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config.domain import PostProcessing, Pvs
+from ..engine import prefetch as pfe
+from ..engine.jobs import Job
+from ..io import medialib
+from ..io.video import VideoReader, VideoWriter
 from ..ops import pad as pad_ops
 from ..ops import pixfmt as pf
+from ..ops import resize as resize_ops
+from ..parallel.pipeline import iter_device_ahead
+from ..store import keys as store_keys
+from ..utils.device import resolve_device
+from . import avpvs
 from . import frames as fr
+
+#: seconds and frames of every render of this process, by part: the
+#: decode thread's, the device loop's (copy, transform; measured on the
+#: device with events on a card) and the writer thread's (fetch, encode).
+#: The p04 stage reports its own deltas.
+RENDER_TOTALS = {"decode_s": 0.0, "device_s": 0.0, "writeback_s": 0.0, "frames": 0}
+_TOTALS_LOCK = threading.Lock()
+
+
+def _add_totals(**parts) -> None:
+    with _TOTALS_LOCK:
+        for k, v in parts.items():
+            RENDER_TOTALS[k] += v
+
+
+def render_totals() -> dict:
+    """A copy of RENDER_TOTALS."""
+    with _TOTALS_LOCK:
+        return dict(RENDER_TOTALS)
 
 
 def normalize_rms(samples: np.ndarray, target_dbfs: float = -23.0) -> np.ndarray:
@@ -53,6 +91,31 @@ def normalize_rms(samples: np.ndarray, target_dbfs: float = -23.0) -> np.ndarray
     return np.clip(np.rint(x * gain), -32768, 32767).astype(np.int16)
 
 
+def _timed(chunks, seconds: list):
+    """`chunks`, adding the seconds each next() takes to seconds[0] (on
+    the prefetch thread that pulls it: the decode time)."""
+    it = iter(chunks)
+    while True:
+        t0 = time.perf_counter()
+        chunk = next(it, None)
+        seconds[0] += time.perf_counter() - t0
+        if chunk is None:
+            return
+        yield chunk
+
+
+def _avpvs_chunks(reader: VideoReader, dst_rate: Optional[float] = None, device=None):
+    """Stream an open AVPVS reader as chunk_frames()-sized plane stacks,
+    resampled to dst_rate when it differs (ffmpeg `fps=` semantics,
+    streaming). O(chunk) memory for arbitrarily long PVSes — never the
+    whole AVPVS."""
+    chunk = avpvs.chunk_frames(device)
+    if dst_rate is not None and dst_rate != reader.fps:
+        return pfe.stream_fps_resample(avpvs._frames_as_tensors(reader), reader.fps,
+                                       dst_rate, chunk)
+    return pfe.iter_plane_chunks(reader, chunk)
+
+
 def _limit_frames(chunks, n_max: int):
     """Cap a plane-chunk stream at n_max frames (the reference's `-t`
     output-duration trim, applied to the video stream)."""
@@ -65,6 +128,26 @@ def _limit_frames(chunks, n_max: int):
         left -= min(t, left)
         if left <= 0:
             return
+
+
+def trim_normalize_long_audio(
+    samples: np.ndarray, rate: int, pvs: Pvs, normalize: bool
+) -> np.ndarray:
+    """The long-test audio treatment (reference `-t` trim + the
+    ffmpeg-normalize step)."""
+    total = pvs.hrc.get_long_hrc_duration()
+    samples = samples[: int(round(total * rate))]
+    if normalize:
+        samples = normalize_rms(samples)
+    return samples
+
+
+def _audio_for_long(pvs: Pvs, normalize: bool):
+    try:
+        samples, rate = medialib.decode_audio_s16(pvs.get_avpvs_file_path())
+    except medialib.MediaError:
+        return None, 48000
+    return trim_normalize_long_audio(samples, rate, pvs, normalize), rate
 
 
 def cpvs_plan(
@@ -149,6 +232,79 @@ def t_cap_frames(t: float, rate: Fraction) -> int:
     return math.ceil(Fraction(t_us, 1_000_000) * rate)
 
 
+def open_cpvs_writer(out_path: str, plan: dict,
+                     post_processing: PostProcessing, w: int, h: int,
+                     out_rate: Fraction, audio, srate: int):
+    """(VideoWriter, has_audio) for one CPVS render, plan-directed."""
+    pp = post_processing
+    dw, dh = pp.display_width, pp.display_height
+    need_pad = plan["pad"] is not None
+    if plan["context"] == "pc":
+        aud = (
+            dict(audio_codec=plan["audio"]["codec"], sample_rate=srate,
+                 channels=plan["audio"]["channels"])
+            if (plan["audio"] and audio is not None and audio.size)
+            else {}
+        )
+        writer = VideoWriter(
+            out_path, plan["vcodec"], dw if need_pad else w,
+            dh if need_pad else h, plan["pix_fmt"],
+            (out_rate.numerator, out_rate.denominator), **aud,
+        )
+        return writer, bool(aud)
+    aud = (
+        dict(audio_codec=plan["audio"]["codec"], sample_rate=srate,
+             channels=plan["audio"]["channels"],
+             audio_bitrate_kbps=plan["audio"]["bitrate_kbps"])
+        if (plan["audio"] and audio is not None and audio.size)
+        else {}
+    )
+    opts = (
+        f"crf={plan['crf']}:preset={plan['preset']}:"
+        f"profile={plan['profile']}:movflags=+faststart"
+    )
+    writer = VideoWriter(
+        out_path, "libx264", dw, dh, "yuv420p",
+        (out_rate.numerator, out_rate.denominator), opts=opts, **aud,
+    )
+    return writer, bool(aud)
+
+
+def _render(chunks, transform, vw, audio, device) -> None:
+    """Decode-ahead chunks → device → `transform` → the writer thread,
+    which fetches each result through pinned memory and encodes it; the
+    pooled host blocks go back once their chunk is encoded. Adds this
+    render's seconds and frames to RENDER_TOTALS."""
+    device = resolve_device(device)
+    decode_s = [0.0]
+    frames = 0
+    device_s = 0.0
+    events = []
+    with pfe.AsyncWriter(vw, fetch=fr._to_host) as writer:
+        if audio is not None:
+            writer.write_audio(audio)
+        with pfe.Prefetcher(_timed(chunks, decode_s), depth=2) as pre:
+            for chunk, dev in iter_device_ahead(pre, device):
+                if device.type == "cuda":
+                    ends = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    ends[0].record()
+                    out = transform(dev)
+                    ends[1].record()
+                    events.append(ends)
+                else:
+                    t0 = time.perf_counter()
+                    out = transform(dev)
+                    device_s += time.perf_counter() - t0
+                frames += int(out[0].shape[0])
+                writer.put(out, recycle=chunk)
+    if events:
+        events[-1][1].synchronize()
+        device_s = sum(a.elapsed_time(b) for a, b in events) / 1000.0
+    _add_totals(decode_s=decode_s[0], device_s=device_s, writeback_s=writer.busy_s,
+                frames=frames)
+
+
 def cpvs_out_rate(plan: dict, avpvs_fps: float) -> Fraction:
     """Output frame rate of one CPVS render: the plan's display rate
     (pc branch) or the AVPVS rate (mobile), rationalized exactly as the
@@ -231,3 +387,139 @@ def make_preview_transform(pix_fmt: str):
         return [y, u, v]
 
     return preview_chunk
+
+
+def create_cpvs(
+    pvs: Pvs,
+    post_processing: PostProcessing,
+    rawvideo: bool = False,
+    nonraw_crf: int = 17,
+    mobile_vprofile: str = "high",
+    mobile_preset: str = "fast",
+    device=None,
+) -> Optional[Job]:
+    """The CPVS render of one PVS in one viewing context, on `device`
+    (`None` means `cuda:0`)."""
+    tc = pvs.test_config
+    pp = post_processing
+    out_path = pvs.get_cpvs_file_path(context=pp.processing_type, rawvideo=rawvideo)
+
+    def run() -> str:
+        with VideoReader(pvs.get_avpvs_file_path()) as reader:
+            pix_fmt = reader.pix_fmt
+            w, h = reader.width, reader.height
+            plan = cpvs_plan(
+                pvs, pp, h, rawvideo, nonraw_crf, mobile_vprofile,
+                mobile_preset,
+            )
+            # display frame rate resample, streaming (reference
+            # fps=displayFrameRate filter; pc branch only — mobile keeps
+            # the AVPVS rate, see cpvs_plan)
+            chunks = _avpvs_chunks(reader, plan["fps"], device)
+            out_rate = cpvs_out_rate(plan, reader.fps)
+            if plan["t"] is not None:
+                # the reference's long-test `-t total_duration` cap
+                chunks = _limit_frames(chunks, t_cap_frames(plan["t"], out_rate))
+
+            audio = None
+            srate = 48000
+            if tc.is_long():
+                audio, srate = _audio_for_long(pvs, normalize=plan["normalize"])
+
+            transform = make_cpvs_transform(plan, pp, pix_fmt, rawvideo)
+            vw, has_audio = open_cpvs_writer(
+                out_path, plan, pp, w, h, out_rate, audio, srate
+            )
+            _render(chunks, transform, vw, audio if has_audio else None, device)
+        return out_path
+
+    # plan: the AVPVS digest covers every upstream knob transitively;
+    # the rest is this render's own decision surface (cpvs_plan's
+    # inputs) plus the resize-method identity — the scale/pad path's
+    # pixel values depend on it (plan-purity, store/plan_schema.py)
+    plan = {
+        "op": "cpvs",
+        "input": store_keys.file_ref(pvs.get_avpvs_file_path()),
+        "resize": resize_ops.plan_resize_method(device),
+        "context": pp.processing_type,
+        "display": [pp.display_width, pp.display_height],
+        "coding": [pp.coding_width, pp.coding_height],
+        "display_fps": float(pp.display_frame_rate)
+        if pp.display_frame_rate is not None else None,
+        "rawvideo": bool(rawvideo),
+        "crf": int(nonraw_crf),
+        "profile": mobile_vprofile,
+        "preset": mobile_preset,
+        "t": float(pvs.hrc.get_long_hrc_duration())
+        if tc.is_long() else None,
+    }
+
+    return Job(
+        label=f"cpvs {pvs.pvs_id} {pp.processing_type}",
+        output_path=out_path,
+        fn=run,
+        plan=plan,
+        provenance={
+            "pvs": pvs.pvs_id,
+            "context": pp.processing_type,
+            "display": [pp.display_width, pp.display_height],
+            "rawvideo": rawvideo,
+        },
+    )
+
+
+def open_preview_writer(out_path: str, w: int, h: int, fps: float,
+                        audio, srate: int):
+    """(VideoWriter, has_audio) for the ProRes preview. ProRes is
+    all-intra: the same frame-parallel pool as the FFV1 writeback
+    applies (PC_FFV1_WORKERS names the host intra-writeback pool, not
+    one codec)."""
+    aud = (
+        dict(audio_codec="aac", sample_rate=srate, channels=2)
+        if audio is not None and audio.size
+        else {}
+    )
+    frac = Fraction(fps).limit_denominator(1001)
+    workers = avpvs.ffv1_workers()
+    writer = VideoWriter(
+        out_path, "prores_ks", w, h,
+        "yuv422p10le", (frac.numerator, frac.denominator),
+        opts=f"pc_fp_workers={workers}" if workers > 0 else "",
+        **aud,
+    )
+    return writer, bool(aud)
+
+
+def create_preview(pvs: Pvs, device=None) -> Optional[Job]:
+    """ProRes + AAC preview (reference create_preview :1250-1259), on
+    `device` (`None` means `cuda:0`)."""
+    out_path = pvs.get_preview_file_path()
+
+    def run() -> str:
+        audio = None
+        srate = 48000
+        try:
+            audio, srate = medialib.decode_audio_s16(pvs.get_avpvs_file_path())
+        except medialib.MediaError:
+            audio = None
+        with VideoReader(pvs.get_avpvs_file_path()) as reader:
+            transform = make_preview_transform(reader.pix_fmt)
+            vw, has_audio = open_preview_writer(
+                out_path, reader.width, reader.height, reader.fps,
+                audio, srate,
+            )
+            _render(pfe.iter_plane_chunks(reader, avpvs.chunk_frames(device)), transform, vw,
+                    audio if has_audio else None, device)
+        return out_path
+
+    return Job(
+        label=f"preview {pvs.pvs_id}",
+        output_path=out_path,
+        fn=run,
+        plan={
+            "op": "preview",
+            "input": store_keys.file_ref(pvs.get_avpvs_file_path()),
+            "codec": "prores_ks",
+        },
+        provenance={"pvs": pvs.pvs_id, "codec": "prores_ks"},
+    )

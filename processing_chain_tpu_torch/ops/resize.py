@@ -366,6 +366,17 @@ def make_banded_plan(
 # ---------------------------------------------------------------------------
 
 
+def _identity_taps(idx: torch.Tensor, w: torch.Tensor, src: int) -> bool:
+    """True when a float tap plan maps output i to source i with weight 1
+    and gives every other tap weight 0."""
+    if not w.is_floating_point() or idx.shape[0] != src:
+        return False
+    ones = w == 1
+    rows = torch.arange(src, device=idx.device)
+    return bool((ones.sum(1) == 1).all() and ((w == 0) | ones).all()
+                and (idx[ones].to(rows.dtype) == rows).all())
+
+
 def _apply_axis(
     x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, axis: int
 ) -> torch.Tensor:
@@ -373,13 +384,23 @@ def _apply_axis(
     x[..., idx[i,k], ...], summed in tap order k = 0..K-1 with one rounding
     per multiply and per add (the CUDA kernel's f32 path repeats exactly
     this order, so the two agree bit for bit)."""
+    if _identity_taps(idx, w, x.shape[axis]):
+        # each output takes its own source sample with weight 1 and every
+        # other tap weight 0 (a same-size axis): x·1 + y·0 is x
+        return x
+    if axis == x.ndim - 1 and x.ndim >= 2 and x.device.type == "cpu":
+        # a CPU gather along the last axis reads one element at a time;
+        # along the one before it, whole rows: gather the transposed
+        # planes (the same products and sums, so the same values)
+        return _apply_axis(x.transpose(-1, -2).contiguous(), idx, w,
+                           axis - 1).transpose(-1, -2).contiguous()
     ntaps = idx.shape[1]
     shape = [1] * x.ndim
     shape[axis] = idx.shape[0]
     out = None
     for k in range(ntaps):
         term = torch.index_select(x, axis, idx[:, k]) * w[:, k].reshape(shape)
-        out = term if out is None else out + term
+        out = term if out is None else out.add_(term)
     return out
 
 

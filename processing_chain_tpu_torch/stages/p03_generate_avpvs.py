@@ -27,7 +27,6 @@ from ..io import video as io_video
 from ..models import avpvs as av
 from ..ops import cuda_kernels
 from ..parallel.distributed import local_shard
-from ..telemetry.heartbeat import HEARTBEATS
 from ..utils.device import device_count
 from ..utils.log import get_logger
 from ..utils.runner import ChainError
@@ -94,7 +93,7 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
             log.warning("Skipping PVS %s because it is an online service", pvs)
             continue
         eligible.append(pvs)
-    HEARTBEATS.stage_items("p03", len(eligible))
+    tm.stage_items("p03", len(eligible))
     launches0 = dict(cuda_kernels.LAUNCHES)
     pool0 = bufpool.DEFAULT_POOL.stats()
     opens0 = io_video.decoder_opens()

@@ -104,6 +104,10 @@ STAGE_SECONDS = gauge(
     "chain_stage_wall_seconds", "wall time of the last run of each stage",
     ("stage",),
 )
+STAGE_ITEMS = gauge(
+    "chain_stage_items", "work items handled by the last run of each stage",
+    ("stage",),
+)
 
 
 @contextmanager
@@ -177,6 +181,14 @@ def stage_span(stage: str, **fields) -> Iterator[None]:
             bytes_encoded=BYTES_ENCODED.get() - before[2],
             **extra,
         )
+
+
+def stage_items(stage: str, n: float) -> None:
+    """Record a stage's work-item count on both surfaces at once: the
+    STAGE_ITEMS gauge (post-run metrics) and the live status document
+    (the `items` field next to the jobs-based progress)."""
+    STAGE_ITEMS.labels(stage=stage).set(n)
+    HEARTBEATS.stage_items(stage, n)
 
 
 def write_outputs(out_dir: str, stamp: Optional[str] = None) -> dict[str, str]:

@@ -20,6 +20,7 @@ METRICS: dict[str, str] = {
     "chain_frames_encoded_total": "counter",
     "chain_bytes_encoded_total": "counter",
     "chain_stage_wall_seconds": "gauge",
+    "chain_stage_items": "gauge",
     # engine/prefetch.py — bounded-queue pipeline
     "chain_queue_depth": "histogram",
     "chain_pipeline_wait_seconds_total": "counter",

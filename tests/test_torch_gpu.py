@@ -7,6 +7,7 @@ Run them on a machine with the card:
     python -m pytest tests/test_torch_gpu.py -m gpu -q -p no:xdist
 """
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -1062,3 +1063,78 @@ def test_database_pvses_on_the_card_equal_the_cpu(cuda, tmp_path):
             assert g["plan"] == w["plan"] and len(g["sink"].chunks) == len(w["sink"].chunks)
             for a, b in zip(g["sink"].chunks, w["sink"].chunks):
                 _planes_close(a, b, 0)
+
+
+_P04_DB = """\
+databaseId: {db_id}
+syntaxVersion: 6
+type: short
+qualityLevelList:
+  Q0: {{index: 0, videoCodec: h264, videoBitrate: 300, width: 64, height: 36, fps: original}}
+codingList:
+  VC01: {{type: video, encoder: libx264, passes: 1, iFrameInterval: 2}}
+srcList:
+  SRC000: SRC000.avi
+  SRC001: SRC001.avi
+hrcList:
+  HRC000: {{videoCodingId: VC01, eventList: [[Q0, 2]]}}
+pvsList:
+  - {db_id}_SRC000_HRC000
+  - {db_id}_SRC001_HRC000
+postProcessingList:
+  - {{type: pc, displayWidth: 128, displayHeight: 72, codingWidth: 128, codingHeight: 72, displayFrameRate: 30}}
+"""
+_P04_SRCS = {
+    "SRC000.avi": {"width": 64, "height": 36, "pix_fmt": "yuv420p", "r_frame_rate": "60/1",
+                   "video_duration": 2.0},
+    "SRC001.avi": {"width": 64, "height": 36, "pix_fmt": "yuv420p10le",
+                   "r_frame_rate": "24/1", "video_duration": 2.0},
+}
+
+
+@pytest.mark.parametrize("src", ["SRC000", "SRC001"])
+def test_create_cpvs_and_preview_on_the_card_equal_the_plain_route(cuda, tmp_path, src):
+    """A PVS's AVPVS (seeded, FFV1 at the pc coding size, u8 at 60 fps or
+    10-bit at 24 fps) through create_cpvs and create_preview on cuda:0,
+    held as chip_smoke.py's phase 18 (f) holds them: the CPVS decoded
+    equal to the plain route on the card and its first frame to the CPU
+    route, the preview's encoder input equal to the plain route and its
+    file probed; two resize launches (the 420->422 lift) a chunk."""
+    import chip_smoke as cs
+    from processing_chain_tpu_torch.config import StaticProber, TestConfig
+    from processing_chain_tpu_torch.io.video import VideoWriter
+    from processing_chain_tpu_torch.models import cpvs as cp
+
+    path = cs.write_database(str(tmp_path), "P2STR20", _P04_DB, _P04_SRCS)
+    tc = TestConfig(path, prober=StaticProber(_P04_SRCS))
+    pvs = tc.pvses[f"P2STR20_{src}_HRC000"]
+    pp = tc.post_processings[0]
+    info = _P04_SRCS[f"{src}.avi"]
+    fps, n = int(info["r_frame_rate"].split("/")[0]), 40
+    ten_bit = "10" in info["pix_fmt"]
+    hi, dtype = (1023, np.uint16) if ten_bit else (255, np.uint8)
+    rng = np.random.default_rng(20 + ten_bit)
+    # moving ramps with a little noise: content a ProRes preview keeps
+    # within its PSNR floor (uniform noise would not)
+    planes = []
+    for h, w in ((72, 128), (36, 64), (36, 64)):
+        ramp = np.add.outer(np.arange(h) * 2.0, np.arange(w) * 1.5)
+        frames = ramp[None] + 3.0 * np.arange(n)[:, None, None] + rng.normal(0, 2, (n, h, w))
+        planes.append(np.clip(frames * (hi / 255.0) % (hi + 1), 0, hi).astype(dtype))
+    os.makedirs(os.path.dirname(pvs.get_avpvs_file_path()), exist_ok=True)
+    with VideoWriter(pvs.get_avpvs_file_path(), "ffv1", 128, 72, info["pix_fmt"],
+                     (fps, 1)) as w:
+        w.write_batch(*planes)
+    ck.reset_launches()
+    cp.create_cpvs(pvs, pp, device=cuda).run()
+    cpvs_launches = ck.LAUNCHES["resize_frames_fused"]
+    cp.create_preview(pvs, device=cuda).run()
+    launches = ck.LAUNCHES["resize_frames_fused"]
+    av = cs.decoded_avpvs(pvs)
+    got = cs.check_cpvs(cuda, pvs, pp, pvs.get_cpvs_file_path("pc"), av)
+    preview = cs.check_preview(cuda, pvs, av)
+    assert got["frames"] == round(n / fps * 30) and got["plane_max_err"] == 0
+    assert got["codec"] == ("v210" if ten_bit else "rawvideo")
+    assert preview["frames"] == n and preview["encoder_input_max_err"] == 0
+    assert cpvs_launches == 2 * got["chunks"]
+    assert launches == cpvs_launches + 2 * preview["chunks"]

@@ -38,7 +38,7 @@ its end with its seconds:
      alone through pump_ready) are checked; frames/s end to end
   7. the downstream render: phase 4's 600-frame clip through pump_ready
      onto the 3840x2160 60 fps canvas, its quantized chunks left on the
-     card and fed to the fused fan-out (models/fused.FusedFanout): two
+     card and fed to the fused fan-out (models/fused.FanoutStream): two
      spinner stalls (600 -> 690 frames, a seeded synthetic RGBA spinner)
      composited into a stalled-AVPVS sink, a PC context (UYVY 3840x2160
      at 30 fps, 345 frames), a mobile context (bicubic to 1920x1080) and
@@ -242,7 +242,14 @@ its end with its seconds:
      before its stage starts (its start-up line); (c) SRC001 (yuv420p10le, 32
      fps, 64 frames) through the CLI with `--avpvs-codec rawvideo`, which
      writes the FFV1 fallback, held the same way (planes within a code
-     value, SI/TI within 1e-2); (d) HRC002, two frame freezes (0.25 s and
+     value, SI/TI within 1e-2), with the observability flags `--telemetry
+     DIR --profile DIR --status-file F`: the artifact set under one stamp
+     (metrics .json/.prom, the streamed events, the span trace, the
+     profile's merged trace and resources, device_<stamp>/trace.json),
+     the device trace's kernel events per family equal to the call's
+     summary launches, the events' run records, the status file's final
+     snapshot, and `tools run-report DIR` and `tools chain-profile DIR` as
+     processes exiting 0; (d) HRC002, two frame freezes (0.25 s and
      0.5 s) after a 1 s segment, from (b)'s CLI run: its frozen AVPVS as
      long as the wo_buffer render, the frames at each freeze's edges
      equal to the compositor's plain route on the CPU over the skipping
@@ -268,10 +275,20 @@ its end with its seconds:
      against the plain route and its decoded luma against it by PSNR, both
      previews' codec, geometry, pix_fmt and frame count from the prober;
      the AVPVS files and sidecars untouched; frames/s and the summary's
-     decode, device and writeback seconds. The (b) and (c) CLI calls run
-     first; then (e)'s and (f)'s processes start together and run beside
-     the checks of (b)-(d), and their own checks follow. The launch counts
-     join `paths` as p03_file, p03_file_10bit, p03_file_long and p04_file
+     decode, device and writeback seconds; (g) `PC_FUSE_P04=1 python -m
+     processing_chain_tpu_torch p03` as a process over HRC001 in a copy of
+     P2STR18 in its own directory: one decoder open
+     and no stall pass, the canvas chunks' launches plus the PC context's
+     420->422 lift (2 resize a composited chunk), both members committed;
+     its wo_buffer AVPVS, .siti.csv and stalled AVPVS equal to (b)'s, its
+     PC UYVY CPVS to (f)'s (byte-equal, else decoded-equal), and a p04
+     process over the copy afterwards plans no job; frames/s and the
+     decode, device and writeback seconds beside (b)'s and (f)'s. The (b)
+     and (c) CLI calls run first; then (e)'s and (f)'s processes start
+     together and run beside the checks of (b)-(d), (g)'s once (e) is
+     checked, beside (f)'s; their own checks follow. The launch counts
+     join `paths` as p03_file, p03_file_10bit, p03_file_long, p04_file and
+     p03_file_fused
 `--steadiness N` runs no phase: it repeats phase 16's three wall-clock
 gates N times as processes (the pack bench's e2e tail, the chaos self-test's
 and the chaos run's 50 ms warm p50), in turns over this checkout and each
@@ -296,6 +313,7 @@ media file; phase 18 reads the committed spinner PNG with PIL.
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import hashlib
 import itertools
 import json
@@ -1162,7 +1180,7 @@ def run_downstream(dev, label: str, frames: int, pix_fmt: str, events, skipping:
         sinks["preview"] = HostSink(dev)
         pipes.append(fused._PreviewPipeline(sinks["preview"], pix_fmt))
         per_chunk["preview"] = 2 if "420" in pix_fmt else 0
-    fan = fused.FusedFanout(pipes, compositor=comp, stall_writer=stalled, fps=CANVAS_FPS,
+    fan = fused.FanoutStream(pipes, compositor=comp, stall_writer=stalled, fps=CANVAS_FPS,
                             events=events, skipping=skipping, chunk=chunk)
     tee = KeepSink(fan.feed)  # the staged route reads the chunks again
 
@@ -3830,7 +3848,7 @@ class StageProcess:
     where it still runs (the smoke leaves no process behind)."""
 
     def __init__(self, stage: str, yaml_path: str, pvs_ids: list, *extra,
-                 log_dir: str) -> None:
+                 log_dir: str, env: dict = None) -> None:
         # -p 1: one job at a time, so the stage's pool-aware writeback
         # default gives the one render every spare core (--ffv1-workers
         # unpinned)
@@ -3843,7 +3861,8 @@ class StageProcess:
         with open(self.err_path, "w") as err:
             # chainlint: disable=subprocess-hygiene (the stage CLI as a process that runs beside the smoke's checks; finish() waits with a timeout and checks its exit code and log, stop() kills it)
             self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
-                                         text=True)
+                                         text=True, env=None if env is None else
+                                         {**os.environ, **env})
 
     def finish(self, timeout: float = 600) -> tuple:
         rc = self.proc.wait(timeout=timeout)
@@ -4068,8 +4087,12 @@ def run_media_db(dev, root: str, smi: str) -> dict:
             f"p03 CLI decoder opens {summary['decoder_opens']}")
     require(summary["bufpool"]["hits"] > 0 and summary["bufpool"]["outstanding"] == 0,
             f"p03 CLI bufpool {summary['bufpool']}")
+    # (c) carries the observability flags (one set, one call)
+    obs = os.path.join(root, "obs_c")
+    status_file = os.path.join(obs, "status.json")
     summary10, wall10 = stage_cli("p03", yaml_path, [ten], "--avpvs-codec", "rawvideo",
-                                  log_dir=root)
+                                  "--telemetry", obs, "--profile", obs, "--status-file",
+                                  status_file, log_dir=root)
     require(summary10["launches"] == launches_want(resize_frames_fused=3, si_frames_fused=1,
                                                    ti_frames_fused=1)
             and summary10["decoder_opens"] == {"render": 1, "stall": 0},
@@ -4078,8 +4101,10 @@ def run_media_db(dev, root: str, smi: str) -> dict:
     # (e)'s p03 process (its own database) and (f)'s p04 process (over
     # (b)'s and (c)'s AVPVS files) run beside the checks of (b)-(d)
     long_run = media_long_start(root, clip, tone)
-    p04_run = None
+    p04_run = fused_run = readers = None
     try:
+        # (c)'s `tools run-report` and `tools chain-profile` processes
+        readers = ObsReaders(obs)
         p04_run = P04Run(tc, yaml_path, root)
         pvs = tc.pvses
         t_check = time.perf_counter()
@@ -4116,24 +4141,37 @@ def run_media_db(dev, root: str, smi: str) -> dict:
             f"written), planes within {render10['plane_max_err']} of the plain route, SI/TI "
             f"within {render10['siti_max_err']:.2e}; stage {summary10['seconds']:.3f} s, CLI "
             f"wall {wall10:.2f} s ({smi})")
+        flags = check_flags(obs, status_file, summary10, readers, smi)
         t_long = time.perf_counter()
         long_test = media_long(dev, long_run, smi)
         log(f"phase 18 (e), the long test: {time.perf_counter() - t_long:.1f} s after (b)-(d)")
+        # (g)'s fused p03 process runs beside (f)'s wait and checks
+        fused_run = fused_start(root, yaml_path, plain8[1])
         t_p04 = time.perf_counter()
         p04 = p04_run.finish(dev, smi)
         log(f"phase 18 (f), p04: {time.perf_counter() - t_p04:.1f} s after (e)")
+        t_fused = time.perf_counter()
+        fused_p03 = fused_finish(dev, fused_run, tc, summary, p04["summary"], smi)
+        log(f"phase 18 (g), fused p03: {time.perf_counter() - t_fused:.1f} s after (f)")
     finally:
         long_run["run"].stop()
         if p04_run is not None:
             p04_run.stop()
+        if fused_run is not None:
+            fused_run["run"].stop()
+            if fused_run.get("p04") is not None:
+                fused_run["p04"].stop()
+        if readers is not None:
+            readers.stop()
     return {"u8": {"summary": summary, "wall_s": wall, "renders": renders, "stall": stall,
                    "freeze": freeze, "frames": frames,
                    "frames_per_s": frames / summary["seconds"]},
             "10bit": {"summary": summary10, "wall_s": wall10, "render": render10},
-            "long": long_test, "p04": p04,
+            "long": long_test, "p04": p04, "flags": flags, "fused": fused_p03,
             "launches": launches, "launches_10bit": summary10["launches"],
             "launches_long": long_test["summary"]["launches"],
             "launches_p04": p04["summary"]["launches"],
+            "launches_fused": fused_p03["summary"]["launches"],
             "write_s": write_s}
 
 
@@ -4445,6 +4483,196 @@ class P04Run:
                 "encoders": self.encoders}
 
 
+class ObsReaders:
+    """Phase 18 (c): `tools run-report DIR` and `tools chain-profile DIR`
+    over the flagged call's directory, as two processes started together;
+    `finish()` waits for both and checks their exit codes."""
+
+    TOOLS = ("run-report", "chain-profile")
+
+    def __init__(self, obs: str) -> None:
+        self.procs = {}
+        for tool in self.TOOLS:
+            # chainlint: disable=subprocess-hygiene (a reader tool as a process; finish() waits with a timeout and checks its exit code, stop() kills it)
+            self.procs[tool] = subprocess.Popen(
+                [sys.executable, "-m", "processing_chain_tpu_torch", "tools", tool, obs],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(self) -> dict:
+        out = {}
+        for tool, proc in self.procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            require(proc.returncode == 0 and stdout.strip(),
+                    f"tools {tool}: exit {proc.returncode}: {stderr[-2000:]}")
+            out[tool] = stdout
+        return out
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+
+def check_flags(obs: str, status_file: str, summary: dict, readers: ObsReaders,
+                smi: str) -> dict:
+    """Phase 18 (c)'s observability flags (`--telemetry DIR --profile DIR
+    --status-file F` on one call): the artifact set under one stamp, the
+    device trace's kernel events per family equal to the call's summary
+    launches, the event stream's run records, the status file's final
+    snapshot, and the two reader tools' exit codes."""
+    names = set(os.listdir(obs))
+    (metrics,) = [n for n in names if n.startswith("metrics_") and n.endswith(".json")]
+    stamp = metrics[len("metrics_"):-len(".json")]
+    want = {f"metrics_{stamp}.json", f"metrics_{stamp}.prom", f"events_{stamp}.jsonl",
+            f"trace_{stamp}.json", f"profile_{stamp}.trace.json", f"resources_{stamp}.json",
+            f"device_{stamp}", os.path.basename(status_file)}
+    require(want <= names, f"flags: artifacts {sorted(names)}, missing {sorted(want - names)}")
+    trace = profiling.load_device_trace(os.path.join(obs, f"device_{stamp}"))
+    counts, symbols = trace_launches(trace)
+    launches = summary["launches"]
+    families = {}
+    for fam in {ck.launch_names(sym) for sym in symbols} | {
+            ("resize_frames_fused",), ("si_frames_fused",), ("ti_frames_fused",)}:
+        n = sum(launches[k] for k in fam)
+        families["+".join(fam)] = {"trace": counts.get(fam, 0), "launches": n}
+        require(counts.get(fam, 0) == n and (n > 0 or len(fam) > 1),
+                f"flags: {'+'.join(fam)}: {counts.get(fam, 0)} kernel events in the device "
+                f"trace, {n} launches in the summary")
+    with open(os.path.join(obs, f"events_{stamp}.jsonl")) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    kinds = [e["event"] for e in events]
+    ends = [e for e in events if e["event"] == "run_end"]
+    require(kinds[0] == "log_meta" and "run_start" in kinds and "stage_start" in kinds
+            and len(ends) == 1 and ends[0]["status"] == "ok",
+            f"flags: event log {sorted(set(kinds))}, run_end {ends}")
+    with open(status_file) as f:
+        status = json.load(f)
+    require(status["run"]["name"] == "p03" and status["tasks"] == [],
+            f"flags: final status snapshot {status.get('run')}, tasks {status.get('tasks')}")
+    reports = readers.finish()
+    log(f"phase 18 (c) flags: --telemetry/--profile/--status-file wrote {sorted(want)}; device "
+        f"trace kernels by family {families}; {len(events)} events; final status "
+        f"{status['run']['name']} with no task in flight; run-report "
+        f"{len(reports['run-report'].splitlines())} lines, chain-profile "
+        f"{len(reports['chain-profile'].splitlines())} lines, both exit 0 ({smi})")
+    return {"stamp": stamp, "families": families, "events": len(events),
+            "report_lines": {k: len(v.splitlines()) for k, v in reports.items()}}
+
+
+def fused_start(root: str, yaml_path: str, pvs_id: str) -> dict:
+    """Phase 18 (g): a copy of P2STR18 (its YAML, SRCs and segments, no
+    render) in its own directory, and `PC_FUSE_P04=1 python -m
+    processing_chain_tpu_torch p03` over the stall PVS as a process."""
+    src = os.path.dirname(yaml_path)
+    dst = os.path.join(root, "fused", MEDIA_DB)
+    skip = ("avpvs", "cpvs", "logs")
+    shutil.copytree(src, dst, ignore=lambda d, names: [n for n in names if d == src
+                                                       and n in skip])
+    for sub in ("avpvs", "cpvs"):
+        os.makedirs(os.path.join(dst, sub), exist_ok=True)
+    copy = os.path.join(dst, os.path.basename(yaml_path))
+    return {"yaml": copy, "pvs_id": pvs_id,
+            "run": StageProcess("p03", copy, [pvs_id], log_dir=root, env={"PC_FUSE_P04": "1"})}
+
+
+def same_media(a: str, b: str) -> str:
+    """"bytes" when the two files are byte-identical, "decoded" when their
+    decoded planes and audio are, else the run fails."""
+    if filecmp.cmp(a, b, shallow=False):
+        return "bytes"
+    n = len(medialib.scan_packets(a, "video")["size"])  # a packet a frame
+    require(len(medialib.scan_packets(b, "video")["size"]) == n, f"{b}: not {n} frames as {a}")
+    with VideoReader(a) as ra, VideoReader(b) as rb:
+        ta, tb = FrameTaker(ra.iter_chunks(avpvs.CHUNK)), FrameTaker(rb.iter_chunks(avpvs.CHUNK))
+        for lo in range(0, n, avpvs.CHUNK):
+            t = min(avpvs.CHUNK, n - lo)
+            require(all(np.array_equal(p, q) for p, q in zip(ta.take(t), tb.take(t))),
+                    f"{b}: frames {lo}..{lo + t - 1} differ from {a}")
+    try:
+        aa = medialib.decode_audio_s16(a)
+    except medialib.MediaError:
+        aa = None
+    try:
+        ab = medialib.decode_audio_s16(b)
+    except medialib.MediaError:
+        ab = None
+    require((aa is None) == (ab is None) and (aa is None or (
+        aa[1] == ab[1] and np.array_equal(aa[0], ab[0]))), f"{b}: audio differs from {a}")
+    return "decoded"
+
+
+def fused_finish(dev, started: dict, tc, staged_p03: dict, staged_p04: dict, smi: str) -> dict:
+    """Phase 18 (g): the fused p03 process waited for: one decoder open
+    (the segment) and none for a stall pass, the launches of its canvas
+    chunks plus the PC context's 420->422 lift (2 a composited chunk), both
+    members committed; its wo_buffer AVPVS and .siti.csv, its stalled AVPVS
+    and its PC UYVY CPVS equal to (b)'s and (f)'s staged files; then a p04
+    process over the copy plans no job."""
+    summary, wall = started["run"].finish()
+    pvs_id, copy = started["pvs_id"], started["yaml"]
+    log(f"p03 CLI (fused): {json.dumps(summary)}; wall {wall:.2f} s")
+    # p04 after the fused p03, beside the file checks
+    started["p04"] = StageProcess("p04", copy, [pvs_id],
+                                  log_dir=os.path.dirname(os.path.dirname(copy)))
+    staged, fused_pvs = tc.pvses[pvs_id], TestConfig(copy).pvses[pvs_id]
+    require(summary["renders"] == 1 and summary["stalls"] == 0
+            and summary["decoder_opens"] == {"render": 1, "stall": 0}
+            and summary["fused"] == {"fanouts": 1, "members": 2, "degraded": 0},
+            f"p03 CLI fused: renders {summary['renders']}, stalls {summary['stalls']}, decoder "
+            f"opens {summary['decoder_opens']}, fan-out {summary['fused']}")
+    chunk = avpvs.chunk_frames(dev)
+    n_stalled = len(medialib.scan_packets(staged.get_avpvs_file_path(), "video")["size"])
+    pp = tc.post_processings[0]
+    plan = cp.cpvs_plan(staged, pp, avpvs.avpvs_dimensions(staged)[1])
+    rate = float(cp.cpvs_out_rate(plan, MEDIA_FPS))
+    # the PC pipeline takes each composited chunk as it comes, or, where it
+    # resamples, chunks of its own output frames
+    pc_chunks = (len(stream_chunks([n_stalled], chunk)) if rate == MEDIA_FPS
+                 else -(-int(round(n_stalled / MEDIA_FPS * rate)) // chunk))
+    canvas = len(stream_chunks([MEDIA_FPS], chunk))  # HRC001 renders its first 1 s segment
+    want = launches_want(resize_frames_fused=3 * canvas + 2 * pc_chunks,
+                         si_frames_fused=canvas, ti_frames_fused=canvas)
+    require(summary["launches"] == want,
+            f"p03 CLI fused launches {summary['launches']} != {want} ({canvas} canvas chunks, "
+            f"{pc_chunks} PC chunks)")
+    t_check = time.perf_counter()
+    pairs = {
+        "wo_buffer": (staged.get_avpvs_wo_buffer_file_path(),
+                      fused_pvs.get_avpvs_wo_buffer_file_path()),
+        "stalled": (staged.get_avpvs_file_path(), fused_pvs.get_avpvs_file_path()),
+        "pc_cpvs": (staged.get_cpvs_file_path("pc"), fused_pvs.get_cpvs_file_path("pc")),
+    }
+    equal = {k: same_media(a, b) for k, (a, b) in pairs.items()}
+    side = [avpvs.siti_sidecar_path(p) for p in pairs["wo_buffer"]]
+    with open(side[0], "rb") as fa, open(side[1], "rb") as fb:
+        require(fa.read() == fb.read(), f"{side[1]} differs from the staged {side[0]}")
+    check_s = time.perf_counter() - t_check
+    p04, p04_wall = started["p04"].finish()
+    require(p04["renders"] == 0 and p04["decoder_opens"] == 0,
+            f"p04 after the fused p03 ran {p04['renders']} jobs, {p04['decoder_opens']} decoder "
+            "opens")
+    n_cpvs = len(medialib.scan_packets(pairs["pc_cpvs"][1], "video")["size"])
+    frames = MEDIA_FPS + n_stalled + n_cpvs
+    secs = summary["seconds"]
+    log(f"phase 18 (g): fused {pvs_id}: wo_buffer, stalled ({n_stalled} frames) and PC UYVY "
+        f"CPVS ({n_cpvs} frames) equal to (b)'s and (f)'s staged files ({equal}), .siti.csv "
+        f"byte-equal; decoder opens {summary['decoder_opens']}; launches {summary['launches']} "
+        f"({canvas} canvas + {pc_chunks} PC chunks); {frames} output frames in {secs:.3f} s of "
+        f"stage, {frames / secs:.2f} frames/s (decode {summary['decode_s']:.3f} s, device "
+        f"{summary['device_s']:.3f} s, writeback {summary['writeback_s']:.3f} s), CLI wall "
+        f"{wall:.2f} s; staged (b) p03 {staged_p03['seconds']:.3f} s (decode "
+        f"{staged_p03['decode_s']:.3f}, device {staged_p03['device_s']:.3f}, writeback "
+        f"{staged_p03['writeback_s']:.3f}; {staged_p03['frames']} frames, 3 PVSes), (f) p04 "
+        f"{staged_p04['seconds']:.3f} s (decode {staged_p04['decode_s']:.3f}, device "
+        f"{staged_p04['device_s']:.3f}, writeback {staged_p04['writeback_s']:.3f}; "
+        f"{staged_p04['frames']} frames, 4 renders); p04 after it planned 0 jobs (wall "
+        f"{p04_wall:.2f} s); checks {check_s:.2f} s ({smi})")
+    return {"summary": summary, "wall_s": wall, "equal": equal, "frames": frames,
+            "frames_per_s": frames / secs, "pc_chunks": pc_chunks, "canvas_chunks": canvas,
+            "p04_after": p04, "check_s": check_s}
+
+
 def module_probe() -> str:
     """Which optional third-party modules import here, with their
     versions. Printed for the record; phase 14's TestConfig needs yaml."""
@@ -4636,7 +4864,8 @@ def run_smoke(phases: Phases, only) -> int:
              "mesh_sharded_step": mesh["sharded_step"]["launches"],
              **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()},
              "p03_file": media["launches"], "p03_file_10bit": media["launches_10bit"],
-             "p03_file_long": media["launches_long"], "p04_file": media["launches_p04"]}
+             "p03_file_long": media["launches_long"], "p04_file": media["launches_p04"],
+             "p03_file_fused": media["launches_fused"]}
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",

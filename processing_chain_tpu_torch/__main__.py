@@ -20,6 +20,7 @@ _TOOLS = {
     "clean-logs": ".tools.clean_logs",
     "plots": ".tools.plots",
     "serve-admin": ".tools.serve_admin",
+    "store": ".tools.store_admin",
     "store-admin": ".tools.store_admin",
     "store-heat": ".tools.store_heat",
     "store-tiers": ".tools.store_tiers",

@@ -1,5 +1,5 @@
 """The stage command line of the port (counterpart of
-processing_chain_tpu/cli.py:49-260 and `main` :393, for `p03` and `p04`):
+processing_chain_tpu/cli.py:27-260 and `main` :393, for `p03` and `p04`):
 
     python -m processing_chain_tpu_torch p03 -c DB/DB.yaml [-f60] [-z] …
     python -m processing_chain_tpu_torch p04 -c DB/DB.yaml [-e] [-a] [-ccrf N] …
@@ -7,10 +7,18 @@ processing_chain_tpu/cli.py:49-260 and `main` :393, for `p03` and `p04`):
 The flags are the JAX package's (utils/parse_args), so one command line
 drives either package. The stage runs on `cuda:0`, or on the card `-g N`
 names; the CPU only when a caller of `main` passes `device="cpu"` (the
-tests do). The observability flags (--telemetry, --profile, --trace,
---watchdog-*, --live-port, --status-file) are ROADMAP Queue A item 6 and
-are refused. ConfigError, ChainError, MediaError and a missing device exit
-1 with their message, as the reference's sys.exit(1) sites do.
+tests do). The observability flags behave as the reference's:
+`--telemetry DIR` streams the events to `events_<stamp>.jsonl` as they
+happen and writes `metrics_<stamp>.{json,prom}` and `trace_<stamp>.json`
+at the end, `--profile DIR` the resources and the merged trace (plus the
+torch.profiler device trace on the card), `--trace [DIR]` the timing
+report into the database's `logs/` (and with DIR its own device trace,
+which then owns the capture), `--live-port`/`--status-file`/
+`--watchdog-*` the live status and the stall watchdog. ConfigError,
+ChainError, MediaError, a missing device, an unbindable port and an
+unwritable status path exit 1 with their message, as the reference's
+sys.exit(1) sites do; a failure to persist what was observed never
+replaces the run's own exit code.
 """
 
 from __future__ import annotations
@@ -21,17 +29,15 @@ import sys
 import time
 from typing import Optional, Sequence
 
+from . import telemetry
 from .config.errors import ConfigError
 from .io.medialib import MediaError
 from .utils import log as log_mod
 from .utils import parse_args as pa
+from .utils import tracing
 from .utils.device import DeviceError, resolve_device, select_device
 from .utils.runner import ChainError
 from .utils.version import check_requirements
-
-#: parse_args flags whose machinery the port has not carried yet
-_OBSERVABILITY_FLAGS = ("telemetry", "profile", "trace", "watchdog_soft",
-                        "watchdog_hard", "live_port", "status_file")
 
 
 def setup_logger(verbose: bool = False):
@@ -66,6 +72,84 @@ def _process_seconds() -> Optional[float]:
         return None
 
 
+def _write_telemetry(out_dir: str, status: str, wall_s: float,
+                     stamp: Optional[str] = None) -> None:
+    """Persist the run's metrics/events/trace under one stamp into
+    `out_dir`. Best-effort: a persistence failure must never replace the
+    run's own outcome."""
+    telemetry.emit("run_end", status=status, duration_s=round(wall_s, 4))
+    try:
+        paths = telemetry.write_outputs(out_dir, stamp=stamp)
+        tracing.get_tracer().write_report(out_dir, name=paths["stamp"])
+        log_mod.get_logger().info(
+            "telemetry: %s metrics_%s.{json,prom} + events + trace", out_dir, paths["stamp"])
+    except Exception as exc:  # noqa: BLE001 - runs in _dispatch_stage's finally:
+        # anything narrower would let a persistence error (unwritable dir,
+        # a non-serializable emit() field) replace the propagating stage
+        # exception
+        log_mod.get_logger().warning("could not write telemetry to %s: %s", out_dir, exc)
+
+
+def _start_observability(stage: str, args, argv: Sequence[str]):
+    """The live surface the flags ask for: (run stamp, live server,
+    status writer, watchdog), or None when a port or a status path
+    cannot be opened (exit 1)."""
+    log = log_mod.get_logger()
+    telemetry_dir = args.telemetry
+    live_port, status_file = args.live_port, args.status_file
+    wd_soft, wd_hard = args.watchdog_soft, args.watchdog_hard
+    run_stamp = None
+    if (telemetry_dir is not None or live_port is not None or status_file is not None
+            or wd_soft is not None or wd_hard is not None or args.profile is not None):
+        # live observability IS telemetry, served instead of (or as well
+        # as) persisted: /metrics renders the same registry, the
+        # watchdog's forensics land in the same event log
+        telemetry.enable()
+        telemetry.attach_log_handler(log)
+        if telemetry_dir:
+            # stream events to disk as they happen under a stamp fixed
+            # now: a run that crashes or is killed leaves its event
+            # history for a partial run-report
+            run_stamp = telemetry.unique_stamp()
+            try:
+                telemetry.EVENTS.open_stream(
+                    os.path.join(telemetry_dir, f"events_{run_stamp}.jsonl"))
+            except OSError as exc:
+                log.warning("cannot stream events to %s: %s", telemetry_dir, exc)
+            # the wave journal rides the same stamp so run-report can
+            # join it (parallel/meshobs)
+            from .parallel import meshobs
+
+            meshobs.attach_journal(os.path.join(telemetry_dir, f"meshobs_{run_stamp}"))
+        telemetry.emit("run_start", name=stage, argv=list(argv))
+    live_server = status_writer = watchdog = None
+    # the watchdog rides the live surface or its own flags, never bare
+    # --telemetry: a long encode job beats only on completion, so a
+    # default-on watchdog would flag healthy jobs on every routine run
+    if live_port is not None or status_file is not None or wd_soft is not None \
+            or wd_hard is not None:
+        from .telemetry import live as live_mod
+        from .telemetry import watchdog as watchdog_mod
+
+        live_mod.set_run_meta(name=stage, argv=list(argv))
+        try:
+            if live_port is not None:
+                live_server = live_mod.LiveServer(live_port).start()
+                log.info("live status: %s/{healthz,metrics,status}", live_server.url)
+            if status_file:
+                status_writer = live_mod.StatusFileWriter(status_file).start()
+        except OSError as exc:
+            # an operator's mistake, not a stage failure: exit 1
+            log.error("cannot start live observability: %s", exc)
+            if live_server is not None:
+                live_server.stop()
+            return None
+        watchdog = watchdog_mod.start_watchdog(
+            soft_s=wd_soft if wd_soft is not None else watchdog_mod.DEFAULT_SOFT_S,
+            hard_s=wd_hard)
+    return run_stamp, live_server, status_writer, watchdog
+
+
 def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
     import importlib
 
@@ -73,12 +157,6 @@ def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
     t0 = time.perf_counter()
     args = pa.parse_args(stage, STAGES[stage][0], argv)
     log = setup_logger(args.verbose)
-    given = [f"--{f.replace('_', '-')}" for f in _OBSERVABILITY_FLAGS
-             if getattr(args, f, None) is not None]
-    if given:
-        log.error("%s: %s: the run's observability flags are ROADMAP Queue A item 6 "
-                  "of the PyTorch package", stage, ", ".join(given))
-        return 2
     try:
         dev = resolve_device(device) if device is not None else select_device(args.set_gpu_loc)
     except DeviceError as exc:
@@ -103,15 +181,84 @@ def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
     # modules
     log.info("%s start-up: %s", stage, json.dumps(startup))
     log.info("%s on %s", stage, dev)
+    live = _start_observability(stage, args, argv)
+    if live is None:
+        return 1
+    run_stamp, live_server, status_writer, watchdog = live
+    tracing_on = args.trace is not None
+    profiler = tracing.DeviceProfiler(args.trace) if args.trace else None
+    chain_profiler = None
+    if args.profile is not None:
+        # resource monitor + merged host/device timeline under the run
+        # stamp, so run-report and `tools chain-profile` join them
+        from .telemetry import profiling as profiling_mod
+
+        if dev.type == "cuda":
+            # the capture's "auto" reads an initialised CUDA: initialise
+            # it on the stage's card before the capture starts
+            import torch
+
+            torch.cuda.init()
+        if run_stamp is None:
+            run_stamp = telemetry.unique_stamp()
+        # torch.profiler is one session a process: `--trace DIR` owns the
+        # device capture when it asks for one
+        chain_profiler = profiling_mod.Profiler(
+            args.profile, device_trace=False if args.trace else None).start(run_stamp)
+        log.info("profiling to %s (stamp %s)", args.profile, run_stamp)
+    test_config = None
+    status = "ok"
+    t0 = time.perf_counter()
     try:
-        module.run(args, device=dev)
+        if profiler is not None:
+            profiler.start()
+        test_config = module.run(args, device=dev)
     except (ConfigError, ChainError, MediaError) as exc:
+        status = "fail"
         log.error("%s", exc)
         return 1
+    except BaseException:
+        status = "fail"
+        raise
     finally:
+        if watchdog is not None:
+            from .telemetry import watchdog as watchdog_mod
+
+            watchdog_mod.stop_watchdog()
+        if status_writer is not None:
+            # one final snapshot records how the run ended
+            status_writer.stop()
+        if live_server is not None:
+            live_server.stop()
+        if profiler is not None:
+            profiler.stop()
+        if chain_profiler is not None:
+            paths = chain_profiler.stop(run_stamp)
+            if paths.get("trace"):
+                log.info("profile: %s (+ %s)%s; `tools chain-profile %s` for the summary",
+                         paths["trace"], paths.get("resources", ""),
+                         f" + device trace {paths['device_trace_dir']}"
+                         if paths.get("device_trace_dir") else "", args.profile)
         if store is not None:
             # persist the stat-keyed input digest cache (best-effort)
             store.digests.save()
+        if args.telemetry:
+            from .parallel import meshobs
+
+            meshobs.detach_journal()
+            _write_telemetry(args.telemetry, status, time.perf_counter() - t0, stamp=run_stamp)
+        if tracing_on:
+            tracer = tracing.get_tracer()
+            tracer.log_summary()
+            # a stage that failed before returning its config persists
+            # next to the database anyway (the default logs/ layout)
+            logs_dir = (test_config.get_logs_path() if test_config is not None else
+                        os.path.join(os.path.dirname(os.path.abspath(args.test_config)), "logs"))
+            try:
+                log.info("timing report: %s", tracer.write_report(logs_dir))
+            except OSError as exc:
+                # never let report persistence replace the run's outcome
+                log.warning("could not write timing report to %s: %s", logs_dir, exc)
     return 0
 
 

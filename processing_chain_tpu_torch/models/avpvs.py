@@ -5,10 +5,10 @@ processing_chain_tpu/models/avpvs.py: CHUNK/chunk_frames :47-78,
 short path's `_short_rate_chunks`, `_decode_stereo` and
 `_short_segment_audio` :324-367, the SI/TI sidecar :370-432, the
 wo_buffer plan and provenance :435-501, `_pump_ready` :504-534,
-`_render_wo_buffer` and `create_avpvs_wo_buffer` :537-643 without the
-fused fan-out, and the stalling pass: SPINNER_KINEMATICS, `load_spinner`,
-`insert_stall_silence`, `make_stall_compositor` and `apply_stalling`
-:1069-1331).
+`_render_wo_buffer` and `create_avpvs_wo_buffer` :537-643 with the
+fused fan-out's hooks, and the stalling pass: SPINNER_KINEMATICS,
+`load_spinner`, `insert_stall_silence`, `make_stall_compositor` and
+`apply_stalling` :1069-1331).
 
 Short tests: decode the single encoded segment → per chunk, host→device
 copy (double-buffered, parallel/pipeline.iter_device_ahead) → bicubic
@@ -23,11 +23,16 @@ the same device path, TI carried across the segment joins, beside the
 SRC's stereo audio over the PVS's duration. The stalling pass re-reads
 that AVPVS and composites a spinner (or freezes frames) on the device
 (`pump_stalled`), with silence inserted into the audio of a stall.
+With a fan-out (models/fused.FusedFanout, PC_FUSE_P04) the quantized
+chunks also feed the stalling pass and every CPVS render on the device,
+so neither decodes the AVPVS again.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import time
 from fractions import Fraction
 from typing import Optional
 
@@ -54,6 +59,76 @@ DEFAULT_SPINNER = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "assets", "spinner-128-white.png",
 )
+
+
+class RenderTotals:
+    """Seconds and frames of a stage's renders in this process, by part:
+    the decode threads' (summed over threads), the device work's (CUDA
+    events on a card) and the writer threads' (fetch, encode; summed over
+    writers). A stage reports the deltas of its own run."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._totals = {"decode_s": 0.0, "device_s": 0.0, "writeback_s": 0.0, "frames": 0}
+
+    def add(self, **parts) -> None:
+        with self._lock:
+            for k, v in parts.items():
+                self._totals[k] += v
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._totals)
+
+
+#: p03's renders: wo_buffer renders with their fan-outs, and stall passes
+RENDER_TOTALS = RenderTotals()
+
+
+def _timed(items, seconds: list):
+    """`items`, adding the seconds each next() takes to seconds[0] (on
+    the thread that pulls it: the decode time)."""
+    it = iter(items)
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, None)
+        seconds[0] += time.perf_counter() - t0
+        if item is None:
+            return
+        yield item
+
+
+class DeviceTimer:
+    """Seconds of the device work of the calls it wraps: CUDA events
+    around each call on a card (read once, by `seconds()`), the host
+    clock elsewhere."""
+
+    def __init__(self, device=None) -> None:
+        self._cuda = resolve_device(device).type == "cuda"
+        self._pairs: list = []
+        self._host_s = 0.0
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            if self._cuda:
+                ends = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                ends[0].record()
+                out = fn(*args, **kwargs)
+                ends[1].record()
+                self._pairs.append(ends)
+                return out
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._host_s += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    def seconds(self) -> float:
+        if self._pairs:
+            self._pairs[-1][1].synchronize()
+        return self._host_s + sum(a.elapsed_time(b) for a, b in self._pairs) / 1000.0
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -490,63 +565,116 @@ class SiTiAccumulator:
 
 
 def pump_ready(ready, writer, feat: SiTiAccumulator, h: int, w: int,
-               pix_fmt: str, device=None) -> None:
+               pix_fmt: str, device=None, tap=None, timer: Optional[DeviceTimer] = None) -> int:
     """Host chunks (lists of [T, H, W] Y, U, V planes) → device resize to
     the h×w canvas (+ SI/TI features) → `writer.put(planes, recycle=chunk)`
     with `planes` the quantized device tensors; the writer owns their
     device→host fetch. Copies are double-buffered (iter_device_ahead):
-    chunk k+1's copy is issued while chunk k's compute is queued."""
+    chunk k+1's copy is issued while chunk k's compute is queued.
+
+    With `tap` set (the fused p04 fan-out, models/fused) the same device
+    tensors go on to the tap after the writer. On the CPU they may alias
+    the pooled host block (a same-size resize passes it through), which
+    the tap may still hold, so there the blocks are not recycled.
+    `timer` (a DeviceTimer) times the canvas work. Returns the frames
+    rendered."""
     device = resolve_device(device)
     sub = fr.chroma_subsampling(pix_fmt)
     ten_bit = "10" in pix_fmt
-    for chunk, dev in iter_device_ahead(ready, device):
+
+    def canvas(dev):
         scaled = fr.scale_yuv_frames(dev, h, w, "bicubic", sub)
         quant = fr.quantize_device(scaled, ten_bit)
         feat.update(quant[0])
-        writer.put(quant, recycle=chunk)
+        return quant
+
+    if timer is not None:
+        canvas = timer.wrap(canvas)
+    frames = 0
+    for chunk, dev in iter_device_ahead(ready, device):
+        quant = canvas(dev)
+        frames += int(quant[0].shape[0])
+        if tap is None:
+            writer.put(quant, recycle=chunk)
+        else:
+            writer.put(quant, recycle=chunk if device.type == "cuda" else None)
+            tap(quant)
+    return frames
 
 
 def _render_wo_buffer(pvs: Pvs, out_path: str, w: int, h: int, pix_fmt: str,
                       avpvs_src_fps: bool, force_60_fps: bool, feat: SiTiAccumulator,
-                      device=None) -> None:
+                      device=None, fanout=None) -> None:
     """The decode → device rescale → FFV1(+audio) render body, decoded
     ahead on prefetch threads and encoded on the writer thread. A short
     test renders its single segment at its native frame rate unless
     -z/-f60, with the segment's audio; a long test every segment on the
     canvas time grid, chained in order, with the SRC's stereo audio over
-    the PVS's total duration."""
-    if pvs.test_config.is_short():
-        seg = pvs.segments[0]
-        audio, srate = _short_segment_audio(seg)
-        with VideoReader(seg.file_path) as reader:
-            rate, chunks = _short_rate_chunks(pvs, reader, avpvs_src_fps, force_60_fps, device)
-            with pfe.AsyncWriter(_ffv1_writer(
-                out_path, w, h, pix_fmt, rate, with_audio=audio is not None,
-                sample_rate=srate, audio_codec="flac",
-            )) as writer:
-                if audio is not None:
-                    writer.write_audio(audio)
-                with pfe.Prefetcher(chunks, depth=2) as pre:
-                    pump_ready(pre, writer, feat, h, w, pix_fmt, device)
-        return
-    rate = canvas_fps(pvs, avpvs_src_fps)
-    total = float(sum(s.get_segment_duration() for s in pvs.segments))
-    samples, srate = _decode_stereo(pvs.src.file_path, 0.0, total)
-    with pfe.AsyncWriter(_ffv1_writer(
-        out_path, w, h, pix_fmt, rate, with_audio=True, sample_rate=srate,
-    )) as writer:
-        writer.write_audio(samples)
-        factories = [(lambda s=seg: _segment_canvas_chunks(s, rate, device))
-                     for seg in pvs.segments]
-        with pfe.MultiSegmentPrefetcher(factories, workers=_decode_workers(), depth=2) as pre:
-            pump_ready(pre, writer, feat, h, w, pix_fmt, device)
+    the PVS's total duration. With `fanout` set (models/fused.
+    FusedFanout), `fanout.start(...)` is called once rate and audio are
+    known and every quantized chunk goes to its tap after the AVPVS
+    writer: one decode of each segment feeds the AVPVS, the stalling pass
+    and every CPVS and preview render. Adds its seconds and frames to
+    RENDER_TOTALS."""
+    decode_s = [0.0]
+    timer = DeviceTimer(device)
+    if fanout is not None:
+        # the fan-out's composite and transforms count as device work
+        fanout.timer = timer
+
+    def pump(ready, writer, tap):
+        frames = pump_ready(ready, writer, feat, h, w, pix_fmt, device, tap, timer)
+        RENDER_TOTALS.add(frames=frames)
+        if fanout is not None:
+            # flush the fan-out's tails (timed); its commits come with close()
+            fanout.finish_streams()
+
+    try:
+        if pvs.test_config.is_short():
+            seg = pvs.segments[0]
+            audio, srate = _short_segment_audio(seg)
+            with VideoReader(seg.file_path) as reader:
+                rate, chunks = _short_rate_chunks(pvs, reader, avpvs_src_fps, force_60_fps,
+                                                  device)
+                tap = fanout.start(rate, audio, srate, w, h, pix_fmt) if fanout else None
+                with pfe.AsyncWriter(_ffv1_writer(
+                    out_path, w, h, pix_fmt, rate, with_audio=audio is not None,
+                    sample_rate=srate, audio_codec="flac",
+                )) as writer:
+                    if audio is not None:
+                        writer.write_audio(audio)
+                    with pfe.Prefetcher(_timed(chunks, decode_s), depth=2) as pre:
+                        pump(pre, writer, tap)
+                RENDER_TOTALS.add(writeback_s=writer.busy_s)
+            return
+        rate = canvas_fps(pvs, avpvs_src_fps)
+        total = float(sum(s.get_segment_duration() for s in pvs.segments))
+        samples, srate = _decode_stereo(pvs.src.file_path, 0.0, total)
+        tap = fanout.start(rate, samples, srate, w, h, pix_fmt) if fanout else None
+        with pfe.AsyncWriter(_ffv1_writer(
+            out_path, w, h, pix_fmt, rate, with_audio=True, sample_rate=srate,
+        )) as writer:
+            writer.write_audio(samples)
+            seg_s = [[0.0] for _ in pvs.segments]
+            factories = [(lambda s=seg, t=t: _timed(_segment_canvas_chunks(s, rate, device), t))
+                         for seg, t in zip(pvs.segments, seg_s)]
+            with pfe.MultiSegmentPrefetcher(factories, workers=_decode_workers(),
+                                            depth=2) as pre:
+                pump(pre, writer, tap)
+            decode_s[0] += sum(t[0] for t in seg_s)
+        RENDER_TOTALS.add(writeback_s=writer.busy_s)
+    finally:
+        RENDER_TOTALS.add(decode_s=decode_s[0], device_s=timer.seconds())
 
 
 def create_avpvs_wo_buffer(pvs: Pvs, avpvs_src_fps: bool = False,
-                           force_60_fps: bool = False, device=None) -> Optional[Job]:
+                           force_60_fps: bool = False, device=None,
+                           fanout=None) -> Optional[Job]:
     """The decode+rescale(+concat+audio) stage producing the pre-stalling
     AVPVS (or the final one when the HRC has no buffering), on `device`
-    (`None` means `cuda:0`)."""
+    (`None` means `cuda:0`). `fanout` (models/fused.FusedFanout) rides
+    the same decode to render the stalling pass and every CPVS context in
+    the same job (PC_FUSE_P04)."""
     out_path = _wo_buffer_out_path(pvs)
     w, h = avpvs_dimensions(pvs)
     pix_fmt = pvs.get_pix_fmt_for_avpvs()
@@ -554,9 +682,19 @@ def create_avpvs_wo_buffer(pvs: Pvs, avpvs_src_fps: bool = False,
     def run() -> str:
         SiTiAccumulator.discard(out_path)  # never leave a stale sidecar
         feat = SiTiAccumulator()
-        _render_wo_buffer(pvs, out_path, w, h, pix_fmt, avpvs_src_fps, force_60_fps,
-                          feat, device)
-        feat.write(out_path)
+        try:
+            _render_wo_buffer(pvs, out_path, w, h, pix_fmt, avpvs_src_fps, force_60_fps,
+                              feat, device, fanout)
+            feat.write(out_path)
+        except BaseException:
+            if fanout is not None:
+                fanout.abort()
+            raise
+        if fanout is not None:
+            # flush and commit the fan-out's artifacts (stalled AVPVS, CPVS
+            # contexts, preview) under each member job's plan hash
+            fanout.close()
+            RENDER_TOTALS.add(writeback_s=fanout.writeback_s())
         return out_path
 
     return Job(
@@ -757,14 +895,17 @@ def apply_stalling(pvs: Pvs, spinner_path: Optional[str] = None, n_rotations: in
             audio = None
         if audio is not None and audio.size and not skipping:
             audio = insert_stall_silence(audio, srate, events)
+        decode_s, timer = [0.0], DeviceTimer(device)
         with VideoReader(in_path) as reader, pfe.AsyncWriter(_ffv1_writer(
             out_path, w, hgt, pix_fmt, rate,
             with_audio=audio is not None and audio.size > 0, sample_rate=srate,
         )) as writer:
             if audio is not None and audio.size:
                 writer.write_audio(audio)
-            pump_stalled(_frames_as_tensors(reader), plan, composite, writer,
-                         chunk_frames(device))
+            pump_stalled(_timed(_frames_as_tensors(reader), decode_s), plan,
+                         timer.wrap(composite), writer, chunk_frames(device))
+        RENDER_TOTALS.add(decode_s=decode_s[0], device_s=timer.seconds(),
+                    writeback_s=writer.busy_s, frames=plan.n_out)
         return out_path
 
     lf = pvs.get_logfile_path()

@@ -24,8 +24,6 @@ the port's resize identity (`plan_resize_method(device)`,
 from __future__ import annotations
 
 import math
-import threading
-import time
 from fractions import Fraction
 from typing import Optional
 
@@ -46,24 +44,8 @@ from ..utils.device import resolve_device
 from . import avpvs
 from . import frames as fr
 
-#: seconds and frames of every render of this process, by part: the
-#: decode thread's, the device loop's (copy, transform; measured on the
-#: device with events on a card) and the writer thread's (fetch, encode).
-#: The p04 stage reports its own deltas.
-RENDER_TOTALS = {"decode_s": 0.0, "device_s": 0.0, "writeback_s": 0.0, "frames": 0}
-_TOTALS_LOCK = threading.Lock()
-
-
-def _add_totals(**parts) -> None:
-    with _TOTALS_LOCK:
-        for k, v in parts.items():
-            RENDER_TOTALS[k] += v
-
-
-def render_totals() -> dict:
-    """A copy of RENDER_TOTALS."""
-    with _TOTALS_LOCK:
-        return dict(RENDER_TOTALS)
+#: p04's renders (models/avpvs.RenderTotals)
+RENDER_TOTALS = avpvs.RenderTotals()
 
 
 def normalize_rms(samples: np.ndarray, target_dbfs: float = -23.0) -> np.ndarray:
@@ -89,19 +71,6 @@ def normalize_rms(samples: np.ndarray, target_dbfs: float = -23.0) -> np.ndarray
     mean_volume_db = round(10.0 * np.log10(power), 1)  # volumedetect print
     gain = 10.0 ** ((target_dbfs - mean_volume_db) / 20.0)
     return np.clip(np.rint(x * gain), -32768, 32767).astype(np.int16)
-
-
-def _timed(chunks, seconds: list):
-    """`chunks`, adding the seconds each next() takes to seconds[0] (on
-    the prefetch thread that pulls it: the decode time)."""
-    it = iter(chunks)
-    while True:
-        t0 = time.perf_counter()
-        chunk = next(it, None)
-        seconds[0] += time.perf_counter() - t0
-        if chunk is None:
-            return
-        yield chunk
 
 
 def _avpvs_chunks(reader: VideoReader, dst_rate: Optional[float] = None, device=None):
@@ -278,31 +247,18 @@ def _render(chunks, transform, vw, audio, device) -> None:
     device = resolve_device(device)
     decode_s = [0.0]
     frames = 0
-    device_s = 0.0
-    events = []
+    timer = avpvs.DeviceTimer(device)
+    transform = timer.wrap(transform)
     with pfe.AsyncWriter(vw, fetch=fr._to_host) as writer:
         if audio is not None:
             writer.write_audio(audio)
-        with pfe.Prefetcher(_timed(chunks, decode_s), depth=2) as pre:
+        with pfe.Prefetcher(avpvs._timed(chunks, decode_s), depth=2) as pre:
             for chunk, dev in iter_device_ahead(pre, device):
-                if device.type == "cuda":
-                    ends = (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True))
-                    ends[0].record()
-                    out = transform(dev)
-                    ends[1].record()
-                    events.append(ends)
-                else:
-                    t0 = time.perf_counter()
-                    out = transform(dev)
-                    device_s += time.perf_counter() - t0
+                out = transform(dev)
                 frames += int(out[0].shape[0])
                 writer.put(out, recycle=chunk)
-    if events:
-        events[-1][1].synchronize()
-        device_s = sum(a.elapsed_time(b) for a, b in events) / 1000.0
-    _add_totals(decode_s=decode_s[0], device_s=device_s, writeback_s=writer.busy_s,
-                frames=frames)
+    RENDER_TOTALS.add(decode_s=decode_s[0], device_s=timer.seconds(),
+                      writeback_s=writer.busy_s, frames=frames)
 
 
 def cpvs_out_rate(plan: dict, avpvs_fps: float) -> Fraction:

@@ -1,41 +1,75 @@
-"""The stall fan-out of the fused p03+p04 driver (trimmed port of
-processing_chain_tpu/models/fused.py: `_StallSchedule` :85-130,
-`_SkipSchedule` :133-178, `streamed_stall_plan` :181-208, `StallStream`
-:211-258, `_ContextPipeline` :264-368, `_PreviewPipeline` :371-399 and
-the stream part of `FusedFanout` :561-670).
+"""The fused p03+p04 route, PC_FUSE_P04 (port of
+processing_chain_tpu/models/fused.py: `fused_p04_enabled` :72,
+`_StallSchedule` :85-130, `_SkipSchedule` :133-178, `streamed_stall_plan`
+:181-208, `StallStream` :211-258, `_ContextPipeline` :264-368,
+`_PreviewPipeline` :371-399 and `FusedFanout` :402-710).
 
 Every downstream artifact renders from the quantized AVPVS stream the
 device pass already holds, without decoding an artifact again:
 
-    quantized AVPVS chunks (device)
-        ├─▶ StallStream ─▶ stall composite ─▶ stalled-AVPVS writer
-        │                          └─▶ (final stream)
-        └─▶ per-PostProcessing CPVS pipelines + preview
+    SRC decode ─▶ device resize ─▶ quantized AVPVS chunks (device)
+                                       ├─▶ AVPVS writer
+                                       ├─▶ StallStream ─▶ stall composite
+                                       │        ├─▶ stalled-AVPVS writer
+                                       │        └─▶ (final stream)
+                                       └─▶ per-PostProcessing CPVS
+                                           pipelines + preview
 
-In the port the composited chunks stay on the device and feed the
-context pipelines from there; only the writers fetch to the host. The
-transforms and the composite are the same functions the staged paths run
-(models/cpvs, models/avpvs.make_stall_compositor); `StallStream` is an
-incremental replay of ops/overlay.plan_stalling + the monotonic gather
-that needs no frame count up front (`streamed_stall_plan` holds the two
-record for record).
+`FanoutStream` is the stream half: in the port the composited chunks stay
+on the device and feed the context pipelines from there; only the writers
+fetch to the host. The transforms and the composite are the functions
+the staged paths run (models/cpvs, models/avpvs.make_stall_compositor);
+`StallStream` is an incremental replay of ops/overlay.plan_stalling +
+the monotonic gather that needs no frame count up front
+(`streamed_stall_plan` holds the two record for record).
 
-Not ported: the `Pvs`/job/store side of `FusedFanout` (member jobs,
-crash sentinels, commits, telemetry, per-member degrade), the writers it
-opens and `SegmentOrderedTap`. Writers are passed in: objects with
-`put(planes)` and `close()`.
+`FusedFanout` is the member side for one PVS: its member jobs are the
+staged jobs (`apply_stalling`, one `create_cpvs` a context,
+`create_preview`), never run, which carry the plan hashes; it opens their
+writers, marks their crash sentinels, and commits each under its own
+plan hash (`Job.complete_externally`), so a warm run plans nothing and
+p04 after a fused p03 plans nothing. A member whose writer fails is
+dropped alone (`chain_fused_members_degraded_total`,
+`fused_member_degraded`) and left to the staged pass on the same device:
+p03's stall pass for the stalled AVPVS, the next p04 for a CPVS. The stall
+member is the port's `apply_stalling` job, which takes a freeze HRC
+where the JAX package's raises (ROADMAP Queue C).
+
+Not ported: `SegmentOrderedTap` and the batch route's fan-out (ROADMAP
+Queue A item 7).
 """
 
 from __future__ import annotations
 
+import os
 from fractions import Fraction
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .. import telemetry as tm
+from ..engine import prefetch as pfe
+from ..engine.jobs import clear_inprogress, mark_inprogress
 from ..ops import overlay as ov
+from ..utils.log import get_logger
+from ..utils.runner import ChainError
+from . import avpvs as av
 from . import cpvs as cp
+
+_MEMBERS_DEGRADED = tm.counter(
+    "chain_fused_members_degraded_total",
+    "fused fan-out members aborted mid-stream and left to the staged "
+    "partial path",
+)
+
+
+def fused_p04_enabled() -> bool:
+    """The PC_FUSE_P04 gate. Routing only: the fused path renders
+    decoded-identical artifacts under unchanged plan hashes, so the flag
+    never reaches a plan payload."""
+    # plan-exempt: (fused-vs-staged CPVS/AVPVS bytes are decoded-identical and plan hashes unchanged; pinned by tests/test_torch_fused_file.py)
+    return os.environ.get("PC_FUSE_P04", "").strip().lower() in ("1", "true", "yes", "on")
 
 # ---------------------------------------------------------------- stall replay
 
@@ -340,7 +374,7 @@ def avpvs_rate(rate: float) -> float:
     return frac.numerator / frac.denominator
 
 
-class FusedFanout:
+class FanoutStream:
     """The fused fan-out of one PVS's quantized AVPVS stream. `feed()`
     takes every quantized chunk (a list of [T, H, W] Y, U, V tensors);
     with a `compositor` (models/avpvs.make_stall_compositor) the stream
@@ -426,8 +460,306 @@ class FusedFanout:
         self._finished = True
         if self._stall_writer is not None:
             try:
-                self._stall_writer.close()
+                getattr(self._stall_writer, "abort", self._stall_writer.close)()
             except Exception:  # noqa: BLE001 - teardown on the failure path
                 pass
         for pipe in self._pipelines:
             pipe.abort()
+
+
+class _GuardedPipeline:
+    """A context or preview pipeline whose failure degrades its member
+    alone: the pipeline is aborted, `on_fail(out_path, exc)` drops the
+    member, and its later feeds are ignored, while every other member
+    keeps streaming."""
+
+    def __init__(self, pipe, out_path: str, on_fail: Callable) -> None:
+        self.pipe = pipe
+        self.out_path = out_path
+        self._on_fail = on_fail
+        self.dead = False
+
+    def _guard(self, step: Callable) -> None:
+        if self.dead:
+            return
+        try:
+            step()
+        except Exception as exc:  # noqa: BLE001 - member containment
+            self.dead = True
+            self.pipe.abort()
+            self._on_fail(self.out_path, exc)
+
+    def feed(self, planes: list) -> None:
+        self._guard(lambda: self.pipe.feed(planes))
+
+    def finish(self) -> None:
+        self._guard(self.pipe.finish)
+
+    def abort(self) -> None:
+        if not self.dead:
+            self.pipe.abort()
+
+
+class _GuardedStallWriter:
+    """The stalled-AVPVS writer: a failure drops its member and its
+    output, but compositing goes on, since the context pipelines consume
+    the composited frames from the device regardless."""
+
+    def __init__(self, writer, out_path: str, on_fail: Callable) -> None:
+        self.writer = writer
+        self.out_path = out_path
+        self._on_fail = on_fail
+        self.dead = False
+
+    def _fail(self, exc: BaseException) -> None:
+        self.dead = True
+        try:
+            self.writer.close()
+        except Exception:  # noqa: BLE001 - teardown on the failure path
+            pass
+        self._on_fail(self.out_path, exc)
+
+    def put(self, planes: list) -> None:
+        if self.dead:
+            return
+        try:
+            self.writer.put(planes)
+        except Exception as exc:  # noqa: BLE001 - member containment
+            self._fail(exc)
+
+    def close(self) -> None:
+        if self.dead:
+            return
+        try:
+            self.writer.close()
+        except Exception as exc:  # noqa: BLE001 - member containment
+            self._fail(exc)
+
+    def abort(self) -> None:
+        if not self.dead:
+            try:
+                self.writer.close()
+            except Exception:  # noqa: BLE001 - teardown on the failure path
+                pass
+
+
+class FusedFanout:
+    """The fused p04 fan-out of one PVS. Built by the p03 stage with the
+    run's knobs; `start()` is called by the render body once rate and
+    audio are known (returns the chunk tap), `feed()` receives every
+    quantized AVPVS chunk (device tensors), `finish_streams()` flushes and
+    closes the downstream writers, and `close()` commits every member
+    artifact under its existing plan hash. `abort()` removes partial
+    outputs and clears their crash sentinels. `device` is the render's
+    (`None` means `cuda:0`): the member jobs' plans and the stall
+    composite are the staged ones on that device."""
+
+    def __init__(self, pvs, *, spinner_path: Optional[str] = None,
+                 n_rotations: int = 64, rawvideo: bool = False,
+                 nonraw_crf: int = 17, mobile_vprofile: str = "high",
+                 mobile_preset: str = "fast", preview: bool = False,
+                 device=None) -> None:
+        self.pvs = pvs
+        self._spinner = spinner_path
+        self._n_rot = n_rotations
+        self._rawvideo = rawvideo
+        self._crf = nonraw_crf
+        self._vprofile = mobile_vprofile
+        self._preset = mobile_preset
+        self._device = device
+        self._buffering = pvs.has_buffering()
+        self._skipping = pvs.has_framefreeze() if self._buffering else False
+        self._events = pvs.get_buff_events_media_time() if self._buffering else []
+        self.engaged = False
+        self._closed = False
+        self._stream: Optional[FanoutStream] = None
+        self._pipelines: list = []
+        self._writers: list = []
+        self._marked: list[str] = []
+        #: output path -> error summary of each member that failed: it is
+        #: dropped (partial output removed, sentinel cleared, job not
+        #: completed) while every healthy member keeps streaming; the
+        #: staged pass rebuilds exactly the degraded members
+        self.degraded: dict[str, str] = {}
+        self._stall_writer: Optional[_GuardedStallWriter] = None
+        #: a models/avpvs.DeviceTimer the render sets: the composite and
+        #: the member transforms are timed as device work
+        self.timer = None
+        # member jobs: the staged per-artifact jobs, never run; they carry
+        # the plan identity, provenance and commit surface
+        self.stall_job = av.apply_stalling(
+            pvs, spinner_path=spinner_path, n_rotations=n_rotations, device=device)
+        self.cpvs_jobs = [
+            cp.create_cpvs(pvs, pp, rawvideo, nonraw_crf, mobile_vprofile, mobile_preset,
+                           device=device)
+            for pp in pvs.test_config.post_processings
+        ]
+        self.preview_job = cp.create_preview(pvs, device=device) if preview else None
+        outs = [j.output_path for j in self.member_jobs()]
+        dups = sorted({o for o in outs if outs.count(o) > 1})
+        if dups:
+            raise ChainError(
+                f"fused p04 fan-out for {pvs.pvs_id}: multiple contexts "
+                f"write {dups} — write-write race")
+
+    def member_jobs(self) -> list:
+        jobs = [self.stall_job] if self.stall_job is not None else []
+        jobs.extend(self.cpvs_jobs)
+        if self.preview_job is not None:
+            jobs.append(self.preview_job)
+        return jobs
+
+    def stall_settled(self) -> bool:
+        """True when the staged stall pass has nothing to redo for this
+        PVS: there is no stall member, or the fused render carried it to
+        completion. False: it degraded, and p03 plans the staged
+        `apply_stalling` instead."""
+        return self.stall_job is None or self.stall_job.output_path not in self.degraded
+
+    def writeback_s(self) -> float:
+        """Seconds the member writers spent fetching and encoding."""
+        return sum(w.busy_s for w in self._writers)
+
+    def _writer(self, vw) -> pfe.AsyncWriter:
+        w = pfe.AsyncWriter(vw)
+        self._writers.append(w)
+        return w
+
+    def _mark(self, out: str) -> None:
+        mark_inprogress(out)
+        self._marked.append(out)
+
+    def start(self, rate: float, audio, srate: int, w: int, h: int,
+              pix_fmt: str) -> Callable:
+        """Open every downstream writer (audio first, as the staged paths
+        do) and return the chunk tap. `rate` is the AVPVS canvas rate,
+        rationalized the way its writer muxes it, so the resample
+        decisions match what a reader of the artifact would see."""
+        fps = avpvs_rate(rate)
+        tc = self.pvs.test_config
+        self.engaged = True
+        chunk = av.chunk_frames(self._device)
+        final_audio = audio
+        compositor = None
+        if self._buffering:
+            if audio is not None and audio.size and not self._skipping:
+                final_audio = av.insert_stall_silence(audio, srate, self._events)
+            stall_out = self.stall_job.output_path
+            self._mark(stall_out)
+            has_audio = final_audio is not None and final_audio.size > 0
+            writer = self._writer(av._ffv1_writer(
+                stall_out, w, h, pix_fmt, fps, with_audio=has_audio, sample_rate=srate))
+            if has_audio:
+                writer.write_audio(final_audio)
+            self._stall_writer = _GuardedStallWriter(writer, stall_out, self._drop_member)
+            compositor = av.make_stall_compositor(
+                pix_fmt, self._spinner, self._skipping, self._n_rot, device=self._device)
+            if self.timer is not None:
+                compositor = self.timer.wrap(compositor)
+        for job, pp in zip(self.cpvs_jobs, tc.post_processings):
+            plan = cp.cpvs_plan(self.pvs, pp, h, self._rawvideo, self._crf,
+                                self._vprofile, self._preset)
+            ctx_audio = None
+            if tc.is_long() and final_audio is not None and final_audio.size:
+                ctx_audio = cp.trim_normalize_long_audio(
+                    final_audio, srate, self.pvs, plan["normalize"])
+            self._mark(job.output_path)
+            try:
+                vw, has_audio = cp.open_cpvs_writer(
+                    job.output_path, plan, pp, w, h, cp.cpvs_out_rate(plan, fps),
+                    ctx_audio, srate)
+                writer = self._writer(vw)
+                if has_audio:
+                    writer.write_audio(ctx_audio)
+                pipe = _ContextPipeline(writer, plan, pp, pix_fmt, fps, self._rawvideo, chunk)
+                self._time(pipe)
+            except Exception as exc:  # noqa: BLE001 - member containment
+                # a member whose writer cannot even open degrades like a
+                # mid-stream failure: dropped, siblings unharmed
+                self._drop_member(job.output_path, exc)
+                continue
+            self._pipelines.append(_GuardedPipeline(pipe, job.output_path, self._drop_member))
+        if self.preview_job is not None:
+            out = self.preview_job.output_path
+            self._mark(out)
+            try:
+                vw, has_audio = cp.open_preview_writer(out, w, h, fps, final_audio, srate)
+                writer = self._writer(vw)
+                if has_audio:
+                    writer.write_audio(final_audio)
+                pipe = _PreviewPipeline(writer, pix_fmt)
+                self._time(pipe)
+                self._pipelines.append(_GuardedPipeline(pipe, out, self._drop_member))
+            except Exception as exc:  # noqa: BLE001 - member containment
+                self._drop_member(out, exc)
+        self._stream = FanoutStream(
+            self._pipelines, compositor=compositor, stall_writer=self._stall_writer,
+            fps=fps, events=self._events, skipping=self._skipping,
+            n_rotations=self._n_rot, chunk=chunk)
+        return self.feed
+
+    def _time(self, pipe) -> None:
+        if self.timer is not None:
+            pipe._transform = self.timer.wrap(pipe._transform)
+
+    def feed(self, planes: list) -> None:
+        """One quantized AVPVS chunk (a list of [T, H, W] tensors)."""
+        self._stream.feed(planes)
+
+    def _drop_member(self, out: str, exc: BaseException) -> None:
+        self.degraded[out] = f"{type(exc).__name__}: {exc}"[:500]
+        if out in self._marked:
+            self._marked.remove(out)
+        if os.path.isfile(out):
+            try:
+                os.unlink(out)
+            except OSError:
+                pass
+        clear_inprogress(out)
+        _MEMBERS_DEGRADED.inc()
+        tm.emit("fused_member_degraded", output=os.path.basename(out),
+                pvs=self.pvs.pvs_id, error=self.degraded[out])
+        live = sum(not p.dead for p in self._pipelines)
+        get_logger().warning(
+            "fused fan-out %s: member %s aborted mid-stream (%s) — falling back "
+            "to the staged partial path; %d member(s) still streaming",
+            self.pvs.pvs_id, os.path.basename(out), self.degraded[out], live)
+
+    def finish_streams(self) -> None:
+        """Flush the tails and close every downstream writer (idempotent)."""
+        if self._stream is not None:
+            self._stream.finish_streams()
+
+    def close(self) -> None:
+        """Finalize: flush, then commit every member artifact under its
+        own plan hash (provenance, store commit, sentinel clear: the tail
+        a staged job's run has)."""
+        if self._closed:
+            return
+        try:
+            self.finish_streams()
+        except BaseException:
+            self.abort()
+            raise
+        self._closed = True
+        if not self.engaged:
+            return
+        for job in self.member_jobs():
+            # a degraded member commits nothing: its job stays un-run, so
+            # the staged pass sees it as due and rebuilds exactly it
+            if job.output_path in self.degraded:
+                continue
+            job.complete_externally()
+
+    def abort(self) -> None:
+        """Failure path: no partial artifact may survive to satisfy a
+        later run's skip-existing check."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._stream is not None:
+            self._stream.abort()
+        for out in self._marked:
+            if os.path.isfile(out):
+                os.unlink(out)
+            clear_inprogress(out)

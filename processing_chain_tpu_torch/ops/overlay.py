@@ -2,7 +2,7 @@
 `StallPlan` :58-75, `plan_stalling` :78-156, `prepare_spinner` :159-193,
 `_blend_plane` :201-212, `_clip_crop_origin` :215-235, `render_core`
 :238-305, `render_stalled_plane` :308-331, `make_sharded_stall_renderer`
-:334-375, `downsample_alpha` :378-381).
+:334-375, `downsample_alpha` :378-381, `estimate_spinner_rps` :389-426).
 
 A host-side timeline plan (numpy, copied unchanged) plus a device-side
 gather and alpha blend in plain torch ops on the frames' own device:
@@ -19,8 +19,8 @@ events) are the reference package's assumptions, not measurements of
 `bufferer`. The blend is a separate f32 multiply and add per term, as the
 reference's single-device (eager) route computes it, on every route of
 the port: the mesh-sharded renderer too (where the reference's jitted
-sharded route fuses it into an FMA). `estimate_spinner_rps` is not
-ported.
+sharded route fuses it into an FMA). `estimate_spinner_rps` (numpy)
+reads the rate back from a rendered clip, for tools/bufferer_calibrate.
 """
 
 from __future__ import annotations
@@ -380,3 +380,45 @@ def make_sharded_stall_renderer(mesh, banks: tuple, black_values: tuple, ten_bit
         return tuple(outs)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Calibration: recover spinner kinematics from a rendered clip
+# ---------------------------------------------------------------------------
+
+
+def estimate_spinner_rps(
+    frames: np.ndarray, fps: float
+) -> tuple[float, float]:
+    """Estimate the spinner's angular rate from stall-zone luma frames.
+
+    frames: [T, H, W] luma of consecutive stall frames, cropped roughly to
+    the spinner region (dark background). Method: the luminance-weighted
+    centroid of a rotationally-asymmetric spinner (the reference spinner's
+    gradient tail) traces a circle; the unwrapped centroid angle against
+    frame index gives rad/frame, hence revolutions/second.
+
+    Returns (rps, residual): rps > 0 means clockwise on screen (image y
+    points down); residual is the RMS of the linear-fit error in radians —
+    large residual means the clip wasn't a steadily rotating spinner.
+    """
+    t = frames.shape[0]
+    if t < 3:
+        raise ValueError("need at least 3 stall frames to estimate a rate")
+    h, w = frames.shape[1:]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    angles = np.empty(t)
+    for k, f in enumerate(np.asarray(frames, np.float64)):
+        wgt = np.clip(f - f.min(), 0, None)
+        s = wgt.sum()
+        if s <= 0:
+            raise ValueError(f"stall frame {k} is uniform; cannot locate spinner")
+        angles[k] = np.arctan2(
+            (wgt * yy).sum() / s - cy, (wgt * xx).sum() / s - cx
+        )
+    ang = np.unwrap(angles)
+    n = np.arange(t)
+    slope, intercept = np.polyfit(n, ang, 1)
+    resid = float(np.sqrt(np.mean((ang - (slope * n + intercept)) ** 2)))
+    return float(slope * fps / (2.0 * np.pi)), resid

@@ -5,11 +5,14 @@ p03_generateAvPvs.py:62-267).
 Two phases on one device: every eligible PVS's wo_buffer render
 (models/avpvs.create_avpvs_wo_buffer), then, once those bytes exist, the
 stalling pass of each PVS with buffering (models/avpvs.apply_stalling).
-Short and long tests both take it. The stage never takes a route the
-JAX package would not take, so it refuses, naming the ROADMAP item that
-ports the route, where the JAX package would go elsewhere: PC_FUSE_P04
-(the fused p04 fan-out, item 8), and more than one visible card without
-a `-g` pin (the batch route over the mesh, item 7).
+Short and long tests both take it. With PC_FUSE_P04 (models/fused) each
+PVS whose AVPVS is due also renders its stalling pass, every CPVS context
+and, with `-e` in the namespace, the preview from the same decode; the
+stall pass is then planned only for PVSes whose stall member degraded.
+The stage never takes a route the JAX package would not take, so it
+refuses, naming the ROADMAP item that ports the route, where the JAX
+package would go elsewhere: more than one visible card without a `-g`
+pin (the batch route over the mesh, item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..engine.jobs import JobRunner, device_stage_parallelism
 from ..io import bufpool
 from ..io import video as io_video
 from ..models import avpvs as av
+from ..models import fused as fused_mod
 from ..ops import cuda_kernels
 from ..parallel.distributed import local_shard
 from ..utils.device import device_count
@@ -32,17 +36,7 @@ from ..utils.log import get_logger
 from ..utils.runner import ChainError
 
 
-def _fused_p04_enabled() -> bool:
-    """The JAX package's PC_FUSE_P04 gate (models/fused.fused_p04_enabled)."""
-    # plan-exempt: (routing only: the stage refuses the fused route it does not have)
-    return os.environ.get("PC_FUSE_P04", "").strip().lower() in ("1", "true", "yes", "on")
-
-
 def _refuse_unported(cli_args) -> None:
-    if _fused_p04_enabled() and not cli_args.dry_run:
-        raise ChainError(
-            "p03: PC_FUSE_P04 asks for the fused p03+p04 fan-out, ROADMAP Queue A "
-            "item 8 of the PyTorch package; unset it to run the staged p03")
     if (not cli_args.dry_run and getattr(cli_args, "set_gpu_loc", -1) < 0
             and device_count() > 1):
         raise ChainError(
@@ -86,6 +80,25 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
     if avpvs_codec:
         os.environ["PC_AVPVS_CODEC"] = avpvs_codec
 
+    # fused p04 fan-out (PC_FUSE_P04, models/fused): PVSes whose AVPVS is
+    # due render the stalling pass and every CPVS context from the same
+    # decode. Dry runs plan exactly like the staged path, so they never
+    # engage it. The p04 knobs ride getattr defaults, as the p04 stage's
+    # namespace carries them.
+    fuse = fused_mod.fused_p04_enabled() and not cli_args.dry_run
+    fanouts: dict = {}
+
+    def _fanout(pvs):
+        fo = fused_mod.FusedFanout(
+            pvs, spinner_path=spinner,
+            rawvideo=bool(getattr(cli_args, "rawvideo", False)),
+            nonraw_crf=int(getattr(cli_args, "nonraw_crf", 17)),
+            preview=bool(getattr(cli_args, "lightweight_preview", False)),
+            device=device,
+        )
+        fanouts[pvs] = fo
+        return fo
+
     shard = local_shard(test_config.pvses)
     eligible = []
     for _pvs_id, pvs in shard:
@@ -97,22 +110,36 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
     launches0 = dict(cuda_kernels.LAUNCHES)
     pool0 = bufpool.DEFAULT_POOL.stats()
     opens0 = io_video.decoder_opens()
+    totals0 = av.RENDER_TOTALS.snapshot()
     t0 = time.perf_counter()
     for pvs in eligible:
         runner.add(av.create_avpvs_wo_buffer(
-            pvs, avpvs_src_fps=avpvs_src_fps, force_60_fps=force_60_fps, device=device))
+            pvs, avpvs_src_fps=avpvs_src_fps, force_60_fps=force_60_fps, device=device,
+            fanout=_fanout(pvs) if fuse else None))
     # two phases: stalling reads the wo_buffer outputs of phase one, and is
     # planned only now, so its plan input holds this run's bytes
     rendered = runner.run()
     opens1 = io_video.decoder_opens()
     for pvs in eligible:
+        fo = fanouts.get(pvs)
+        if fo is not None and fo.engaged and fo.stall_settled():
+            # the fused render produced and committed the stalled AVPVS
+            # (a degraded stall member falls through to the staged pass)
+            continue
         stall_runner.add(av.apply_stalling(pvs, spinner_path=spinner, device=device))
     stalled = stall_runner.run()
     if not cli_args.dry_run:
         pool = bufpool.DEFAULT_POOL.stats()
+        totals = av.RENDER_TOTALS.snapshot()
+        engaged = [fo for fo in fanouts.values() if fo.engaged]
         log.info("p03 summary: %s", json.dumps({
             "renders": len(rendered), "stalls": len(stalled),
             "seconds": round(time.perf_counter() - t0, 6),
+            **{k: round(totals[k] - totals0[k], 6) for k in totals},
+            "fused": {"fanouts": len(engaged),
+                      "members": sum(len(fo.member_jobs()) - len(fo.degraded)
+                                     for fo in engaged),
+                      "degraded": sum(len(fo.degraded) for fo in engaged)},
             **av.ffv1_effective_coding(),
             "launches": {k: v - launches0.get(k, 0) for k, v in cuda_kernels.LAUNCHES.items()},
             "decoder_opens": {"render": opens1 - opens0,

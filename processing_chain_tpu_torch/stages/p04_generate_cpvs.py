@@ -4,9 +4,9 @@ p04_generateCpvs.py:31-81).
 
 Every PVS's AVPVS is decoded once a viewing context and rendered on one
 device into its CPVS (models/cpvs.create_cpvs), plus the ProRes preview
-with `--lightweight-preview`. The stage refuses, naming ROADMAP Queue A
-item 7, where the JAX package would batch over the mesh: more than one
-visible card without a `-g` pin.
+with `--lightweight-preview`. As in the JAX package, p04 has no batch
+route: with several visible cards and no `-g` pin it renders on the
+default device (`select_device(-1)`, cuda:0).
 """
 
 from __future__ import annotations
@@ -24,9 +24,7 @@ from ..models import cpvs as cp
 from ..models.avpvs import set_default_fp_workers
 from ..ops import cuda_kernels
 from ..parallel.distributed import local_shard
-from ..utils.device import device_count
 from ..utils.log import get_logger
-from ..utils.runner import ChainError
 
 
 def run(cli_args, test_config: Optional[TestConfig] = None, device=None) -> TestConfig:
@@ -41,12 +39,6 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
             cli_args.test_config, cli_args.filter_src, cli_args.filter_hrc,
             cli_args.filter_pvs,
         )
-    if (not cli_args.dry_run and getattr(cli_args, "set_gpu_loc", -1) < 0
-            and device_count() > 1):
-        raise ChainError(
-            f"p04: {device_count()} cards are visible, where the JAX package "
-            "batches the PVS set over the (pvs, time) mesh: that route is ROADMAP "
-            "Queue A item 7 of the PyTorch package; pin one card with -g N")
     pvs_par = device_stage_parallelism(cli_args.parallelism, "p04")
     # previews run ProRes through the same intra-writeback pool as the
     # p03 renders: install the pool-aware fp default (no-op when pinned)
@@ -76,12 +68,12 @@ def _run(cli_args, test_config: Optional[TestConfig], device) -> TestConfig:
     launches0 = dict(cuda_kernels.LAUNCHES)
     pool0 = bufpool.DEFAULT_POOL.stats()
     opens0 = io_video.decoder_opens()
-    totals0 = cp.render_totals()
+    totals0 = cp.RENDER_TOTALS.snapshot()
     t0 = time.perf_counter()
     done = runner.run()
     if not cli_args.dry_run:
         pool = bufpool.DEFAULT_POOL.stats()
-        totals = cp.render_totals()
+        totals = cp.RENDER_TOTALS.snapshot()
         log.info("p04 summary: %s", json.dumps({
             "renders": len(done), "seconds": round(time.perf_counter() - t0, 6),
             **{k: round(totals[k] - totals0[k], 6) for k in totals},

@@ -125,9 +125,19 @@ ENV_INPUTS: dict[str, dict] = {
     },
     "PC_FUSE_P04": {
         "status": "exempt",
-        "reason": "routing only: the port's p03 stage refuses the fused "
-                  "p03+p04 fan-out it does not have yet (ROADMAP item 8); "
-                  "no artifact byte depends on the read",
+        "reason": "routing only: the fused p03+p04 fan-out (models/fused) "
+                  "renders the stalling pass and every CPVS from the "
+                  "quantized frames a decode of the lossless AVPVS would "
+                  "return, through the same transforms, compositor and "
+                  "writers as the staged route, and commits each member "
+                  "under the staged job's plan hash; decoded-identical "
+                  "(tests/test_torch_fused_file.py)",
+    },
+    "PC_PROFILE_DEVICE": {
+        "status": "exempt",
+        "reason": "observability only: forces the profile's torch.profiler "
+                  "device capture on or off (telemetry/profiling); no "
+                  "artifact byte depends on the read",
     },
     "LOCAL_RANK": {
         "status": "exempt",

@@ -30,6 +30,9 @@ from typing import Iterator, Optional
 from .events import (  # noqa: F401  (re-exports)
     EVENTS,
     EventLog,
+    EventLogHandler,
+    attach_log_handler,
+    detach_log_handler,
     emit,
     read_jsonl,
 )

@@ -21,6 +21,8 @@ METRICS: dict[str, str] = {
     "chain_bytes_encoded_total": "counter",
     "chain_stage_wall_seconds": "gauge",
     "chain_stage_items": "gauge",
+    # models/fused.py — fan-out members dropped to the staged pass
+    "chain_fused_members_degraded_total": "counter",
     # engine/prefetch.py — bounded-queue pipeline
     "chain_queue_depth": "histogram",
     "chain_pipeline_wait_seconds_total": "counter",
@@ -125,6 +127,8 @@ METRICS: dict[str, str] = {
 #: structured event-log record names
 EVENTS: frozenset = frozenset({
     "log_meta",        # head record of every events_<ts>.jsonl
+    "run_start",       # cli.py — a stage CLI run with telemetry on
+    "run_end",
     "stage_start",     # telemetry.stage_span
     "stage_end",
     "queue_depth",     # engine/prefetch.py — every 64th depth sample
@@ -132,7 +136,9 @@ EVENTS: frozenset = frozenset({
     "task_hard_timeout",  # telemetry/watchdog.py — hard threshold crossed
     "mesh_wave",       # parallel/meshobs.py — one wave step dispatched
     "mesh_compile",    # parallel/meshobs.py — first dispatch of a step
-    "log",             # a profile's missing device trace
+    "log",             # WARNING+ chain log records (EventLogHandler),
+                       # a profile's missing device trace
+    "fused_member_degraded",  # models/fused.py — member dropped mid-stream
     "job_planned",
     "job_skip",
     "job_redo",

@@ -848,7 +848,8 @@ class Profiler:
         self.monitor = ResourceMonitor(interval_s=interval_s)
         self._device = None  # the capture's DeviceProfiler
         self._started = False
-        #: None = auto (on when this process has initialised CUDA); True
+        #: None = auto (PC_PROFILE_DEVICE=1/0 forces it on/off, else on
+        #: when this process has initialised CUDA); True
         #: = always (a CPU-only torch.profiler capture where CUDA is not
         #: initialised); False = never — for a caller that already runs
         #: its own torch.profiler session (two profilers in one process
@@ -858,6 +859,12 @@ class Profiler:
     def _want_device_trace(self) -> bool:
         if self._device_trace is not None:
             return self._device_trace
+        # plan-exempt: (observability only: the device capture of a profile)
+        forced = os.environ.get("PC_PROFILE_DEVICE", "").strip().lower()
+        if forced in ("1", "on", "true"):
+            return True
+        if forced in ("0", "off", "false"):
+            return False
         # default: only where there is device activity worth the capture
         # overhead — CPU runs take the host-only profile
         import torch

@@ -34,6 +34,7 @@ import threading
 import traceback
 from typing import Optional
 
+from ..utils import lockdebug
 from .events import emit
 from .heartbeat import HEARTBEATS, HeartbeatRegistry
 
@@ -212,3 +213,26 @@ def active_stalls(registry: HeartbeatRegistry = HEARTBEATS) -> list[dict]:
     out.sort(key=lambda s: -s["beat_age_s"])
     return out
 
+
+_ACTIVE: Optional[Watchdog] = None  # guarded-by: _ACTIVE_LOCK
+_ACTIVE_LOCK = lockdebug.make_lock("watchdog_slot")
+
+
+def start_watchdog(soft_s: float = DEFAULT_SOFT_S,
+                   hard_s: Optional[float] = None) -> Watchdog:
+    """Process-wide watchdog slot (the stage CLI's entry point).
+    Restarting with new thresholds replaces the previous instance."""
+    global _ACTIVE
+    with _ACTIVE_LOCK:
+        if _ACTIVE is not None:
+            _ACTIVE.stop()
+        _ACTIVE = Watchdog(soft_s=soft_s, hard_s=hard_s).start()
+        return _ACTIVE
+
+
+def stop_watchdog() -> None:
+    global _ACTIVE
+    with _ACTIVE_LOCK:
+        if _ACTIVE is not None:
+            _ACTIVE.stop()
+            _ACTIVE = None

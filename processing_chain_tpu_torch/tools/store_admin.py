@@ -1,13 +1,13 @@
-"""Operator surface of the artifact store: `tools store-admin <cmd>`.
+"""Operator surface of the artifact store: `tools store <cmd>`.
 
-    tools store-admin ls       [--store DIR]             manifest inventory
-    tools store-admin verify   [--store DIR] [--deep] [--drop]
-    tools store-admin gc       [--store DIR] [--max-bytes N] [--dry-run]
-                               [--tmp-max-age S] [--min-object-age S]
-    tools store-admin pin      [--store DIR] HASH [--label TEXT]
-    tools store-admin unpin    [--store DIR] HASH
-    tools store-admin tier     [--store DIR] ls
-    tools store-admin tier     [--store DIR] promote|demote HASH
+    tools store ls       [--store DIR]             manifest inventory
+    tools store verify   [--store DIR] [--deep] [--drop]
+    tools store gc       [--store DIR] [--max-bytes N] [--dry-run]
+                         [--tmp-max-age S] [--min-object-age S]
+    tools store pin      [--store DIR] HASH [--label TEXT]
+    tools store unpin    [--store DIR] HASH
+    tools store tier     [--store DIR] ls
+    tools store tier     [--store DIR] promote|demote HASH
 
 The store root resolves like the pipeline's: --store DIR, else
 PC_STORE_DIR; the placement spec (hot/warm/cold tiers, docs/STORE.md
@@ -17,7 +17,8 @@ when corruption is found (counted in chain_store_corrupt_total); with
 exactly those artifacts. `gc` is store.gc.collect with a human report —
 the same run-report ergonomics as `tools run-report` (docs/STORE.md).
 
-The port's copy of processing_chain_tpu/tools/store_admin.py.
+The port's copy of processing_chain_tpu/tools/store_admin.py, routed as
+`tools store` (the reference's name) and as `tools store-admin`.
 """
 
 from __future__ import annotations
@@ -268,7 +269,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         metavar="SPEC",
                         help="hot/warm/cold placement spec "
                         "(default: PC_STORE_TIERS; see docs/STORE.md)")
-    parser = argparse.ArgumentParser(prog="tools store-admin", description=__doc__,
+    parser = argparse.ArgumentParser(prog="tools store", description=__doc__,
                                      parents=[common])
     sub = parser.add_subparsers(dest="cmd", required=True)
     sub.add_parser("ls", help="manifest inventory", parents=[common])

@@ -141,6 +141,18 @@ class Tracer:
         atomic_write_json(path, payload)
         return path
 
+    def log_summary(self) -> None:
+        log = get_logger()
+        agg = sorted(self.summary().items(), key=lambda kv: -kv[1]["total_s"])
+        if not agg:
+            return
+        log.info("timing summary (top %d by total):", min(len(agg), 15))
+        for name, e in agg[:15]:
+            log.info(
+                "  %-48s %5dx  total %8.3fs  max %7.3fs",
+                name[:48], e["count"], e["total_s"], e["max_s"],
+            )
+
 
 _tracer = Tracer()
 

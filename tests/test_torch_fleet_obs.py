@@ -695,7 +695,7 @@ def test_both_writers_fold_to_the_same_alert_set(control_roots):
     assert totals["regrets"] >= 1 and totals["evictions"] >= 1
 
 
-_CONTROL_TOOLS = ("chain-serve", "serve-admin", "store-admin", "store-heat",
+_CONTROL_TOOLS = ("chain-serve", "serve-admin", "store", "store-admin", "store-heat",
                   "store-tiers", "fleet-doctor", "fleet-top", "queue-crashcheck",
                   "trace", "serve-soak", "serve-chaos")
 
@@ -703,8 +703,9 @@ _CONTROL_TOOLS = ("chain-serve", "serve-admin", "store-admin", "store-heat",
 @pytest.mark.parametrize("tool", _CONTROL_TOOLS)
 def test_control_plane_tools_are_registered(tool, capsys):
     """Every control-plane tool answers `python -m processing_chain_tpu_torch
-    tools <name> --help` (the reference CLI's names, but `store-admin`
-    for the reference's `tools store`)."""
+    tools <name> --help` (the reference CLI's names; `store-admin` is kept
+    beside the reference's `tools store` as a second name of the same
+    tool)."""
     from processing_chain_tpu_torch import __main__ as entry
 
     with pytest.raises(SystemExit) as exc:

@@ -1,5 +1,5 @@
 """The fused fan-out of the port (models/fused: the stall replay, the
-context and preview pipelines, `FusedFanout`), the streaming gathers
+context and preview pipelines, `FanoutStream`), the streaming gathers
 (engine/prefetch) and the staged stalling loop (models/avpvs.
 pump_stalled) against the JAX package on the CPU.
 
@@ -260,14 +260,14 @@ def test_fused_and_staged_routes_match_each_other_and_jax(one_jax_device, pix_fm
         contexts.append((plan, jpp, PostProcessing(None, pp_data), raw))
     comp = tav.make_stall_compositor(pix_fmt, tav.DEFAULT_SPINNER, skipping, 64, device="cpu")
 
-    # fused: pump_ready -> FusedFanout on the quantized tensors
+    # fused: pump_ready -> FanoutStream on the quantized tensors
     kept, stall_w = [], ListWriter()
     ctx_w = [ListWriter() for _ in contexts]
     preview_w = ListWriter()
     pipes = [tfu._ContextPipeline(w, plan, pp, pix_fmt, FPS, raw, chunk)
              for w, (plan, _, pp, raw) in zip(ctx_w, contexts)]
     pipes.append(tfu._PreviewPipeline(preview_w, pix_fmt))
-    fan = tfu.FusedFanout(pipes, compositor=comp, stall_writer=stall_w, fps=FPS,
+    fan = tfu.FanoutStream(pipes, compositor=comp, stall_writer=stall_w, fps=FPS,
                           events=events, skipping=skipping, chunk=chunk)
 
     class Tee:
@@ -314,7 +314,7 @@ def test_fanout_without_buffering_feeds_the_pipelines_directly():
     chunks = _avpvs_chunks("yuv420p", seed=4)
     plan, jpp = jax_plan(MOBILE, "yuv420p", False, avpvs_h=DH)
     writer = ListWriter()
-    fan = tfu.FusedFanout([tfu._ContextPipeline(writer, plan, PostProcessing(None, MOBILE),
+    fan = tfu.FanoutStream([tfu._ContextPipeline(writer, plan, PostProcessing(None, MOBILE),
                                                 "yuv420p", FPS, False, T)])
     for c in chunks:
         fan.feed([torch.from_numpy(p) for p in c])
@@ -331,7 +331,7 @@ def test_fanout_abort_closes_every_writer_and_swallows_their_errors():
     stall_w, ctx_w = Failing(), Failing()
     plan, _ = jax_plan(PC60, "yuv420p", True, avpvs_h=DH)
     comp = tav.make_stall_compositor("yuv420p", None, True, 64, device="cpu")
-    fan = tfu.FusedFanout(
+    fan = tfu.FanoutStream(
         [tfu._ContextPipeline(ctx_w, plan, PostProcessing(None, PC60), "yuv420p", FPS, True, T)],
         compositor=comp, stall_writer=stall_w, fps=FPS, events=[[0.0, 0.1]], skipping=True)
     fan.feed([torch.from_numpy(p) for p in _avpvs_chunks("yuv420p", n_chunks=1)[0]])

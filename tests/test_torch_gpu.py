@@ -477,7 +477,7 @@ def test_fused_fanout_cuda_equals_cpu(cuda):
                                         "yuv420p", 60.0, False, 8),
                  fused._ContextPipeline(mob_w, _plan(_MOBILE, False),
                                         PostProcessing(None, _MOBILE), "yuv420p", 60.0, False, 8)]
-        fan = fused.FusedFanout(pipes, compositor=comp, stall_writer=stall_w, fps=60.0,
+        fan = fused.FanoutStream(pipes, compositor=comp, stall_writer=stall_w, fps=60.0,
                                 events=events, chunk=8)
         kept = []
 
@@ -1138,3 +1138,98 @@ def test_create_cpvs_and_preview_on_the_card_equal_the_plain_route(cuda, tmp_pat
     assert preview["frames"] == n and preview["encoder_input_max_err"] == 0
     assert cpvs_launches == 2 * got["chunks"]
     assert launches == cpvs_launches + 2 * preview["chunks"]
+
+
+_FUSED_DB = """\
+databaseId: {db_id}
+syntaxVersion: 6
+type: short
+qualityLevelList:
+  Q0: {{index: 0, videoCodec: h264, videoBitrate: 300, width: 128, height: 72, fps: original}}
+codingList:
+  VC01: {{type: video, encoder: libx264, passes: 1, iFrameInterval: 2}}
+srcList:
+  SRC000: SRC000.avi
+hrcList:
+  HRC000: {{videoCodingId: VC01, eventList: [[Q0, 2]]}}
+  HRC001: {{videoCodingId: VC01, eventList: [[Q0, 1], [stall, 0.5], [Q0, 1]]}}
+pvsList:
+  - {db_id}_SRC000_HRC000
+  - {db_id}_SRC000_HRC001
+postProcessingList:
+  - {{type: pc, displayWidth: 256, displayHeight: 144, codingWidth: 256, codingHeight: 144}}
+"""
+
+
+def _fused_database(root: str) -> str:
+    """_FUSED_DB with its SRC (128x72 yuv420p, 60 fps, 2 s, FLAC stereo)
+    and its segments written as FFV1+FLAC (the card's libav has no H.264
+    encoder; the demuxer reads the bytes, not the name)."""
+    import chip_smoke as cs
+    from processing_chain_tpu_torch.config import TestConfig
+    from processing_chain_tpu_torch.io.video import VideoWriter
+
+    path = cs.write_database(root, "P2STR21", _FUSED_DB, {})
+    rng = np.random.default_rng(21)
+    n, rate = 120, 48000
+    planes = [rng.integers(0, 256, (n, h, w)).astype(np.uint8)
+              for h, w in ((72, 128), (36, 64), (36, 64))]
+    tone = (np.sin(np.arange(2 * rate) * 0.05)[:, None] * 8000).astype(np.int16).repeat(2, 1)
+
+    def write(dst, lo, hi):
+        with VideoWriter(dst + ".tmp.avi", "ffv1", 128, 72, "yuv420p", (60, 1),
+                         audio_codec="flac", sample_rate=rate, channels=2) as w:
+            w.write_audio(tone[lo * rate // 60:hi * rate // 60])
+            w.write_batch(*(p[lo:hi] for p in planes))
+        os.replace(dst + ".tmp.avi", dst)
+
+    src_dir = os.path.join(os.path.dirname(path), "srcVid")
+    write(os.path.join(src_dir, "SRC000.avi"), 0, n)
+    tc = TestConfig(path)
+    for seg in tc.segments:
+        os.makedirs(os.path.dirname(seg.file_path), exist_ok=True)
+        lo = int(seg.start_time) * 60
+        write(seg.file_path, lo, lo + int(round(float(seg.duration) * 60)))
+    return path
+
+
+def test_fused_p03_on_the_card_writes_the_cpu_files(cuda, tmp_path, monkeypatch):
+    """`p03` with PC_FUSE_P04 on cuda:0 (256x144 canvas): the AVPVS, the
+    stalled AVPVS and the PC UYVY CPVS decode identical to the CPU route's
+    run of the same CLI, with one decoder open a PVS and no stall pass;
+    3 resize + 1 SI + 1 TI launches a canvas chunk and 2 resize (the
+    420->422 lift) a chunk the PC context takes."""
+    import shutil
+
+    import chip_smoke as cs
+    from processing_chain_tpu_torch.cli import main as port_main
+    from processing_chain_tpu_torch.config import TestConfig
+
+    base = _fused_database(str(tmp_path / "base"))
+    for name in ("PC_FFV1_WORKERS", "PC_FFV1_THREADS"):
+        monkeypatch.setenv(name, "2")
+    monkeypatch.setenv("PC_FUSE_P04", "1")
+    copies = {}
+    for tag, dev in (("card", cuda), ("cpu", "cpu")):
+        shutil.copytree(os.path.dirname(base), tmp_path / tag / "P2STR21")
+        copies[tag] = str(tmp_path / tag / "P2STR21" / os.path.basename(base))
+        ck.reset_launches()
+        assert port_main(["p03", "-c", copies[tag]], device=dev) == 0
+        if tag == "card":
+            launches = dict(ck.LAUNCHES)
+    card, cpu = (TestConfig(copies[t]) for t in ("card", "cpu"))
+    n_out = 0
+    for pvs_id, pvs in card.pvses.items():
+        outs = [pvs.get_avpvs_file_path(), pvs.get_cpvs_file_path("pc")]
+        if pvs.has_buffering():
+            outs.append(pvs.get_avpvs_wo_buffer_file_path())
+        for out in outs:
+            rel = os.path.relpath(out, os.path.dirname(copies["card"]))
+            assert cs.same_media(os.path.join(os.path.dirname(copies["cpu"]), rel), out)
+        n_out += len(cs.decoded_avpvs(pvs)["planes"][0])
+    # HRC000: 120 canvas frames, 2 chunks, each lifted once; HRC001: its
+    # first 60-frame segment, 1 canvas chunk, then 90 stalled frames in 2
+    assert launches["resize_frames_fused"] == 3 * 3 + 2 * (2 + 2)
+    assert launches["si_frames_fused"] == launches["ti_frames_fused"] == 3
+    assert n_out == 120 + 90
+    assert cpu.pvses.keys() == card.pvses.keys()

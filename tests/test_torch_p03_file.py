@@ -389,36 +389,52 @@ def test_p03_adopts_pre_store_outputs(short_db, tmp_path, main_log):
 @pytest.mark.parametrize("case", ["fused", "cards", "observability", "no_cuda"])
 def test_p03_refuses_routes_it_does_not_have(short_db, tmp_path, monkeypatch, main_log, case):
     """The stage never takes a route the JAX package would not take:
-    PC_FUSE_P04 (item 8) and several cards (item 7) are refused with the
-    item named, as are the observability flags (item 6); without a device
-    argument the CLI runs on cuda:0 and refuses a host without CUDA."""
+    several cards (item 7) are refused with the item named; without a
+    device argument the CLI runs on cuda:0 and refuses a host without
+    CUDA. The routes ported since run: PC_FUSE_P04 writes the fused
+    members (the stalled AVPVS and the CPVS) from p03 alone, and the
+    observability flags write their artifacts."""
     ty = _copy(short_db, tmp_path / "t")
     args, device, code, message = ["p03", "-c", ty], "cpu", 1, None
+    db = os.path.dirname(ty)
     if case == "fused":
         monkeypatch.setenv("PC_FUSE_P04", "1")
-        message = "item 8"
-    elif case == "cards":
+        args += ["--filter-pvs", PVSES[2]]
+        assert port_main(args, device=device) == 0
+        assert sorted(os.listdir(os.path.join(db, "cpvs"))) == [f"{PVSES[2]}_PC.avi"]
+        assert f"{PVSES[2]}.avi" in os.listdir(os.path.join(db, "avpvs"))
+        assert not any("item 8" in r.getMessage() for r in main_log.records)
+        return
+    if case == "observability":
+        out = tmp_path / "tm"
+        args += ["--filter-pvs", PVSES[0], "--telemetry", str(out)]
+        assert port_main(args, device=device) == 0
+        kinds = sorted(n.split("_")[0] + "_" + n.rsplit(".", 1)[-1] for n in os.listdir(out)
+                       if os.path.isfile(out / n))
+        assert kinds == ["events_jsonl", "metrics_json", "metrics_prom", "trace_json"]
+        assert not any("item 6" in r.getMessage() for r in main_log.records)
+        return
+    if case == "cards":
         monkeypatch.setattr(tstage, "device_count", lambda: 2)
         message = "item 7"
-    elif case == "observability":
-        args += ["--telemetry", str(tmp_path / "tm")]
-        code, message = 2, "item 6"
     else:
         if __import__("torch").cuda.is_available():
             pytest.skip("this host has CUDA; the default device resolves")
         device, message = None, "CUDA is not available"
     assert port_main(args, device=device) == code
     assert any(message in r.getMessage() for r in main_log.records)
-    assert os.listdir(os.path.join(os.path.dirname(ty), "avpvs")) == []
+    assert os.listdir(os.path.join(db, "avpvs")) == []
 
 
-@pytest.mark.parametrize("kind", ["short", "long"])
+@pytest.mark.parametrize("kind", ["short", "long", "fused"])
 def test_p03_process_imports_no_jax(short_db, long_db, tmp_path, kind):
     """A p03 run of the port, as a process on the CPU, imports no jax and
-    nothing of the JAX package, over the short and the long database."""
+    nothing of the JAX package, over the short and the long database, and
+    on the fused route (PC_FUSE_P04) over the long one."""
     ty = _copy(short_db if kind == "short" else long_db, tmp_path / "t")
     pvs_id = PVSES[2] if kind == "short" else LONG_PVS
-    code = ("import sys\n"
+    code = ("import os, sys\n"
+            f"os.environ['PC_FUSE_P04'] = {'1' if kind == 'fused' else '0'!r}\n"
             "from processing_chain_tpu_torch.cli import main\n"
             f"assert main(['p03', '-c', {ty!r}, '--filter-pvs', {pvs_id!r}],"
             " device='cpu') == 0\n"
@@ -431,6 +447,8 @@ def test_p03_process_imports_no_jax(short_db, long_db, tmp_path, kind):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "FORBIDDEN []" in proc.stdout
     assert os.path.isfile(os.path.join(os.path.dirname(ty), "avpvs", f"{pvs_id}.avi"))
+    assert os.path.isfile(os.path.join(os.path.dirname(ty), "cpvs", f"{pvs_id}_PC.avi")) == \
+        (kind == "fused")
 
 
 # ------------------------------------------------------------------ long tests

@@ -218,8 +218,12 @@ its end with its seconds:
      the checkout's 9p mount): (a) the libav io/medialib
      bound (paths, versions, the layout entries its round trips passed),
      which of h264, hevc, vp9, av1, aac and flac it decodes (h264
-     required; an absent one is named) and which of the rawvideo, v210
-     and prores_ks encoders it has, and each committed fixture
+     required; an absent one is named), which of the rawvideo, v210
+     and prores_ks encoders it has, which of p01's (libvpx-vp9, libx265,
+     libaom-av1, libx264, libopus, aac), what the two-pass round trips at
+     load found (libvpx-vp9, libaom-av1), whether the AVBSFContext layout
+     entries passed and which of p02's bitstream filters it has, and each
+     committed fixture
      (processing_chain_tpu_torch/assets/media) decoded through the port's
      VideoReader to the per-plane md5s the JAX reader recorded, its
      LibavProber width, height, pix_fmt, frame rate, frame count and
@@ -283,12 +287,34 @@ its end with its seconds:
      its wo_buffer AVPVS, .siti.csv and stalled AVPVS equal to (b)'s, its
      PC UYVY CPVS to (f)'s (byte-equal, else decoded-equal), and a p04
      process over the copy afterwards plans no job; frames/s and the
-     decode, device and writeback seconds beside (b)'s and (f)'s. The (b)
-     and (c) CLI calls run first; then (e)'s and (f)'s processes start
-     together and run beside the checks of (b)-(d), (g)'s once (e) is
-     checked, beside (f)'s; their own checks follow. The launch counts
-     join `paths` as p03_file, p03_file_10bit, p03_file_long, p04_file and
-     p03_file_fused
+     decode, device and writeback seconds beside (b)'s and (f)'s; (h)
+     p01 and p00 from a source video: P2STR180, a short test over (b)'s
+     SRC000 and (c)'s SRC001 (rungs 640x360 at 30 fps, a drop from 60,
+     and 1280x720 at the SRC's rate; a 0.5 s stall between HRC000's two
+     1 s segments; the 10-bit SRC at 720p; the pc context at 1920x1080),
+     coded with the first of libvpx-vp9, libx265, libaom-av1 and libx264
+     that opens (two passes where the encoder keeps its own statistics or
+     its round trip at load passed; SRC000 without audio where no aac
+     encoder is bound): the port's p01 stage in this process on cuda:0
+     and again on the CPU, models.segments' writer replaced by a
+     recording writer: every u8 encoder-input plane's sha1 equal (u16
+     within a code value), every segment's frame count the plan's, 3
+     resize launches a chunk on the card; then, where an encoder of the
+     four opens, `python -m processing_chain_tpu_torch p00` as a process:
+     every segment probes at its planned geometry, pixel format, rate and
+     frame count, the four metadata files exist with the segments' frame
+     counts and the HRC's .buff events, each AVPVS and PC CPVS equals the
+     port's render of the same segment files on the CPU in this process,
+     p01's, p03's and p04's launches as planned, and a warm p00 in this
+     process plans no job (else one line says that no encoder opens).
+     (h)'s p01 runs beside (b)'s p03 process; (b)'s and (c)'s CLI calls
+     end before (e)'s and (f)'s processes start together and run beside
+     the checks of (b)-(d); (g)'s and (h)'s start once (e) is checked,
+     beside (f)'s, and the CPU's reference render of (h) runs in a thread
+     once (h)'s process has ended; their own checks follow. The launch
+     counts join `paths` as p03_file, p03_file_10bit, p03_file_long,
+     p04_file, p03_file_fused, p01_file (the in-process card run) and,
+     where its process ran, p00_file
 `--steadiness N` runs no phase: it repeats phase 16's three wall-clock
 gates N times as processes (the pack bench's e2e tail, the chaos self-test's
 and the chaos run's 50 ms warm p50), in turns over this checkout and each
@@ -450,6 +476,37 @@ def log(msg: str) -> None:
 #: where the wall-clock gates' state lives: tmpfs on the card's host, not
 #: the checkout's mount (PERF.md §6, PR 17's diagnosis)
 RAM_BASE = "/dev/shm"
+
+
+def host_load() -> str:
+    """The host's load average, its runnable/total processes, and the
+    processes this run started that still live, by name (read from /proc;
+    information only): what shares the CPU with a wall-clock gate."""
+    try:
+        with open("/proc/loadavg") as f:
+            fields = f.read().split()
+        parent, name = {}, {}
+        for entry in os.listdir("/proc"):
+            if not entry.isdigit():
+                continue
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            head, _, tail = stat.rpartition(")")
+            parent[int(entry)] = int(tail.split()[1])
+            name[int(entry)] = head.partition("(")[2]
+        mine, frontier = [], [os.getpid()]
+        while frontier:
+            kids = [c for c, p in parent.items() if p == frontier[-1]]
+            frontier.pop()
+            mine += kids
+            frontier += kids
+        names = sorted(name[c] for c in mine)
+        return f"load {fields[0]} (1 min), runnable/processes {fields[3]}, live children {names}"
+    except (OSError, ValueError, IndexError) as exc:
+        return f"load unread ({exc})"
 
 
 def mount_of(path: str) -> tuple:
@@ -3061,6 +3118,7 @@ def control_soak(workdir: str) -> dict:
     synthetic executor), held to ALERTS_r20.json's invariants."""
     root = os.path.join(workdir, "soak")
     out = os.path.join(workdir, "soak.json")
+    log(f"phase 15 (a): host before the soak: {host_load()}")
     t0 = time.perf_counter()
     _tool(["fleet-doctor", "--soak", "--root", root, "--out", out], timeout=180)
     soak_s = time.perf_counter() - t0
@@ -3071,9 +3129,13 @@ def control_soak(workdir: str) -> dict:
     breach = report["phases"]["breach"]["scale"]
     recovery = report["phases"]["recovery"]["scale"]
     lifecycle = {k: v["state"] for k, v in report["alerts"]["lifecycle"].items()}
+    # an alert's seconds from firing to resolving: about one control
+    # tick's spacing for the regret step, against the 0.3 s fast window
+    durations = {k: v.get("duration_s") for k, v in report["alerts"]["lifecycle"].items()}
     log(f"phase 15 (a): breach soak in {soak_s:.1f} s: ok {report['ok']}, failures "
         f"{report['failures']}, control alerts {control['alerts_fired']}, fired "
-        f"{report['alerts']['fired']}, lifecycle {lifecycle}, scale under breach "
+        f"{report['alerts']['fired']}, lifecycle {lifecycle}, firing seconds {durations}, "
+        f"scale under breach "
         f"{breach['current']} -> {breach['desired']}, after recovery "
         f"{recovery['replicas_current']} -> {recovery['replicas_desired']} {recovery['reasons']}")
     require(report["ok"] is True and report["failures"] == [], f"soak: {report['failures']}")
@@ -3522,6 +3584,7 @@ def harness_chaos(base: str, smi: str) -> dict:
         f"{report['warm_request_ms']['p50']} ms, churn {report['churn_throughput_units_per_s']} "
         f"units/s; each replica's seconds to /healthz {report['replica_healthz_s']} ({smi})")
     self_root = os.path.join(base, "chaos_self")
+    log(f"phase 16 (c): host before the self-test: {host_load()}")
     self_test, self_wall = _tool_json(["serve-chaos", "--self-test", "--root", self_root],
                                       timeout=300)
     require(all(self_test["classes"].values()), f"chaos self-test: {self_test}")
@@ -3764,6 +3827,11 @@ postProcessingList:
 """
 MEDIA_CODECS = ("h264", "hevc", "vp9", "av1", "aac", "flac")
 P04_ENCODERS = ("rawvideo", "v210", "prores_ks")  # PC UYVY422, PC 10-bit, the preview
+#: p01's video encoders (in the order (h) picks one) and audio encoders
+P01_ENCODERS = ("libvpx-vp9", "libx265", "libaom-av1", "libx264")
+P01_AUDIO = ("libopus", "aac")
+#: the bitstream filters p02's exact frame sizes take (VP9 goes through IVF)
+P02_FILTERS = ("h264_mp4toannexb", "hevc_mp4toannexb")
 FIXTURES = os.path.join(ROOT, "processing_chain_tpu_torch", "assets", "media")
 
 
@@ -3780,6 +3848,14 @@ def media_binding() -> dict:
     require(decoders["h264"], "the bound libav has no h264 decoder")
     encoders = medialib.codecs(P04_ENCODERS, encoder=True)
     log(f"media boundary encoders p04 needs: {json.dumps(encoders)}")
+    p01_encoders = medialib.codecs(P01_ENCODERS + P01_AUDIO, encoder=True)
+    twopass = medialib.twopass()
+    bsf_entries = [c for c in b["checks"] if c.startswith("AVBSFContext.")]
+    filters = medialib.bitstream_filters(P02_FILTERS)
+    log(f"media boundary encoders p01 needs: {json.dumps(p01_encoders)}; two-pass round trips "
+        f"at load: {json.dumps(twopass)}; bitstream filter entries "
+        f"{bsf_entries or 'not checked (no null or h264_mp4toannexb filter)'}, filters p02 "
+        f"needs: {json.dumps(filters)}")
     with open(os.path.join(FIXTURES, "fixtures.json")) as f:
         record = json.load(f)
     prober = io_probe.LibavProber()
@@ -3814,7 +3890,9 @@ def media_binding() -> dict:
             f"{json.dumps(differ) if differ else 'none'}")
         out[name] = {"decoded": True, "frames": len(md5), "probe_differs": differ}
     return {"version": medialib.version(), "checks": len(b["checks"]),
-            "decoders": decoders, "encoders": encoders, "fixtures": out}
+            "decoders": decoders, "encoders": encoders, "p01_encoders": p01_encoders,
+            "twopass": twopass, "bsf_entries": bsf_entries, "filters": filters,
+            "fixtures": out}
 
 
 def media_tone(n: int, seed: int) -> np.ndarray:
@@ -3865,20 +3943,28 @@ class StageProcess:
                                          {**os.environ, **env})
 
     def finish(self, timeout: float = 600) -> tuple:
+        summaries, wall = self.finish_stages([self.stage], timeout)
+        return summaries[self.stage], wall
+
+    def finish_stages(self, stages: list, timeout: float = 600) -> tuple:
+        """Wait for the process: ({stage: its summary line} for each of
+        `stages` (p00 logs p01's, p03's and p04's), wall seconds)."""
         rc = self.proc.wait(timeout=timeout)
         wall = time.perf_counter() - self.t0
         with open(self.err_path) as f:
             err = f.read()
-        stage = self.stage
-        require(rc == 0, f"{stage} CLI exit {rc}: {err[-3000:]}")
-        lines = [ln for ln in err.splitlines() if f"{stage} summary: " in ln]
-        require(len(lines) == 1, f"{stage} CLI printed no summary: {err[-2000:]}")
-        summary = json.loads(lines[0].split(f"{stage} summary: ", 1)[1])
+        require(rc == 0, f"{self.stage} CLI exit {rc}: {err[-3000:]}")
         # the process's seconds before its stage started, as the CLI logs them
-        start = [ln for ln in err.splitlines() if f"{stage} start-up: " in ln]
-        summary["startup"] = json.loads(start[0].split(f"{stage} start-up: ", 1)[1]) if start \
-            else None
-        return summary, wall
+        start = [ln for ln in err.splitlines() if f"{self.stage} start-up: " in ln]
+        startup = json.loads(start[0].split(f"{self.stage} start-up: ", 1)[1]) if start else None
+        out = {}
+        for stage in stages:
+            lines = [ln for ln in err.splitlines() if f"{stage} summary: " in ln]
+            require(len(lines) == 1, f"{self.stage} CLI printed {len(lines)} {stage} summaries: "
+                    f"{err[-2000:]}")
+            out[stage] = json.loads(lines[0].split(f"{stage} summary: ", 1)[1])
+            out[stage]["startup"] = startup
+        return out, wall
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -4072,7 +4158,17 @@ def run_media_db(dev, root: str, smi: str) -> dict:
     plain8 = [f"{MEDIA_DB}_SRC000_HRC000", f"{MEDIA_DB}_SRC000_HRC001"]
     frozen = f"{MEDIA_DB}_SRC000_HRC002"
     ten = f"{MEDIA_DB}_SRC001_HRC000"
-    summary, wall = stage_cli("p03", yaml_path, plain8 + [frozen], log_dir=root)
+    # (h)'s database, and its p01 in this process beside (b)'s p03 process
+    p00_db = p00_database(root, yaml_path, clip)
+    b_run = StageProcess("p03", yaml_path, plain8 + [frozen], log_dir=root)
+    try:
+        t_p01 = time.perf_counter()
+        p01 = p01_in_process(dev, p00_db, root, smi)
+        log(f"phase 18 (h), p01 in this process beside (b)'s p03 process: "
+            f"{time.perf_counter() - t_p01:.1f} s")
+        summary, wall = b_run.finish()
+    finally:
+        b_run.stop()
     log(f"p03 CLI (u8): {json.dumps(summary)}; wall {wall:.2f} s")
     launches = summary["launches"]
     # HRC000's 120 frames; HRC001's and HRC002's first segment, 60 each
@@ -4101,7 +4197,7 @@ def run_media_db(dev, root: str, smi: str) -> dict:
     # (e)'s p03 process (its own database) and (f)'s p04 process (over
     # (b)'s and (c)'s AVPVS files) run beside the checks of (b)-(d)
     long_run = media_long_start(root, clip, tone)
-    p04_run = fused_run = readers = None
+    p04_run = fused_run = readers = p00_run = p00_ref = None
     try:
         # (c)'s `tools run-report` and `tools chain-profile` processes
         readers = ObsReaders(obs)
@@ -4145,16 +4241,29 @@ def run_media_db(dev, root: str, smi: str) -> dict:
         t_long = time.perf_counter()
         long_test = media_long(dev, long_run, smi)
         log(f"phase 18 (e), the long test: {time.perf_counter() - t_long:.1f} s after (b)-(d)")
-        # (g)'s fused p03 process runs beside (f)'s wait and checks
+        # (g)'s fused p03 process and (h)'s p00 process run beside (f)'s
+        # wait and checks, and the CPU's reference render of (h)'s
+        # segments in a thread of this process once its p00 has ended
         fused_run = fused_start(root, yaml_path, plain8[1])
+        p00_run = p00_start(root, p00_db)
+        p00_ref = P00Reference(p00_db, p00_run, root) if p00_run else None
         t_p04 = time.perf_counter()
         p04 = p04_run.finish(dev, smi)
         log(f"phase 18 (f), p04: {time.perf_counter() - t_p04:.1f} s after (e)")
         t_fused = time.perf_counter()
         fused_p03 = fused_finish(dev, fused_run, tc, summary, p04["summary"], smi)
         log(f"phase 18 (g), fused p03: {time.perf_counter() - t_fused:.1f} s after (f)")
+        t_p00 = time.perf_counter()
+        p00 = p00_finish(dev, p00_db, p00_run, p00_ref, p01, smi) if p00_run else None
+        log(f"phase 18 (h), p00: {time.perf_counter() - t_p00:.1f} s after (g)")
     finally:
         long_run["run"].stop()
+        if p00_ref is not None:
+            p00_ref.cancelled = True
+        if p00_run is not None:
+            p00_run["run"].stop()
+        if p00_ref is not None:
+            p00_ref.thread.join()
         if p04_run is not None:
             p04_run.stop()
         if fused_run is not None:
@@ -4172,6 +4281,8 @@ def run_media_db(dev, root: str, smi: str) -> dict:
             "launches_long": long_test["summary"]["launches"],
             "launches_p04": p04["summary"]["launches"],
             "launches_fused": fused_p03["summary"]["launches"],
+            "p01": p01, "p00": p00, "launches_p01": p01["launches"],
+            "launches_p00": p00["launches"] if p00 else None,
             "write_s": write_s}
 
 
@@ -4576,9 +4687,10 @@ def fused_start(root: str, yaml_path: str, pvs_id: str) -> dict:
             "run": StageProcess("p03", copy, [pvs_id], log_dir=root, env={"PC_FUSE_P04": "1"})}
 
 
-def same_media(a: str, b: str) -> str:
+def same_media(a: str, b: str, tol: int = 0) -> str:
     """"bytes" when the two files are byte-identical, "decoded" when their
-    decoded planes and audio are, else the run fails."""
+    decoded planes and audio are, "within <tol>" when the planes are
+    within `tol` code values (and the audio equal), else the run fails."""
     if filecmp.cmp(a, b, shallow=False):
         return "bytes"
     n = len(medialib.scan_packets(a, "video")["size"])  # a packet a frame
@@ -4587,8 +4699,10 @@ def same_media(a: str, b: str) -> str:
         ta, tb = FrameTaker(ra.iter_chunks(avpvs.CHUNK)), FrameTaker(rb.iter_chunks(avpvs.CHUNK))
         for lo in range(0, n, avpvs.CHUNK):
             t = min(avpvs.CHUNK, n - lo)
-            require(all(np.array_equal(p, q) for p, q in zip(ta.take(t), tb.take(t))),
-                    f"{b}: frames {lo}..{lo + t - 1} differ from {a}")
+            pairs = list(zip(ta.take(t), tb.take(t)))
+            err = 0 if all(np.array_equal(p, q) for p, q in pairs) else max(
+                int(np.abs(p.astype(np.int32) - q.astype(np.int32)).max()) for p, q in pairs)
+            require(err <= tol, f"{b}: frames {lo}..{lo + t - 1} differ from {a} by {err}")
     try:
         aa = medialib.decode_audio_s16(a)
     except medialib.MediaError:
@@ -4599,7 +4713,7 @@ def same_media(a: str, b: str) -> str:
         ab = None
     require((aa is None) == (ab is None) and (aa is None or (
         aa[1] == ab[1] and np.array_equal(aa[0], ab[0]))), f"{b}: audio differs from {a}")
-    return "decoded"
+    return "decoded" if tol == 0 else f"within {tol}"
 
 
 def fused_finish(dev, started: dict, tc, staged_p03: dict, staged_p04: dict, smi: str) -> dict:
@@ -4671,6 +4785,394 @@ def fused_finish(dev, started: dict, tc, staged_p03: dict, staged_p04: dict, smi
     return {"summary": summary, "wall_s": wall, "equal": equal, "frames": frames,
             "frames_per_s": frames / secs, "pc_chunks": pc_chunks, "canvas_chunks": canvas,
             "p04_after": p04, "check_s": check_s}
+
+
+# phase 18 (h): p01 and p00 from a source video
+
+P00_DB = "P2STR180"  # the database id syntax takes digits only (P2STR18E does not parse)
+#: each of p01's encoders: its video codec and the coding fields that keep
+#: the 720p encode short (the database's libvpx speed goes up to 4)
+P01_CODINGS = {"libvpx-vp9": ("vp9", "speed: 4"), "libx265": ("h265", "preset: ultrafast"),
+               "libaom-av1": ("av1", "cpuUsed: 8"), "libx264": ("h264", "preset: ultrafast")}
+# a short test over phase 18's SRCs: the 640x360 rung at 30 fps (a drop
+# from 60), the 1280x720 rung at the SRC's rate, a 0.5 s stall between
+# HRC000's two 1 s segments, the 10-bit SRC at 720p; the pc context at
+# 1920x1080 (the P.NATS HD context)
+P00_YAML = """\
+databaseId: {db_id}
+syntaxVersion: 6
+type: short
+qualityLevelList:
+  Q0: {{index: 0, videoCodec: {codec}, videoBitrate: 1000, width: 640, height: 360, fps: 30}}
+  Q1: {{index: 1, videoCodec: {codec}, videoBitrate: 3000, width: 1280, height: 720, fps: original}}
+codingList:
+  VC01: {{type: video, encoder: {encoder}, passes: {passes}, iFrameInterval: 1, {extra}}}
+srcList:
+  SRC000: SRC000.avi
+  SRC001: SRC001.avi
+hrcList:
+  HRC000: {{videoCodingId: VC01, eventList: [[Q0, 1], [stall, 0.5], [Q1, 1]]}}
+  HRC001: {{videoCodingId: VC01, eventList: [[Q1, 1]]}}
+pvsList:
+  - {db_id}_SRC000_HRC000
+  - {db_id}_SRC001_HRC001
+postProcessingList:
+  - {{type: pc, displayWidth: 1920, displayHeight: 1080, codingWidth: 1920, codingHeight: 1080}}
+"""
+
+
+class RecordingWriter:
+    """Stands in for models.segments' VideoWriter in (h)'s in-process p01
+    runs: `record` maps each output path to the sha1 of each plane of each
+    frame it is handed, the chunks it took and, for planes deeper than 8
+    bits, the planes themselves; an empty file stands at the path (the
+    encode removes its pass-1 temporary)."""
+
+    record: dict = {}
+
+    def __init__(self, path: str, codec: str, width: int, height: int,
+                 pix_fmt: str = "yuv420p", **_kw) -> None:
+        self.path = path
+        self.rows = self.record.setdefault(path, {"frames": [], "chunks": 0, "planes": [],
+                                                  "geometry": [width, height, pix_fmt]})
+        fsio.atomic_write_text(path, "")
+
+    def write_batch(self, *planes) -> None:
+        arrs = [np.ascontiguousarray(p) for p in planes]
+        self.rows["chunks"] += 1
+        if arrs[0].dtype != np.uint8:
+            self.rows["planes"].append([a.copy() for a in arrs])
+        for i in range(arrs[0].shape[0]):
+            self.rows["frames"].append(tuple(hashlib.sha1(a[i].tobytes()).hexdigest()
+                                             for a in arrs))
+
+    def write_audio(self, samples) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def link_tree(src: str, dst: str, subs=("srcVid",)) -> str:
+    """A copy of a database folder's YAML and `subs` under `dst`, its
+    files hard-linked (one tmpfs); returns the copy's YAML path."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        path = os.path.join(src, name)
+        if os.path.isfile(path):
+            shutil.copyfile(path, os.path.join(dst, name))
+    for sub in subs:
+        shutil.copytree(os.path.join(src, sub), os.path.join(dst, sub), copy_function=os.link)
+    return os.path.join(dst, os.path.basename(src) + ".yaml")
+
+
+def p01_inputs(yaml_path: str, device) -> dict:
+    """The port's p01 stage in this process on `device` over the database,
+    models.segments' writer replaced by RecordingWriter: {"inputs": {path
+    relative to the database: record}, "launches", "seconds"}."""
+    from processing_chain_tpu_torch import cli as stage_cli_mod
+
+    RecordingWriter.record = {}
+    saved = segments.VideoWriter
+    segments.VideoWriter = RecordingWriter
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = stage_cli_mod.main(["p01", "-c", yaml_path, "-p", "3", "--skip-requirements"],
+                                device=device)
+    finally:
+        segments.VideoWriter = saved
+    launches, secs = dict(ck.LAUNCHES), time.perf_counter() - t0
+    require(rc == 0, f"p01 in-process on {device}: exit {rc}")
+    root = os.path.dirname(yaml_path)
+    return {"inputs": {os.path.relpath(p, root): r for p, r in RecordingWriter.record.items()},
+            "launches": launches, "seconds": secs}
+
+
+def p00_database(root: str, media_yaml: str, clip: list) -> dict:
+    """(h)'s database: the first of P01_ENCODERS the bound libav has that
+    opens both yuv420p and yuv420p10le (else the first that opens
+    yuv420p, its 10-bit PVS then left out of the process), two passes where
+    the encoder keeps its own statistics (x264, x265) or its round trip at
+    load passed; SRC000 and SRC001 are phase 18's files, SRC000 without
+    its audio where the bound libav has no aac encoder (the segment
+    container's). None when no encoder of the four is bound."""
+    have = medialib.codecs(P01_ENCODERS + ("aac",), encoder=True)
+    opens = {}
+    for enc in P01_ENCODERS:
+        if not have[enc]:
+            continue
+        for pix in ("yuv420p", "yuv420p10le"):
+            probe = os.path.join(root, f"open_{enc}_{pix}.mkv")
+            try:
+                VideoWriter(probe, enc, 64, 64, pix, (30, 1), threads=1,
+                            opts="x265-params=log-level=error" if enc == "libx265" else "").close()
+                opens[(enc, pix)] = True
+            except medialib.MediaError:
+                opens[(enc, pix)] = False
+            if os.path.exists(probe):
+                os.unlink(probe)
+    both = [e for e in P01_ENCODERS if opens.get((e, "yuv420p")) and opens.get((e, "yuv420p10le"))]
+    eight = [e for e in P01_ENCODERS if opens.get((e, "yuv420p"))]
+    encoder = (both or eight or [None])[0]
+    twopass = medialib.twopass()
+    # an encoder that is bound but not in `eight` failed to open; the
+    # in-process check runs anyway, with the first listed
+    chosen = encoder or next((e for e in P01_ENCODERS if have[e]), P01_ENCODERS[-1])
+    passes = 2 if chosen in ("libx264", "libx265") or twopass.get(chosen) == "ok" else 1
+    codec, extra = P01_CODINGS[chosen]
+    folder = os.path.join(root, "p00", "base", P00_DB)
+    src_dir = os.path.join(folder, "srcVid")
+    os.makedirs(src_dir, exist_ok=True)
+    fsio.atomic_write_text(os.path.join(folder, P00_DB + ".yaml"), P00_YAML.format(
+        db_id=P00_DB, codec=codec, encoder=chosen, passes=passes, extra=extra))
+    media_src = os.path.join(os.path.dirname(media_yaml), "srcVid")
+    os.link(os.path.join(media_src, "SRC001.avi"), os.path.join(src_dir, "SRC001.avi"))
+    if have["aac"]:
+        os.link(os.path.join(media_src, "SRC000.avi"), os.path.join(src_dir, "SRC000.avi"))
+    else:
+        write_media(os.path.join(src_dir, "SRC000.avi"), clip, MEDIA_FPS, "yuv420p", None)
+    pvses = [f"{P00_DB}_SRC000_HRC000", f"{P00_DB}_SRC001_HRC001"]
+    return {"yaml": os.path.join(folder, P00_DB + ".yaml"), "encoder": encoder,
+            "chosen": chosen, "passes": passes, "audio": bool(have["aac"]),
+            "opens": {f"{e} {p}": ok for (e, p), ok in opens.items()},
+            "pvses": pvses if encoder in both else pvses[:1]}
+
+
+def p00_start(root: str, db: dict):
+    """(h)'s p00 process over a copy of the database (SRCs only), or None
+    where no encoder of the four opens."""
+    if db["encoder"] is None:
+        log(f"phase 18 (h): none of {list(P01_ENCODERS)} opens on the bound libav "
+            f"({json.dumps(db['opens'])}): no p00 process is started")
+        return None
+    yaml_path = link_tree(os.path.dirname(db["yaml"]), os.path.join(root, "p00", "proc", P00_DB))
+    return {"yaml": yaml_path,
+            "run": StageProcess("p00", yaml_path, db["pvses"], log_dir=root)}
+
+
+def p01_in_process(dev, db: dict, root: str, smi: str) -> dict:
+    """(h) in this process: the port's p01 over the database on cuda:0 and
+    on the CPU, each with the recording writer: every u8 encoder-input
+    plane's sha1 equal between the two (u16 planes, which take the resize
+    kernel's f32 route rather than the golden integer path, within one
+    code value, the JAX package's stated tolerance for it), every
+    segment's frame count equal and the plan's (its duration at its output
+    rate), and 3 resize launches a chunk on the card."""
+    base = os.path.dirname(db["yaml"])
+    runs = {}
+    for tag, device in (("card", dev), ("cpu", "cpu")):
+        yaml_path = link_tree(base, os.path.join(root, "p00", tag, P00_DB))
+        runs[tag] = p01_inputs(yaml_path, device)
+    card, cpu = runs["card"], runs["cpu"]
+    require(sorted(card["inputs"]) == sorted(cpu["inputs"]),
+            f"p01: the card wrote {sorted(card['inputs'])}, the CPU {sorted(cpu['inputs'])}")
+    tc = TestConfig(db["yaml"])
+    frames = {}
+    u16_err = 0
+    for seg in tc.segments:
+        rel = os.path.relpath(seg.file_path, os.path.dirname(db["yaml"]))
+        paths = [p for p in card["inputs"] if p.startswith(rel)]
+        require(len(paths) == db["passes"], f"p01: {rel}: {len(paths)} writers, "
+                f"{db['passes']} passes")
+        _, _, _, out_fps = segments.plan_segment_frames(seg)
+        want = int(round(seg.duration * out_fps))
+        for p in paths:
+            a, b = card["inputs"][p], cpu["inputs"][p]
+            require(len(a["frames"]) == len(b["frames"]) == want and
+                    a["geometry"] == b["geometry"],
+                    f"p01: {p}: {len(a['frames'])} frames on the card, {len(b['frames'])} on "
+                    f"the CPU, the plan {want} ({seg.duration} s at {out_fps} fps)")
+            if not a["planes"]:
+                require(a["frames"] == b["frames"],
+                        f"p01: {p}: the card's encoder input differs from the CPU's")
+                continue
+            ga = [np.concatenate([c[k] for c in a["planes"]]) for k in range(3)]
+            gb = [np.concatenate([c[k] for c in b["planes"]]) for k in range(3)]
+            diff = max(int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max())
+                       for x, y in zip(ga, gb))
+            u16_err = max(u16_err, diff)
+            require(diff <= 1, f"p01: {p}: u16 planes {diff} code values off the CPU's")
+        frames[seg.filename] = want
+    chunks = sum(r["chunks"] for r in card["inputs"].values())
+    want_l = launches_want(resize_frames_fused=3 * chunks)
+    require(card["launches"] == want_l, f"p01 on the card: launches {card['launches']} != {want_l}")
+    require(not any(cpu["launches"].values()), f"p01 on the CPU launched {cpu['launches']}")
+    n = sum(len(r["frames"]) for r in card["inputs"].values())
+    log(f"phase 18 (h): p01 in-process over {P00_DB} ({db['chosen']}, {db['passes']} "
+        f"pass(es)): {len(frames)} segments {json.dumps(frames)}, {n} encoder-input frames "
+        f"(every pass) with every u8 plane's sha1 equal on cuda:0 and the CPU, u16 planes "
+        f"within {u16_err}; launches "
+        f"{card['launches']['resize_frames_fused']} ({chunks} chunks); card {card['seconds']:.2f} "
+        f"s ({n / card['seconds']:.2f} frames/s), CPU {cpu['seconds']:.2f} s ({smi})")
+    return {"launches": card["launches"], "frames": frames, "chunks": chunks,
+            "encoder_input_frames": n, "u16_max_err": u16_err, "card_s": card["seconds"],
+            "cpu_s": cpu["seconds"]}
+
+
+class P00Reference:
+    """(h)'s reference: once its p00 process has ended (exit 0), the port's
+    render of the same segment files on the CPU, in a thread of this
+    process, into a copy of the database: create_avpvs_wo_buffer,
+    apply_stalling (the stage's spinner) and create_cpvs of each PVS.
+    Only the CPU runs here, so the card's launch counts and the kernel
+    wrappers the main thread swaps are never touched."""
+
+    def __init__(self, db: dict, started: dict, root: str) -> None:
+        self.db, self.started, self.root = db, started, root
+        self.cancelled = False
+        self.error = None
+        self.yaml = self.seconds = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        try:
+            if self.started["run"].proc.wait() != 0 or self.cancelled:
+                return
+            t0 = time.perf_counter()
+            folder = os.path.dirname(self.started["yaml"])
+            ref_yaml = link_tree(folder, os.path.join(self.root, "p00", "ref", P00_DB),
+                                 subs=("srcVid", "videoSegments"))
+            for sub in ("avpvs", "cpvs"):
+                os.makedirs(os.path.join(os.path.dirname(ref_yaml), sub), exist_ok=True)
+            ref = TestConfig(ref_yaml)
+            for pid in self.db["pvses"]:
+                pvs = ref.pvses[pid]
+                avpvs.create_avpvs_wo_buffer(pvs, device="cpu").run()
+                if pvs.has_buffering():
+                    avpvs.apply_stalling(pvs, spinner_path=avpvs.DEFAULT_SPINNER,
+                                         device="cpu").run()
+                for pp in ref.post_processings:
+                    cp.create_cpvs(pvs, pp, device="cpu").run()
+            self.yaml, self.seconds = ref_yaml, time.perf_counter() - t0
+        except BaseException as exc:  # noqa: BLE001 - re-raised by result() on the main thread
+            self.error = exc
+
+    def result(self) -> tuple:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        require(self.yaml is not None, "p00: the CPU's reference render did not run")
+        return self.yaml, self.seconds
+
+
+def p00_finish(dev, db: dict, started: dict, reference: P00Reference, p01: dict,
+               smi: str) -> dict:
+    """(h)'s p00 process waited for: every segment probes at its planned
+    geometry, pixel format, rate and frame count; .qchanges, .vfi, .afi
+    and (HRC000) .buff exist, the .vfi rows equal the segments' frames and
+    the .buff events the HRC's; each AVPVS (wo_buffer and stalled) and PC
+    CPVS equal to `reference`, the port's render of the same segment files
+    on the CPU in this process (a 10-bit PVS within a code value: its u16
+    resize is f32 arithmetic); the launches of its stages; then a p00 in
+    this process over the same database plans no job."""
+    from processing_chain_tpu_torch import cli as stage_cli_mod
+
+    summaries, wall = started["run"].finish_stages(["p01", "p03", "p04"])
+    t_check = time.perf_counter()
+    yaml_path = started["yaml"]
+    folder = os.path.dirname(yaml_path)
+    tc = TestConfig(yaml_path)
+    wanted = set(db["pvses"])
+    used = {s.filename for p in wanted for s in tc.pvses[p].segments}
+    for seg in tc.segments:
+        if seg.filename not in used:
+            continue
+        th, tw, _, out_fps = segments.plan_segment_frames(seg)
+        [st] = [x for x in medialib.probe(seg.file_path)["streams"] if x["codec_type"] == "video"]
+        from fractions import Fraction
+        n = len(medialib.scan_packets(seg.file_path, "video")["size"])
+        got = (st["width"], st["height"], st["pix_fmt"], Fraction(st["r_frame_rate"]), n)
+        want = (tw, th, seg.target_pix_fmt, Fraction(out_fps).limit_denominator(1001),
+                p01["frames"][seg.filename])
+        require(got == want, f"p00: {seg.filename} probes {got}, planned {want}")
+    families = {"qchanges": tc.get_quality_change_event_files_path(),
+                "vfi": tc.get_video_frame_information_path(),
+                "afi": tc.get_audio_frame_information_path(),
+                "buff": tc.get_buff_event_files_path()}
+    for pid in wanted:
+        pvs = tc.pvses[pid]
+        for fam, path in families.items():
+            f = os.path.join(path, f"{pid}.{fam}")
+            require(os.path.isfile(f) == (fam != "buff" or pvs.has_buffering()),
+                    f"p00: {f} exists: {os.path.isfile(f)}")
+        with open(os.path.join(families["vfi"], f"{pid}.vfi")) as fv:
+            rows = len(fv.read().splitlines()) - 1
+        want_rows = sum(p01["frames"][s.filename] for s in pvs.segments)
+        require(rows == want_rows, f"p00: {pid}.vfi has {rows} rows, its segments {want_rows} "
+                "frames")
+        if pvs.has_buffering():
+            with open(os.path.join(families["buff"], f"{pid}.buff")) as fb:
+                text = fb.read()
+            want_text = "\n".join(str(e) for e in pvs.get_buff_events_media_time()) + "\n"
+            require(text == want_text, f"p00: {pid}.buff {text!r} != the HRC's {want_text!r}")
+    # the CPU's render of the same segment files, in this process
+    ref_yaml, ref_s = reference.result()
+    saved = {k: os.environ.get(k) for k in ("PC_FFV1_WORKERS", "PC_FFV1_THREADS")}
+    try:
+        ref = TestConfig(ref_yaml)
+        equal = {}
+        for pid in wanted:
+            pvs, rpvs = tc.pvses[pid], ref.pvses[pid]
+            pairs = {"avpvs": (rpvs.get_avpvs_file_path(), pvs.get_avpvs_file_path()),
+                     "pc": (rpvs.get_cpvs_file_path("pc"), pvs.get_cpvs_file_path("pc"))}
+            if pvs.has_buffering():
+                pairs["wo_buffer"] = (rpvs.get_avpvs_wo_buffer_file_path(),
+                                      pvs.get_avpvs_wo_buffer_file_path())
+            # u16 renders take the resize kernel's f32 route on the card
+            tol = 1 if pvs.segments[0].uses_10_bit() else 0
+            equal[pid] = {k: same_media(a, b, tol) for k, (a, b) in pairs.items()}
+        # a warm p00 over the same database, in this process: no job planned
+        planned = {r: 0.0 for r in ("p01", "p02", "p03", "p03-stall", "p04")}
+        was = serve_tm.enabled()
+        serve_tm.enable()
+        try:
+            before = {r: _metric_sum("chain_jobs_planned_total", {"runner": r}) for r in planned}
+            require(stage_cli_mod.main(["p00", "-c", yaml_path, "-p", "1", "--skip-requirements",
+                                        "--filter-pvs", "|".join(db["pvses"])], device=dev) == 0,
+                    "p00: the warm re-run failed")
+            planned = {r: _metric_sum("chain_jobs_planned_total", {"runner": r}) - before[r]
+                       for r in planned}
+        finally:
+            if not was:
+                serve_tm.disable()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(not any(planned.values()), f"p00: the warm re-run planned {planned}")
+    # launches: p01's as in this process on the card; p03's 3 + 1 + 1 a
+    # canvas chunk; p04's 2 (the 420->422 lift) a chunk of each CPVS
+    s01, s03, s04 = (summaries[k] for k in ("p01", "p03", "p04"))
+
+    def frames_of(path: str) -> int:
+        return len(medialib.scan_packets(path, "video")["size"])  # a packet a frame
+
+    canvas = [frames_of(tc.pvses[p].get_avpvs_wo_buffer_file_path() if tc.pvses[p].has_buffering()
+                        else tc.pvses[p].get_avpvs_file_path()) for p in db["pvses"]]
+    cpvs_frames = [frames_of(tc.pvses[p].get_cpvs_file_path("pc")) for p in db["pvses"]]
+    chunk = avpvs.chunk_frames(dev)
+    want = {"p01": p01["launches"],
+            "p03": chunk_launches(len(stream_chunks(canvas, chunk))),
+            "p04": launches_want(resize_frames_fused=2 * len(stream_chunks(cpvs_frames, chunk)))}
+    for k, sm in (("p01", s01), ("p03", s03), ("p04", s04)):
+        require(sm["launches"] == want[k], f"p00's {k}: launches {sm['launches']} != {want[k]}")
+    launches = {k: sum(sm["launches"][k] for sm in (s01, s03, s04)) for k in ck.LAUNCHES}
+    check_s = time.perf_counter() - t_check
+    log(f"phase 18 (h): p00 process over {db['pvses']} ({db['encoder']}, {db['passes']} "
+        f"pass(es), SRC000 audio {db['audio']}): {s01['encodes']} encodes in "
+        f"{s01['seconds']:.3f} s, p03 {s03['renders']} renders + {s03['stalls']} stalls in "
+        f"{s03['seconds']:.3f} s, p04 {s04['renders']} renders in {s04['seconds']:.3f} s, wall "
+        f"{wall:.2f} s; segments at their planned geometry, rate and frames; metadata frame "
+        f"counts and .buff as planned; AVPVS ({canvas} canvas frames) and PC CPVS "
+        f"({cpvs_frames} frames) equal to the CPU's render ({json.dumps(equal)}, rendered in "
+        f"{ref_s:.2f} s in a thread beside (f) and (g)); launches {launches}; the "
+        f"warm re-run planned {planned}; checks {check_s:.2f} s ({smi})")
+    return {"summaries": summaries, "wall_s": wall, "equal": equal, "launches": launches,
+            "warm_planned": planned, "cpu_render_s": ref_s, "check_s": check_s}
 
 
 def module_probe() -> str:
@@ -4865,7 +5367,9 @@ def run_smoke(phases: Phases, only) -> int:
              **{f"db_{k}": v["launches"] for k, v in database["pvses"].items()},
              "p03_file": media["launches"], "p03_file_10bit": media["launches_10bit"],
              "p03_file_long": media["launches_long"], "p04_file": media["launches_p04"],
-             "p03_file_fused": media["launches_fused"]}
+             "p03_file_fused": media["launches_fused"], "p01_file": media["launches_p01"]}
+    if media["launches_p00"] is not None:  # no p00 process where no encoder of the four opens
+        paths["p00_file"] = media["launches_p00"]
     # each kernel's `launches` is read from the path it was ported for
     home = {"resize_frames_fused": "pump_ready_u8", "si_frames_fused": "pump_ready_u8",
             "ti_frames_fused": "pump_ready_u8", "siti_frames_fused": "flagship",

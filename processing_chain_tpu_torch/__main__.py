@@ -1,4 +1,4 @@
-"""`python -m processing_chain_tpu_torch p03|p04 -c DB.yaml …` (the stage
+"""`python -m processing_chain_tpu_torch p00|p01|p02|p03|p04 -c DB.yaml …` (the stage
 command line, cli.py) and `python -m processing_chain_tpu_torch tools
 <name> …` (the port's counterpart of the reference CLI's `tools`
 subcommands)."""
@@ -36,14 +36,14 @@ _TOOLS = {
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in ("p03", "p04"):
+    if argv and argv[0] in ("p00", "p01", "p02", "p03", "p04"):
         from . import cli
 
         return cli.main(argv)
     if len(argv) < 2 or argv[0] != "tools" or argv[1] not in _TOOLS:
         sys.stderr.write(
-            f"usage: python -m processing_chain_tpu_torch p03|p04 -c DB.yaml … | tools "
-            f"{{{','.join(_TOOLS)}}} …\n")
+            f"usage: python -m processing_chain_tpu_torch p00|p01|p02|p03|p04 -c DB.yaml … | "
+            f"tools {{{','.join(_TOOLS)}}} …\n")
         return 2
     return importlib.import_module(_TOOLS[argv[1]], __package__).main(argv[2:])
 

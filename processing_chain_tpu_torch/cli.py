@@ -1,11 +1,16 @@
 """The stage command line of the port (counterpart of
-processing_chain_tpu/cli.py:27-260 and `main` :393, for `p03` and `p04`):
+processing_chain_tpu/cli.py:27-260 and `main` :393):
 
+    python -m processing_chain_tpu_torch p00 -c DB/DB.yaml [-str 1234] …
+    python -m processing_chain_tpu_torch p01 -c DB/DB.yaml [-sos] [-p N] …
+    python -m processing_chain_tpu_torch p02 -c DB/DB.yaml …
     python -m processing_chain_tpu_torch p03 -c DB/DB.yaml [-f60] [-z] …
     python -m processing_chain_tpu_torch p04 -c DB/DB.yaml [-e] [-a] [-ccrf N] …
 
+`p00` runs p01 → p02 → p03 → p04 (or the `-str` subset) in one process.
 The flags are the JAX package's (utils/parse_args), so one command line
-drives either package. The stage runs on `cuda:0`, or on the card `-g N`
+drives either package. A stage with device work (every one but p02, which
+reads bitstreams on the host) runs on `cuda:0`, or on the card `-g N`
 names; the CPU only when a caller of `main` passes `device="cpu"` (the
 tests do). The observability flags behave as the reference's:
 `--telemetry DIR` streams the events to `events_<stamp>.jsonl` as they
@@ -55,8 +60,15 @@ def setup_logger(verbose: bool = False):
     return logger
 
 
-#: the stages the port runs, by name: (script number, module name)
-STAGES = {"p03": (3, "p03_generate_avpvs"), "p04": (4, "p04_generate_cpvs")}
+#: the stages the port runs, by name: (script number, module name); p00's
+#: number is None, the orchestrator's flag set
+STAGES = {
+    "p00": (None, "p00_process_all"),
+    "p01": (1, "p01_generate_segments"),
+    "p02": (2, "p02_generate_metadata"),
+    "p03": (3, "p03_generate_avpvs"),
+    "p04": (4, "p04_generate_cpvs"),
+}
 
 
 def _process_seconds() -> Optional[float]:
@@ -157,14 +169,21 @@ def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
     t0 = time.perf_counter()
     args = pa.parse_args(stage, STAGES[stage][0], argv)
     log = setup_logger(args.verbose)
+    host_only = STAGES[stage][0] == 2
     try:
-        dev = resolve_device(device) if device is not None else select_device(args.set_gpu_loc)
+        if host_only:
+            dev = None
+        elif device is not None:
+            dev = resolve_device(device)
+        else:
+            dev = select_device(args.set_gpu_loc)
     except DeviceError as exc:
         log.error("%s: %s", stage, exc)
         return 1
     startup["device_s"] = round(time.perf_counter() - t0, 3)
     t0 = time.perf_counter()
-    if not args.skip_requirements and not check_requirements(need_device=dev.type == "cuda"):
+    if not args.skip_requirements and not check_requirements(
+            need_device=dev is not None and dev.type == "cuda"):
         return 1
     startup["requirements_s"] = round(time.perf_counter() - t0, 3)
     t0 = time.perf_counter()
@@ -180,7 +199,7 @@ def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
     # (libav located, bound and its layout round trips), the stage's
     # modules
     log.info("%s start-up: %s", stage, json.dumps(startup))
-    log.info("%s on %s", stage, dev)
+    log.info("%s on %s", stage, dev if dev is not None else "the host")
     live = _start_observability(stage, args, argv)
     if live is None:
         return 1
@@ -193,7 +212,7 @@ def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
         # stamp, so run-report and `tools chain-profile` join them
         from .telemetry import profiling as profiling_mod
 
-        if dev.type == "cuda":
+        if dev is not None and dev.type == "cuda":
             # the capture's "auto" reads an initialised CUDA: initialise
             # it on the stage's card before the capture starts
             import torch
@@ -263,11 +282,12 @@ def _dispatch_stage(stage: str, argv: Sequence[str], device=None) -> int:
 
 
 def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
-    """`p03 …` or `p04 …` runs the stage; `device` (a torch device or its
-    name) overrides the card the flags select."""
+    """`p00 …` through `p04 …` runs the stage; `device` (a torch device or
+    its name) overrides the card the flags select."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in STAGES:
-        sys.stderr.write("usage: python -m processing_chain_tpu_torch p03|p04 -c DB.yaml …\n")
+        sys.stderr.write(f"usage: python -m processing_chain_tpu_torch {'|'.join(STAGES)} "
+                         "-c DB.yaml …\n")
         return 2
     return _dispatch_stage(argv[0], argv[1:], device)
 

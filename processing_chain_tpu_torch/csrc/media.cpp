@@ -1,8 +1,9 @@
 // media.cpp — the port's media boundary, bound to libav at run time.
 //
-// The subset of processing_chain_tpu/native/media.cpp that the p03 file
-// path calls (probe, packet scans, video decode, stereo audio decode, the
-// encoder with its frame-parallel FFV1 route), with the same C signatures.
+// The subset of processing_chain_tpu/native/media.cpp that p01-p04 call
+// (probe, packet scans, video decode, stereo audio decode, the encoder with
+// its two-pass and frame-parallel FFV1 routes, the Annex-B and IVF
+// extraction of p02's frame sizes), with the same C signatures.
 // It includes no libav header. `mp_bind` dlopens the libraries that
 // io/medialib.py located and resolves every entry point with dlsym, so one
 // source serves whichever FFmpeg the host has (5.1 and 8 are tabled). Every
@@ -10,18 +11,22 @@
 //
 //   * through the library's own AVOption table (av_opt_set_*/av_opt_get_*)
 //     where the struct has an AVClass: AVCodecContext and AVFormatContext.
-//     The one AVCodecContext field without an option, coded_width/height,
-//     sits right after the "video_size" option's width/height in every
-//     version and is read at that option's offset + 8;
+//     The AVCodecContext fields without an option are reached from a
+//     neighbouring option's offset: coded_width/height right after the
+//     "video_size" option's width/height (+ 8), the two-pass statistics
+//     stats_out/stats_in right before the "bug" option's field (- 16, - 8);
 //   * otherwise through `Layout`, one offset table per (lavu, lavf, lavc)
 //     major triple. A triple with no table is refused, never guessed.
 //
 // `mp_check` proves a bound table before anything else runs: each entry is
 // exercised by a round trip with known values (a frame allocated with
 // av_frame_get_buffer, a packet rescaled, codec parameters copied from a
-// context configured through options, streams created on a muxer, and a
-// small FFV1+FLAC AVI written and read back through the entry points
-// below). Pointer fields are dereferenced during the check only through
+// context configured through options, streams created on a muxer, a
+// bitstream filter initialised, and a small FFV1+FLAC AVI written and read
+// back through the entry points below). The statistics fields are proved
+// by a two-pass encode of a small clip with each libvpx/libaom encoder
+// bound; an encoder whose round trip fails keeps its two-pass refused by
+// name, and no round trip passing refuses two-pass wherever it needs them. Pointer fields are dereferenced during the check only through
 // `safe_read`, so a wrong offset fails with the field's name instead of a
 // crash.
 //
@@ -83,6 +88,7 @@ using Codec = void;
 using Swr = void;
 using Dict = void;
 using Pb = void;  // AVIOContext
+using Bsf = void;  // AVBSFContext
 
 constexpr int64_t NOPTS = INT64_MIN;
 constexpr int TIME_BASE = 1000000;
@@ -95,6 +101,8 @@ constexpr int PKT_FLAG_KEY = 1;
 constexpr int FMT_NOFILE = 0x0001;
 constexpr int FMT_GLOBALHEADER = 0x0040;
 constexpr int FMT_NOTIMESTAMPS = 0x0080;
+constexpr int64_t CODEC_FLAG_PASS1 = 1 << 9;
+constexpr int64_t CODEC_FLAG_PASS2 = 1 << 10;
 constexpr int64_t CODEC_FLAG_GLOBAL_HEADER = 1 << 22;
 constexpr int COMPLIANCE_EXPERIMENTAL = -2;
 constexpr int IO_FLAG_WRITE = 2;
@@ -146,6 +154,9 @@ struct Api {
     int (*av_dict_set)(Dict**, const char*, const char*, int);
     void (*av_dict_free)(Dict**);
     char* (*av_strdup)(const char*);
+    void (*av_freep)(void*);
+    int (*av_log_get_level)();
+    void (*av_log_set_level)(int);
     // libavcodec
     unsigned (*avcodec_version)();
     const Codec* (*avcodec_find_decoder)(int);
@@ -155,6 +166,7 @@ struct Api {
     void (*avcodec_free_context)(Ctx**);
     int (*avcodec_parameters_to_context)(Ctx*, const Par*);
     int (*avcodec_parameters_from_context)(Par*, const Ctx*);
+    int (*avcodec_parameters_copy)(Par*, const Par*);
     Par* (*avcodec_parameters_alloc)();
     void (*avcodec_parameters_free)(Par**);
     int (*avcodec_open2)(Ctx*, const Codec*, Dict**);
@@ -171,6 +183,12 @@ struct Api {
     void (*av_packet_unref)(Packet*);
     void (*av_packet_rescale_ts)(Packet*, Rational, Rational);
     int (*av_new_packet)(Packet*, int);
+    const void* (*av_bsf_get_by_name)(const char*);
+    int (*av_bsf_alloc)(const void*, Bsf**);
+    int (*av_bsf_init)(Bsf*);
+    int (*av_bsf_send_packet)(Bsf*, Packet*);
+    int (*av_bsf_receive_packet)(Bsf*, Packet*);
+    void (*av_bsf_free)(Bsf**);
     // libavformat
     unsigned (*avformat_version)();
     int (*avformat_open_input)(Fmt**, const char*, const void*, Dict**);
@@ -223,6 +241,7 @@ struct Layout {
     int ofmt_name, ofmt_flags, ifmt_name;
     int desc_log2_chroma_w, desc_log2_chroma_h, desc_comp0_depth;
     int codec_sample_fmts;  // -1 where avcodec_get_supported_config exists
+    int bsf_par_in, bsf_time_base_in;
 };
 
 // FFmpeg 5.1 (lavu 57, lavf 59, lavc 59): offsetof from its headers, held
@@ -232,7 +251,7 @@ struct Layout {
 // fields and pkt_pos; AVStream gained a leading av_class and moved codecpar
 // up; AVFormatContext gained stream groups and moved chapters up;
 // AVCodecParameters gained coded side data and framerate and lost the old
-// channel fields.
+// channel fields. AVBSFContext is the same in both.
 const Layout kLayouts[] = {
     {57, 59, 59,
      0, 64, 96, 104, 108, 112, 116, 136, 208, 344, 448,
@@ -242,7 +261,8 @@ const Layout kLayouts[] = {
      0, 4, 16, 24, 28, 32, 48, 56, 60, 144, 116,
      0, 44, 0,
      9, 10, 40,
-     56},
+     56,
+     24, 40},
     {60, 62, 62,
      0, 64, 96, 104, 108, 112, 116, 136, 180, 304, 384,
      8, 16, 24, 32, 36, 40, 64,
@@ -251,7 +271,8 @@ const Layout kLayouts[] = {
      0, 4, 16, 24, 44, 48, 64, 72, 76, 128, 152,
      0, 44, 0,
      9, 10, 40,
-     -1},
+     -1,
+     24, 40},
 };
 
 const Layout* L = nullptr;
@@ -264,6 +285,15 @@ T& field(const void* base, int off) {
 // AVCodecContext coded_width/coded_height: right after the width/height
 // pair the "video_size" option addresses, in every version bound here.
 int g_ctx_coded_off = -1;
+// AVCodecContext stats_out/stats_in (two-pass statistics, no AVOption):
+// the two pointers right before workaround_bugs, the field of the "bug"
+// option, in every version bound here. -1 until mp_check's round trip of
+// a two-pass encode has proved them.
+int g_ctx_stats_out_off = -1;
+int g_ctx_stats_in_off = -1;
+// What mp_check's two-pass round trips found, "<encoder>=<verdict> ...";
+// `twopass_refusal` reads it.
+std::string g_twopass;
 
 void set_err(char* err, int errlen, const std::string& msg) {
     if (err && errlen > 0) snprintf(err, (size_t)errlen, "%s", msg.c_str());
@@ -390,16 +420,19 @@ EXPORT int mp_bind(const char* const* paths, int n, char* err, int errlen) {
     R(av_opt_set_image_size); R(av_opt_get_image_size);
     R(av_opt_set_pixel_fmt); R(av_opt_get_pixel_fmt); R(av_opt_set_chlayout);
     R(av_opt_get_chlayout); R(av_opt_find2); R(av_dict_parse_string);
-    R(av_dict_get); R(av_dict_set); R(av_dict_free); R(av_strdup);
+    R(av_dict_get); R(av_dict_set); R(av_dict_free); R(av_strdup); R(av_freep);
+    R(av_log_get_level); R(av_log_set_level);
     R(avcodec_version); R(avcodec_find_decoder); R(avcodec_find_decoder_by_name);
     R(avcodec_find_encoder_by_name); R(avcodec_alloc_context3);
     R(avcodec_free_context); R(avcodec_parameters_to_context);
-    R(avcodec_parameters_from_context); R(avcodec_parameters_alloc);
+    R(avcodec_parameters_from_context); R(avcodec_parameters_copy); R(avcodec_parameters_alloc);
     R(avcodec_parameters_free); R(avcodec_open2); R(avcodec_send_packet);
     R(avcodec_receive_frame); R(avcodec_send_frame); R(avcodec_receive_packet);
     R(avcodec_get_name); R(avcodec_profile_name); R_OPT(avcodec_get_supported_config);
     R(av_packet_alloc); R(av_packet_free); R(av_packet_unref);
     R(av_packet_rescale_ts); R(av_new_packet);
+    R(av_bsf_get_by_name); R(av_bsf_alloc); R(av_bsf_init); R(av_bsf_send_packet);
+    R(av_bsf_receive_packet); R(av_bsf_free);
     R(avformat_version); R(avformat_open_input); R(avformat_find_stream_info);
     R(avformat_close_input); R(av_find_best_stream); R(av_read_frame);
     R(avformat_seek_file); R(avformat_alloc_output_context2);
@@ -489,6 +522,8 @@ EXPORT int mp_layout(const char* name) {
         {"AVPixFmtDescriptor.log2_chroma_h", L->desc_log2_chroma_h},
         {"AVPixFmtDescriptor.comp0_depth", L->desc_comp0_depth},
         {"AVCodec.sample_fmts", L->codec_sample_fmts},
+        {"AVBSFContext.par_in", L->bsf_par_in},
+        {"AVBSFContext.time_base_in", L->bsf_time_base_in},
     };
     for (const E& e : table)
         if (strcmp(e.n, name) == 0) return e.v;
@@ -497,6 +532,17 @@ EXPORT int mp_layout(const char* name) {
 
 // Whether the bound libav has a decoder (encoder = 0) or an encoder
 // (encoder = 1) named `name`: 1 or 0, -1 before mp_bind.
+// Whether the bound libav has the bitstream filter `name`: 1 or 0, -1 before
+// mp_bind.
+EXPORT int mp_has_bsf(const char* name) {
+    if (!g_bound) return -1;
+    return api.av_bsf_get_by_name(name) != nullptr;
+}
+
+// What the two-pass round trips at load found: "<encoder>=<verdict> ..."
+// ("ok", "absent", or what failed), "" before mp_check.
+EXPORT const char* mp_twopass_report() { return g_twopass.c_str(); }
+
 EXPORT int mp_has_codec(const char* name, int encoder) {
     if (!g_bound) return -1;
     return (encoder ? api.avcodec_find_encoder_by_name(name)
@@ -1114,6 +1160,8 @@ struct MPEncoder {
     int64_t apts = 0;  // in samples
     std::vector<int16_t> abuf;  // pending audio (interleaved s16)
     int64_t last_dts[2] = {INT64_MIN, INT64_MIN};  // per-stream mux fixup
+    FILE* stats_file = nullptr;  // two-pass: pass 1 statistics out
+    std::string stats_out_path;  // where stats_out goes, opened lazily
     bool header_written = false;
 
     // Frame-parallel encode ("pc_fp_workers=N" in the option string): FFV1
@@ -1152,6 +1200,18 @@ static int mux_packet(MPEncoder* e, Packet* pkt, Rational ctx_tb, Stream* st, bo
     return api.av_interleaved_write_frame(e->fmt, pkt);
 }
 
+// Pass 1: append the encoder's stats_out, when it has one, to the
+// statistics file, which is opened on the first stats_out only (an encoder
+// that keeps its statistics itself leaves no empty file behind).
+static void collect_stats(MPEncoder* e) {
+    if (e->stats_out_path.empty()) return;
+    const char* s = field<const char*>(e->venc, g_ctx_stats_out_off);
+    char first;
+    if (!s || !safe_read(s, &first, 1)) return;
+    if (!e->stats_file) e->stats_file = fopen(e->stats_out_path.c_str(), "w");
+    if (e->stats_file) fputs(s, e->stats_file);
+}
+
 static int enc_write_packets(MPEncoder* e, Ctx* ctx, Rational ctx_tb, Stream* st) {
     Packet* pkt = api.av_packet_alloc();
     int ret;
@@ -1162,6 +1222,7 @@ static int enc_write_packets(MPEncoder* e, Ctx* ctx, Rational ctx_tb, Stream* st
             api.av_packet_free(&pkt);
             return wret;
         }
+        if (ctx == e->venc) collect_stats(e);
     }
     api.av_packet_free(&pkt);
     return (ret == ERR_EAGAIN || ret == ERR_EOF) ? 0 : ret;
@@ -1304,6 +1365,9 @@ static const int* codec_sample_fmts(const Codec* c) {
 static void enc_free(MPEncoder* e) {
     for (auto*& wc : e->fp_ctxs) api.avcodec_free_context(&wc);
     e->fp_ctxs.clear();
+    if (e->stats_file) fclose(e->stats_file);
+    // stats_in is the caller's to free (libavcodec never frees it)
+    if (e->venc && g_ctx_stats_in_off >= 0) api.av_freep(&field<char*>(e->venc, g_ctx_stats_in_off));
     if (e->fmt && e->header_written && !(ofmt_flags(e->fmt) & FMT_NOFILE))
         api.avio_closep(&field<Pb*>(e->fmt, L->fmt_pb));
     api.av_frame_free(&e->vframe);
@@ -1336,6 +1400,24 @@ static const char* set_video_opts(Ctx* c, int width, int height, int pf, Rationa
     return nullptr;
 }
 
+// Why the encoder `name` cannot exchange two-pass statistics through
+// stats_out/stats_in on this libav, or "" when it can.
+static std::string twopass_refusal(const char* name) {
+    std::string key = std::string(" ") + name + "=";
+    size_t at = (" " + g_twopass).find(key);
+    if (at != std::string::npos) {
+        std::string verdict = g_twopass.substr(at + key.size() - 1);
+        verdict = verdict.substr(0, verdict.find(' '));
+        if (verdict != "ok")
+            return std::string("two-pass with ") + name +
+                   " is refused on this libav: its round trip at load read " + verdict;
+    }
+    if (g_ctx_stats_in_off < 0)
+        return std::string("two-pass with ") + name +
+               " needs AVCodecContext.stats_out/stats_in, which no round trip proved on this libav";
+    return "";
+}
+
 // The extradata an opened context would give its stream.
 static std::string ctx_extradata(Ctx* c) {
     Par* par = api.avcodec_parameters_alloc();
@@ -1352,10 +1434,11 @@ static std::string ctx_extradata(Ctx* c) {
 // Open an encoder+muxer. Video is configured from explicit arguments plus an
 // ffmpeg-style options string "k=v:k=v" applied to the codec context
 // (private options included); entries the codec does not consume reach the
-// muxer. Audio is optional (acodec == nullptr or "" to disable). pass must be
-// 0: two-pass encoding is not part of this boundary. vopts may carry
-// "pc_fp_workers=N" (consumed here): frame-parallel encode across N private
-// contexts, intra-only codecs (ffv1 with gop=1 forced, prores).
+// muxer. Audio is optional (acodec == nullptr or "" to disable). pass: 0 =
+// single pass, 1/2 = two-pass with statistics at stats_path. vopts may carry
+// "pc_fp_workers=N" (consumed here, single-pass only): frame-parallel encode
+// across N private contexts, intra-only codecs (ffv1 with gop=1 forced,
+// prores).
 EXPORT MPEncoder* mp_encoder_open(
     const char* path, const char* vcodec, int width, int height,
     const char* pix_fmt, int fps_num, int fps_den, int64_t bit_rate,
@@ -1363,11 +1446,6 @@ EXPORT MPEncoder* mp_encoder_open(
     int bframes, int threads, const char* vopts, int pass,
     const char* stats_path, const char* acodec, int sample_rate, int channels,
     int64_t audio_bit_rate, char* err, int errlen) {
-    (void)stats_path;
-    if (pass != 0) {
-        set_err(err, errlen, "two-pass encoding is not part of this media boundary");
-        return nullptr;
-    }
     auto* e = new MPEncoder();
     int ret = api.avformat_alloc_output_context2(&e->fmt, nullptr, nullptr, path);
     if (ret < 0 || !e->fmt) {
@@ -1402,10 +1480,37 @@ EXPORT MPEncoder* mp_encoder_open(
         enc_free(e);
         return nullptr;
     };
+    int64_t pass_flag = pass == 1 ? CODEC_FLAG_PASS1 : pass == 2 ? CODEC_FLAG_PASS2 : 0;
     if (const char* bad = set_video_opts(e->venc, width, height, pf, e->vtb, bit_rate, min_rate,
                                          max_rate, buf_size, gop_size, bframes, threads,
-                                         global_header ? CODEC_FLAG_GLOBAL_HEADER : 0))
+                                         (global_header ? CODEC_FLAG_GLOBAL_HEADER : 0) | pass_flag))
         return fail(std::string("the video encoder context refused option ") + bad);
+    if (pass_flag) {
+        // x264 reads and writes its statistics file itself through its
+        // private "stats" option (the ffmpeg CLI's -passlogfile), and
+        // libx265 takes pass and stats inside x265-params. Any other
+        // encoder emits stats_out in pass 1, collected into the file, and
+        // reads the file back through stats_in in pass 2.
+        if (api.av_opt_set(e->venc, "stats", stats_path, OPT_SEARCH_CHILDREN) != 0) {
+            std::string why = twopass_refusal(vcodec);
+            if (!why.empty() && strcmp(vcodec, "libx265") != 0) return fail(why);
+            if (why.empty() && pass == 1) {
+                e->stats_out_path = stats_path;
+            } else if (why.empty()) {
+                // a missing file is not an error here: libx265 may leave
+                // none at stats_path, and an encoder that needs stats_in
+                // fails at open without it
+                if (FILE* f = fopen(stats_path, "rb")) {
+                    std::string text;
+                    char buf[65536];
+                    size_t n;
+                    while ((n = fread(buf, 1, sizeof(buf), f)) > 0) text.append(buf, n);
+                    fclose(f);
+                    field<char*>(e->venc, g_ctx_stats_in_off) = api.av_strdup(text.c_str());
+                }
+            }
+        }
+    }
     if (vopts && vopts[0] && api.av_dict_parse_string(&opts, vopts, "=", ":", 0) < 0)
         return fail("bad vopts string");
     if (DictEntry* fpw = api.av_dict_get(opts, "pc_fp_workers", nullptr, 0)) {
@@ -1413,6 +1518,7 @@ EXPORT MPEncoder* mp_encoder_open(
         api.av_dict_set(&opts, "pc_fp_workers", nullptr, 0);
         if (e->fp_workers > 0 && !is_intra_only(vc))
             return fail("pc_fp_workers requires an intra-only codec (ffv1/prores)");
+        if (e->fp_workers > 0 && pass != 0) return fail("pc_fp_workers is single-pass only");
         if (e->fp_workers > 64) e->fp_workers = 64;
         if (e->fp_workers > 0) api.av_opt_set_int(e->venc, "g", 1, 0);
     }
@@ -1686,12 +1792,140 @@ EXPORT int mp_encoder_close(MPEncoder* e, char* err, int errlen) {
             api.avcodec_send_frame(e->aenc, nullptr);
             if (enc_write_packets(e, e->aenc, e->atb, e->astream) < 0) rc = -1;
         }
+        // libvpx and libaom set stats_out when the flush ends pass 1
+        collect_stats(e);
         if (api.av_write_trailer(e->fmt) < 0) rc = -1;
     }
     std::string msg = e->fp_error_msg;
     enc_free(e);
     if (rc < 0) set_err(err, errlen, msg.empty() ? "failures while flushing encoder" : msg);
     return rc;
+}
+
+// ---------------------------------------------------------------------------
+// Bitstream extraction for exact frame sizes (io/framesizes.py parses the
+// bytes)
+// ---------------------------------------------------------------------------
+
+// Open `path` and find its video stream: its index, or -1 with err set.
+static int open_video(Fmt** fmt, const char* path, char* err, int errlen) {
+    if (open_input(fmt, path, err, errlen) < 0) return -1;
+    int sidx = api.av_find_best_stream(*fmt, MEDIA_VIDEO, -1, -1, nullptr, 0);
+    if (sidx < 0) {
+        set_err(err, errlen, "no video stream");
+        api.avformat_close_input(fmt);
+    }
+    return sidx;
+}
+
+// Run the named bitstream filter (h264_mp4toannexb / hevc_mp4toannexb) over
+// the video stream and write the filtered bytes to out_path.
+EXPORT int mp_extract_annexb(const char* path, const char* bsf_name, const char* out_path,
+                             char* err, int errlen) {
+    const void* filter = api.av_bsf_get_by_name(bsf_name);
+    if (!filter) {
+        set_err(err, errlen, std::string("this libav has no bitstream filter ") + bsf_name);
+        return -1;
+    }
+    Fmt* fmt = nullptr;
+    int sidx = open_video(&fmt, path, err, errlen);
+    if (sidx < 0) return -1;
+    Stream* st = fmt_stream(fmt, (unsigned)sidx);
+    Bsf* b = nullptr;
+    int ret = api.av_bsf_alloc(filter, &b);
+    if (ret >= 0) {
+        api.avcodec_parameters_copy(field<Par*>(b, L->bsf_par_in), st_par(st));
+        field<Rational>(b, L->bsf_time_base_in) = st_tb(st);
+        ret = api.av_bsf_init(b);
+    }
+    if (ret < 0) {
+        set_err(err, errlen, "bsf_init: " + av_errstr(ret));
+        api.av_bsf_free(&b);
+        api.avformat_close_input(&fmt);
+        return -1;
+    }
+    FILE* out = fopen(out_path, "wb");
+    if (!out) {
+        set_err(err, errlen, "cannot open output");
+        api.av_bsf_free(&b);
+        api.avformat_close_input(&fmt);
+        return -1;
+    }
+    Packet* pkt = api.av_packet_alloc();
+    Packet* fpkt = api.av_packet_alloc();
+    auto drain = [&]() {
+        while (api.av_bsf_receive_packet(b, fpkt) == 0) {
+            fwrite(field<uint8_t*>(fpkt, L->pkt_data), 1, (size_t)field<int>(fpkt, L->pkt_size), out);
+            api.av_packet_unref(fpkt);
+        }
+    };
+    while (api.av_read_frame(fmt, pkt) >= 0) {
+        // send_packet takes the packet's reference on success
+        if (field<int>(pkt, L->pkt_stream_index) == sidx && api.av_bsf_send_packet(b, pkt) == 0)
+            drain();
+        api.av_packet_unref(pkt);
+    }
+    api.av_bsf_send_packet(b, nullptr);
+    drain();
+    api.av_packet_free(&fpkt);
+    api.av_packet_free(&pkt);
+    fclose(out);
+    api.av_bsf_free(&b);
+    api.avformat_close_input(&fmt);
+    return 0;
+}
+
+// Write the video stream as an IVF file (VP9 exact frame sizes).
+EXPORT int mp_extract_ivf(const char* path, const char* out_path, char* err, int errlen) {
+    Fmt* fmt = nullptr;
+    int sidx = open_video(&fmt, path, err, errlen);
+    if (sidx < 0) return -1;
+    Stream* st = fmt_stream(fmt, (unsigned)sidx);
+    Par* par = st_par(st);
+    FILE* out = fopen(out_path, "wb");
+    if (!out) {
+        set_err(err, errlen, "cannot open output");
+        api.avformat_close_input(&fmt);
+        return -1;
+    }
+    uint8_t hdr[32] = {0};
+    memcpy(hdr, "DKIF", 4);
+    hdr[6] = 32;  // header size; version 0
+    const char* cname = api.avcodec_get_name(field<int>(par, L->par_codec_id));
+    const char* fourcc = cname && !strcmp(cname, "vp9") ? "VP90"
+                         : cname && !strcmp(cname, "vp8") ? "VP80"
+                                                          : "AV01";
+    memcpy(hdr + 8, fourcc, 4);
+    int w = field<int>(par, L->par_width), h = field<int>(par, L->par_height);
+    hdr[12] = w & 0xff; hdr[13] = (w >> 8) & 0xff;
+    hdr[14] = h & 0xff; hdr[15] = (h >> 8) & 0xff;
+    Rational tb = st_tb(st);
+    uint32_t tb_den = (uint32_t)tb.den, tb_num = (uint32_t)tb.num;
+    memcpy(hdr + 16, &tb_den, 4);
+    memcpy(hdr + 20, &tb_num, 4);
+    fwrite(hdr, 1, 32, out);
+    Packet* pkt = api.av_packet_alloc();
+    uint32_t nframes = 0;
+    while (api.av_read_frame(fmt, pkt) >= 0) {
+        if (field<int>(pkt, L->pkt_stream_index) == sidx) {
+            uint8_t fh[12];
+            uint32_t sz = (uint32_t)field<int>(pkt, L->pkt_size);
+            int64_t p = field<int64_t>(pkt, L->pkt_pts);
+            uint64_t pts = p != NOPTS ? (uint64_t)p : nframes;
+            memcpy(fh, &sz, 4);
+            memcpy(fh + 4, &pts, 8);
+            fwrite(fh, 1, 12, out);
+            fwrite(field<uint8_t*>(pkt, L->pkt_data), 1, sz, out);
+            nframes++;
+        }
+        api.av_packet_unref(pkt);
+    }
+    api.av_packet_free(&pkt);
+    fseek(out, 24, SEEK_SET);  // the frame count
+    fwrite(&nframes, 4, 1, out);
+    fclose(out);
+    api.avformat_close_input(&fmt);
+    return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -2031,6 +2265,150 @@ static bool check_file(Check& c, const std::string& dir) {
     return true;
 }
 
+// AVBSFContext: init copies par_in and time_base_in into par_out and
+// time_base_out, the fields right after them; h264_mp4toannexb, where it is
+// bound, accepts the H.264 parameters put at par_in and refuses FFV1's.
+// Where neither filter is bound the entries go unchecked and extraction is
+// refused by the filter's name.
+static bool check_bsf(Check& c) {
+    const void* nullf = api.av_bsf_get_by_name("null");
+    const void* annexb = api.av_bsf_get_by_name("h264_mp4toannexb");
+    if (!nullf && !annexb) return true;
+    const Codec* h264 = api.avcodec_find_decoder_by_name("h264");
+    const Codec* ffv1 = api.avcodec_find_decoder_by_name("ffv1");
+    if (!h264 || !ffv1) return true;
+    auto params = [](const Codec* dec) {
+        Ctx* ctx = api.avcodec_alloc_context3(dec);
+        api.av_opt_set_image_size(ctx, "video_size", 48, 16, 0);
+        Par* par = api.avcodec_parameters_alloc();
+        api.avcodec_parameters_from_context(par, ctx);
+        api.avcodec_free_context(&ctx);
+        return par;
+    };
+    Par* ph = params(h264);
+    Par* pf = params(ffv1);
+    // init(filter, parameters): av_bsf_init's result and the filter's
+    // par_out/time_base_out, read without trusting the offsets
+    auto run = [&](const void* filter, Par* in, int* codec_out, int* width_out, Rational* tb_out) {
+        Bsf* b = nullptr;
+        if (api.av_bsf_alloc(filter, &b) < 0) return -1000;
+        Par* pin = nullptr;
+        int type = 0;
+        Rational tb0{-1, -1};
+        if (!safe_field(b, L->bsf_par_in, &pin) || !safe_field(pin, L->par_codec_type, &type) ||
+            type != -1 || !safe_field(b, L->bsf_time_base_in, &tb0) || tb0.num != 0 || tb0.den != 0) {
+            api.av_bsf_free(&b);
+            return -1001;
+        }
+        api.avcodec_parameters_copy(pin, in);
+        field<Rational>(b, L->bsf_time_base_in) = Rational{1, 90000};
+        int ret = api.av_bsf_init(b);
+        Par* pout = nullptr;
+        if (ret == 0 && codec_out &&
+            !(safe_field(b, L->bsf_par_in + (int)sizeof(void*), &pout) &&
+              safe_field(pout, L->par_codec_id, codec_out) && safe_field(pout, L->par_width, width_out) &&
+              safe_field(b, L->bsf_time_base_in + (int)sizeof(Rational), tb_out)))
+            ret = -1002;
+        api.av_bsf_free(&b);
+        return ret;
+    };
+    int id = -1, w = -1;
+    Rational tb{0, 0};
+    int rc = run(nullf ? nullf : annexb, ph, &id, &w, &tb);
+    bool par_ok = rc == 0 && id == field<int>(ph, L->par_codec_id) && w == 48;
+    if (annexb)
+        par_ok = par_ok && run(annexb, pf, nullptr, nullptr, nullptr) < 0 &&
+                 run(annexb, ph, nullptr, nullptr, nullptr) == 0;
+    api.avcodec_parameters_free(&ph);
+    api.avcodec_parameters_free(&pf);
+    return c.ok(par_ok, "AVBSFContext.par_in", "rc " + std::to_string(rc)) &&
+           c.ok(rc == 0 && tb.num == 1 && tb.den == 90000, "AVBSFContext.time_base_in");
+}
+
+// One two-pass encode of a small clip through mp_encoder_open with the
+// tentative stats_out/stats_in offsets: "ok", or what failed.
+static std::string twopass_round_trip(const char* name, const char* opts, const std::string& dir) {
+    const int W = 64, H = 64, N = 6;
+    std::string out = dir + "/twopass_" + name + ".mkv", stats = dir + "/twopass_" + name + ".log";
+    std::vector<uint8_t> y((size_t)N * W * H), u((size_t)N * W * H / 4), v(u.size());
+    for (size_t i = 0; i < y.size(); i++) y[i] = (uint8_t)((i % W) * 3 + (i / (W * H)) * 11 + (i / W) % H);
+    for (size_t i = 0; i < u.size(); i++) u[i] = (uint8_t)(128 + (i % 7)), v[i] = (uint8_t)(120 + (i % 5));
+    char err[512] = {0};
+    std::string verdict = "ok";
+    for (int pass = 1; pass <= 2 && verdict == "ok"; pass++) {
+        MPEncoder* e = mp_encoder_open(out.c_str(), name, W, H, "yuv420p", 25, 1, 200000, 0, 0, 0,
+                                       -1, -1, 1, opts, pass, stats.c_str(), "", 0, 0, 0, err,
+                                       sizeof(err));
+        std::string tag = "pass" + std::to_string(pass);
+        if (!e) {
+            verdict = tag + "-open-failed";
+            break;
+        }
+        bool wok = mp_encoder_write_video_batch(e, y.data(), u.data(), v.data(), nullptr, N, err,
+                                                sizeof(err)) == N;
+        if (mp_encoder_close(e, err, sizeof(err)) < 0 || !wok) verdict = tag + "-encode-failed";
+        if (pass == 1 && verdict == "ok") {
+            FILE* f = fopen(stats.c_str(), "rb");
+            long n = -1;
+            if (f && fseek(f, 0, SEEK_END) == 0) n = ftell(f);
+            if (f) fclose(f);
+            if (n <= 0) verdict = "no-pass1-statistics";
+        }
+    }
+    if (verdict == "ok") {
+        std::vector<int64_t> sizes(64);
+        std::vector<double> a(64), b(64), d(64);
+        std::vector<int8_t> k(64);
+        long n = mp_scan_packets(out.c_str(), 0, sizes.data(), a.data(), b.data(), d.data(), k.data(),
+                                 64, err, sizeof(err));
+        if (n <= 0) verdict = "no-pass2-packets";
+    }
+    remove(out.c_str());
+    remove(stats.c_str());
+    return verdict;
+}
+
+// stats_out and stats_in: the two pointers right before the "bug" option's
+// field, null on a fresh context. Each libvpx/libaom encoder bound runs a
+// two-pass round trip with them; one that passes proves them, and an
+// encoder whose round trip fails keeps its verdict, which refuses its
+// two-pass by name. No round trip passing leaves them unproven, and
+// two-pass is then refused for every encoder that needs them.
+static void check_twopass(Check& c, const std::string& dir) {
+    Ctx* probe = api.avcodec_alloc_context3(nullptr);
+    void* target = nullptr;
+    const void* opt = api.av_opt_find2(probe, "bug", nullptr, 0, 0, &target);
+    int bug = opt ? field<int>(opt, 2 * (int)sizeof(void*)) : -1;
+    char* so = reinterpret_cast<char*>(1);
+    char* si = reinterpret_cast<char*>(1);
+    bool fresh = bug >= 16 && safe_field(probe, bug - 16, &so) && safe_field(probe, bug - 8, &si) &&
+                 !so && !si;
+    api.avcodec_free_context(&probe);
+    struct T { const char* name; const char* opts; };
+    bool proven = false;
+    g_twopass.clear();
+    for (T t : {T{"libvpx-vp9", "speed=8:row-mt=1"}, T{"libaom-av1", "cpu-used=8:usage=realtime"}}) {
+        std::string verdict;
+        if (!api.avcodec_find_encoder_by_name(t.name)) {
+            verdict = "absent";
+        } else if (!fresh) {
+            verdict = "unproven-offsets";
+        } else {
+            g_ctx_stats_out_off = bug - 16;
+            g_ctx_stats_in_off = bug - 8;
+            verdict = twopass_round_trip(t.name, t.opts, dir);
+            proven = proven || verdict == "ok";
+        }
+        g_twopass += (g_twopass.empty() ? "" : " ") + std::string(t.name) + "=" + verdict;
+    }
+    if (!proven) {
+        g_ctx_stats_out_off = g_ctx_stats_in_off = -1;
+        return;
+    }
+    *c.report += "AVCodecContext.stats_out@" + std::to_string(g_ctx_stats_out_off) +
+                 " AVCodecContext.stats_in@" + std::to_string(g_ctx_stats_in_off) + " ";
+}
+
 // Runs every round trip of the bound table, writing its scratch files under
 // `dir`. report receives "Field@offset " for each entry that passed.
 // Returns the number of checks passed, or -1 with the first failing field
@@ -2056,6 +2434,13 @@ EXPORT int mp_check(const char* dir, char* report, int report_len, char* err, in
     Check c;
     c.report = &rep;
     bool ok = check_structs(c, dir) && check_file(c, dir);
+    // the BSF refusal and the encoders' banners are expected: keep them
+    // off stderr
+    int level = api.av_log_get_level();
+    api.av_log_set_level(-8);  // AV_LOG_QUIET
+    ok = ok && check_bsf(c);
+    if (ok) check_twopass(c, dir);
+    api.av_log_set_level(level);
     set_err(report, report_len, rep);
     if (!ok) {
         set_err(err, errlen, c.failed.empty() ? std::string("layout check failed") : c.failed);

@@ -295,14 +295,23 @@ def ensure_loaded() -> ct.CDLL:
             raise MediaError(
                 f"libav from {found} ({lib.mp_version().decode()}) failed the struct "
                 f"layout check: {err.value.decode()}", kind="permanent")
+        twopass = dict(v.split("=", 1) for v in lib.mp_twopass_report().decode().split())
         _binding.update(
             found=found,
             libs=[_mapped_path(p) for p in paths],
             versions=lib.mp_version().decode(),
             checks=report.value.decode().split(),
+            twopass=twopass,
         )
         _lib = lib
-        return lib
+    for name, verdict in twopass.items():
+        if verdict != "ok":
+            from ..utils.log import get_logger
+
+            get_logger().info("media: two-pass round trip of %s at load: %s%s", name, verdict,
+                              " (skipped)" if verdict == "absent" else
+                              "; its two-pass is refused")
+    return lib
 
 
 def _declare(lib: ct.CDLL) -> None:
@@ -347,6 +356,11 @@ def _declare(lib: ct.CDLL) -> None:
         "mp_encoder_write_audio": (ct.c_int, [ct.c_void_p, i16p, ct.c_long, ct.c_char_p,
                                               ct.c_int]),
         "mp_encoder_close": (ct.c_int, [ct.c_void_p, ct.c_char_p, ct.c_int]),
+        "mp_twopass_report": (ct.c_char_p, []),
+        "mp_has_bsf": (ct.c_int, [ct.c_char_p]),
+        "mp_extract_annexb": (ct.c_int, [ct.c_char_p, ct.c_char_p, ct.c_char_p, ct.c_char_p,
+                                         ct.c_int]),
+        "mp_extract_ivf": (ct.c_int, [ct.c_char_p, ct.c_char_p, ct.c_char_p, ct.c_int]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -378,6 +392,43 @@ def binding() -> dict:
 def layout_offset(name: str) -> int:
     """The bound table's offset for `name` ("AVFrame.pts"), -1 when unused."""
     return ensure_loaded().mp_layout(name.encode())
+
+
+def twopass() -> dict:
+    """{encoder: verdict} of the two-pass round trips at load (libvpx-vp9
+    and libaom-av1, the encoders that exchange statistics through
+    AVCodecContext.stats_out/stats_in): "ok", "absent" (not bound, the
+    round trip skipped), or what failed. A failed encoder's two-pass is
+    refused by name."""
+    ensure_loaded()
+    with _lock:
+        return dict(_binding["twopass"])
+
+
+def bitstream_filters(names) -> dict:
+    """{name: whether the bound libav has that bitstream filter}."""
+    lib = ensure_loaded()
+    return {n: lib.mp_has_bsf(n.encode()) == 1 for n in names}
+
+
+def extract_annexb(path: str, bsf_name: str, out_path: str) -> None:
+    """The video stream through the bitstream filter `bsf_name`
+    (h264_mp4toannexb / hevc_mp4toannexb), written raw to `out_path`. A
+    libav without that filter raises naming it."""
+    lib = ensure_loaded()
+    _SCAN_PASSES.labels(op="annexb").inc()
+    err = _err_buf()
+    if lib.mp_extract_annexb(path.encode(), bsf_name.encode(), out_path.encode(), err, 512) < 0:
+        raise MediaError(f"extract_annexb({path}): {err.value.decode()}")
+
+
+def extract_ivf(path: str, out_path: str) -> None:
+    """The video stream's packets as an IVF file at `out_path`."""
+    lib = ensure_loaded()
+    _SCAN_PASSES.labels(op="ivf").inc()
+    err = _err_buf()
+    if lib.mp_extract_ivf(path.encode(), out_path.encode(), err, 512) < 0:
+        raise MediaError(f"extract_ivf({path}): {err.value.decode()}")
 
 
 def codecs(names, encoder: bool = False) -> dict:

@@ -330,8 +330,12 @@ class VideoWriter:
     """Encoder + muxer. Codec/rate-control knobs mirror the reference's
     encoder command builders (lib/ffmpeg.py:61-318): bitrate, gop/bframes,
     and an ffmpeg-style `opts` string ("level=3:slicecrc=1", private
-    options included) applied to the codec context. Two-pass encoding
-    (`pass_num`) is not part of the port's boundary and is refused."""
+    options included) applied to the codec context. `pass_num` 1 or 2
+    runs a two-pass encode with its statistics at `stats_path`: x264
+    keeps them through its own "stats" option, libx265 through
+    x265-params, the others (libvpx, libaom) through the codec context's
+    stats_out/stats_in, which is refused by name where the round trip at
+    load did not prove them."""
 
     def __init__(
         self,

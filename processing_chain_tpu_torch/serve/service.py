@@ -1242,6 +1242,7 @@ class ChainServeService:
 
     def _h_artifact(self, req: live.WebRequest):
         t0 = time.perf_counter()
+        arrived = time.time()  # the heat record's ts: request order
         key = req.path[len("/v1/artifacts/"):]
         if len(key) != _HASH_LEN or any(
             c not in "0123456789abcdef" for c in key
@@ -1284,6 +1285,7 @@ class ChainServeService:
             self.heat.record_read(
                 key, 0, mode="not_modified", size=size,
                 size_class=size_class, tenant=tenant, ttfb_s=ttfb,
+                ts=arrived,
             )
             return 304, "application/octet-stream", b"", extra
         # RFC 9110 single-range parse against the manifest's size —
@@ -1358,6 +1360,7 @@ class ChainServeService:
                 key, sent, mode=mode, size=size, size_class=size_class,
                 tenant=tenant, tier=hit_tier,
                 ttfb_s=ttfb_box[0] if ttfb_box else None, dur_s=dur,
+                ts=arrived,
             )
 
         return status, "application/octet-stream", live.FileBody(

@@ -178,10 +178,14 @@ class HeatLedger:
                     tenant: str = "",
                     tier: Optional[str] = None,
                     ttfb_s: Optional[float] = None,
-                    dur_s: Optional[float] = None) -> None:
+                    dur_s: Optional[float] = None,
+                    ts: Optional[float] = None) -> None:
         """One artifact read (full stream, single-range 206, or
         conditional-GET 304). `tier` is the store tier the read found
-        the bytes in (docs/STORE.md "Tier hierarchy")."""
+        the bytes in (docs/STORE.md "Tier hierarchy"). `ts` is when the
+        request arrived (default: now): a stream is recorded once it
+        completes, after its client may already have sent the next
+        request, so the arrival time keeps the journal in request order."""
         READS.labels(mode=mode).inc()
         if nbytes:
             READ_BYTES.inc(int(nbytes))
@@ -192,6 +196,8 @@ class HeatLedger:
             "bytes": int(nbytes),
             "tenant": tenant,
         }
+        if ts is not None:
+            record["ts"] = round(ts, 6)
         if tier is not None:
             record["tier"] = tier
         if size is not None:

@@ -87,6 +87,12 @@ ENV_INPUTS: dict[str, dict] = {
                   "preserves segment order, so the decoded stream is "
                   "identical at any width",
     },
+    "PC_SCAN_PRIME": {
+        "status": "exempt",
+        "reason": "p01's post-encode shared-scan priming fills a cache of the "
+                  "finished segment's packet tables; the encoded bytes are "
+                  "written before it runs",
+    },
     "PC_STORE_DIR": {
         "status": "exempt",
         "reason": "names WHERE the store lives, never what any artifact "

@@ -189,6 +189,17 @@ class FlowWindow:
         while len(self.snaps) > 2 and self.snaps[1][0] <= cutoff:
             self.snaps.pop(0)
 
+    def far_edge(self, now: float, window_s: float) -> tuple:
+        """The snapshot a window's delta is taken against (two or more
+        kept): the oldest inside the window. Where evaluations come
+        sparser than the window, only the newest lies inside it; the one
+        before it is then the edge, or a step between two evaluations
+        would never read as fresh."""
+        for i, snap in enumerate(self.snaps):
+            if snap[0] >= now - window_s:
+                return self.snaps[min(i, len(self.snaps) - 2)]
+        return self.snaps[0]
+
     def burn(self, now: float, window_s: float) -> Optional[float]:
         """Error-budget burn rate over the trailing window: the error
         fraction of the observations inside it, divided by the budget
@@ -200,11 +211,7 @@ class FlowWindow:
         if len(self.snaps) < 2:
             return None
         t1, c1, i1 = self.snaps[-1]
-        t0, c0, i0 = self.snaps[0]
-        for snap in self.snaps:
-            if snap[0] >= now - window_s:
-                t0, c0, i0 = snap
-                break
+        t0, c0, i0 = self.far_edge(now, window_s)
         if t1 <= t0:
             return None
         d_count = c1 - c0
@@ -373,12 +380,7 @@ class AlertEngine:
             flow.prune(now, self._keep_s)
             delta = 0.0
             if len(flow.snaps) >= 2:
-                far = flow.snaps[0]
-                for snap in flow.snaps:
-                    if snap[0] >= now - window_s:
-                        far = snap
-                        break
-                delta = flow.snaps[-1][1] - far[1]
+                delta = flow.snaps[-1][1] - flow.far_edge(now, window_s)[1]
         if delta < spec.get("min_regrets", 1):
             return []
         labels = {"plane": "store"}

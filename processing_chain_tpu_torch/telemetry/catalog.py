@@ -26,11 +26,13 @@ METRICS: dict[str, str] = {
     # engine/prefetch.py — bounded-queue pipeline
     "chain_queue_depth": "histogram",
     "chain_pipeline_wait_seconds_total": "counter",
-    # io/video.py, io/medialib.py, io/sharedscan.py — the media boundary:
-    # chunk-granular crossings, decoder opens, demux/parse passes that are
-    # not decoder opens, and the shared post-encode scan cache
+    # io/video.py, io/medialib.py, io/sharedscan.py, io/framesizes.py — the
+    # media boundary: chunk-granular crossings, decoder opens, demux/parse
+    # passes that are not decoder opens, the shared post-encode scan cache
+    # and the frame-size memo
     "chain_io_batch_calls_total": "counter",
     "chain_io_decoder_opens_total": "counter",
+    "chain_io_framesizes_cache_hits_total": "counter",
     "chain_io_scan_passes_total": "counter",
     "chain_io_sharedscan_hits_total": "counter",
     "chain_io_sharedscan_misses_total": "counter",

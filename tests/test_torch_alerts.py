@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 
 import pytest
 
@@ -69,6 +70,48 @@ def test_flow_window_prune_keeps_far_edge():
     # one snapshot OLDER than the horizon survives as the far edge
     assert w.snaps[0][0] <= 70.0
     assert len(w.snaps) < 10
+
+
+def test_flow_window_sparse_evaluations_grade_against_the_one_before():
+    """Evaluations sparser than the window leave only the newest
+    snapshot inside it. The port grades against the evaluation before
+    (the reference returns None there and never sees the step)."""
+    from processing_chain_tpu.telemetry import alerts as jalerts
+
+    ours, ref = alerts.FlowWindow(), jalerts.FlowWindow()
+    for w in (ours, ref):
+        w.add(0.0, 0.0, None)
+        w.add(100.0, 100.0, 0.5)
+    assert ours.far_edge(100.0, 30.0) == (0.0, 0.0, 0.0)
+    assert ours.burn(100.0, 30.0) == pytest.approx(0.5 / BUDGET)
+    assert ref.burn(100.0, 30.0) is None
+    # a snapshot inside the window besides the newest: the same edge
+    # as the reference's
+    for w in (ours, ref):
+        w.add(110.0, 200.0, 0.75)
+    assert ours.burn(110.0, 30.0) == ref.burn(110.0, 30.0)
+
+
+def test_regret_step_between_sparse_evaluations_fires(tmp_path):
+    """A regret step between two evaluations farther apart than the
+    fast window fires once and resolves at the next evaluation; the
+    reference's engine grades the same views silent."""
+    from processing_chain_tpu.telemetry import alerts as jalerts
+
+    short = catalog.BURN_RATE_WINDOWS["fast"]["short_s"]
+    ours = _engine(tmp_path / "port")
+    ref = jalerts.AlertEngine(str(tmp_path / "ref"), "rep-a")
+    views = [(100.0, 0), (100.0 + 1.5 * short, 4), (100.0 + 3 * short, 4)]
+    got = {"port": [], "ref": []}
+    for now, regrets in views:
+        for name, eng in (("port", ours), ("ref", ref)):
+            r = eng.evaluate({"heat": {"regrets": regrets}}, now=now)
+            got[name].append(([s["rule"] for s in r["fired"]],
+                              len(r["resolved"])))
+    assert got["port"] == [([], 0), (["store_eviction_regret"], 0), ([], 1)]
+    assert got["ref"] == [([], 0), ([], 0), ([], 0)]
+    ours.close()
+    ref.close()
 
 
 # ------------------------------------------------- burn rules + dedup
@@ -586,3 +629,33 @@ def test_autoscale_signal_equals_the_reference(tmp_path):
     assert len(desired) > 2
     assert alerts.latest_scale(str(tmp_path / "p")) == \
         jalerts.latest_scale(str(tmp_path / "r"))
+
+
+def test_breach_soak_sees_its_alerts_with_slow_evaluations(tmp_path,
+                                                          monkeypatch):
+    """`tools fleet-doctor --soak` with every fleet view 0.2 s slower,
+    so that the control ticks come farther apart than the soak's 0.3 s
+    fast window: the eviction regret, a step between two ticks, still
+    fires, with the other two expected alerts, and all resolve."""
+    import types
+
+    from processing_chain_tpu_torch.telemetry import fleet
+    from processing_chain_tpu_torch.tools import fleet_doctor
+
+    view = fleet.fleet_view
+
+    def slow_view(*args, **kwargs):
+        time.sleep(0.2)
+        return view(*args, **kwargs)
+
+    monkeypatch.setattr(fleet, "fleet_view", slow_view)
+    out = tmp_path / "soak.json"
+    rc = fleet_doctor.run_soak(types.SimpleNamespace(
+        root=str(tmp_path / "soak"), out=str(out)))
+    report = json.loads(out.read_text())
+    assert rc == 0 and report["failures"] == []
+    assert set(report["alerts"]["fired"]) == {
+        "slo_burn_queue_wait", "store_eviction_regret",
+        "fleet_replica_stale"}
+    assert all(v["state"] == "resolved"
+               for v in report["alerts"]["lifecycle"].values())

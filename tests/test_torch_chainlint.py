@@ -55,14 +55,14 @@ JAX_REGISTRIES = {
 }
 PORT_QUEUE = os.path.join(REPO, "processing_chain_tpu_torch", "serve", "queue.py")
 SERVE_DOC = os.path.join(REPO, "docs", "SERVE.md")
-#: the 10 doc-drift names the port's baseline grandfathers, by the Queue A
+#: the 8 doc-drift names the port's baseline grandfathers, by the Queue A
 #: item (ROADMAP.md) whose port declares them (the media boundary's io and
-#: adoption names are declared in the port's catalog)
+#: adoption names, and io/framesizes' memo counter, are declared in the
+#: port's catalog)
 PENDING = {
     "4b": ("chain_priors_extract_total", "chain_priors_cache_hits_total",
            "chain_priors_frames_total", "chain_priors_mvs_total",
            "chain_priors_extract_seconds"),
-    10: ("chain_io_framesizes_cache_hits_total",),
     11: ("chain_media_faults_injected_total", "chain_media_deadline_expired_total",
          "chain_isolated_decodes_total"),
 }
@@ -384,7 +384,7 @@ def test_port_baseline_holds_the_pending_names_with_their_items():
     assert bl.DEFAULT_BASELINE == "processing_chain_tpu_torch/tools/chainlint/baseline.json"
     got = {e.snippet: e for e in entries}
     want = {name: item for item, names in PENDING.items() for name in names}
-    assert sorted(got) == sorted(want) and len(entries) == 9
+    assert sorted(got) == sorted(want) and len(entries) == 8
     for name, entry in got.items():
         assert (entry.rule, entry.path, entry.symbol) == (
             "telemetry-name", "docs/TELEMETRY.md", "doc-drift")
@@ -461,7 +461,7 @@ def _port_cli(cwd, *args):
 def test_bare_gate_is_clean_on_the_port_without_jax():
     proc = _port_cli(REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "chain-lint: OK — 0 findings, 9 baselined in " in proc.stdout
+    assert "chain-lint: OK — 0 findings, 8 baselined in " in proc.stdout
     assert "jax loaded: False" in proc.stdout
 
 
@@ -502,7 +502,7 @@ def test_seeded_violations_fail_the_gate_by_name(tmp_path):
     for _, _, named in SEEDED:
         assert named in proc.stdout, named
     assert "chain-lint: FAIL — 4 finding(s) (plan-purity: 1, queue-transition: 1, " \
-        "subprocess-hygiene: 1, telemetry-name: 1), 9 baselined" in proc.stdout
+        "subprocess-hygiene: 1, telemetry-name: 1), 8 baselined" in proc.stdout
 
 
 # ----------------------------------------------------------------- bufpool

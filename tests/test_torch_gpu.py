@@ -1233,3 +1233,81 @@ def test_fused_p03_on_the_card_writes_the_cpu_files(cuda, tmp_path, monkeypatch)
     assert launches["si_frames_fused"] == launches["ti_frames_fused"] == 3
     assert n_out == 120 + 90
     assert cpu.pvses.keys() == card.pvses.keys()
+
+
+def test_p01_on_the_card_equals_the_cpu_route(cuda, tmp_path, monkeypatch):
+    """The port's p01 stage on cuda:0 and on the CPU over chip_smoke's
+    phase 18 (h) database cut to 256x144 sources (rungs 128x72 at 30 fps
+    from 60 and 192x108; the 10-bit SRC at 192x108), the encoder replaced
+    by the smoke's recording writer: every u8 encoder-input plane's sha1
+    equal, u16 planes within a code value, frame counts the plan's, and 3
+    resize launches a chunk on the card."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "SRC_H", 144)
+    monkeypatch.setattr(cs, "SRC_W", 256)
+    monkeypatch.setattr(cs, "P00_YAML", cs.P00_YAML.replace(
+        "width: 640, height: 360", "width: 128, height: 72").replace(
+        "width: 1280, height: 720", "width: 192, height: 108").replace(
+        "displayWidth: 1920, displayHeight: 1080, codingWidth: 1920, codingHeight: 1080",
+        "displayWidth: 256, displayHeight: 144, codingWidth: 256, codingHeight: 144"))
+    media = tmp_path / "media"
+    (media / "srcVid").mkdir(parents=True)
+    clip = cs.synthetic_clip(120, 60, False, cs.SEED + 120, 144, 256)
+    cs.write_media(str(media / "srcVid" / "SRC000.avi"), clip, 60, "yuv420p",
+                   cs.media_tone(120 * 48000 // 60, cs.SEED))
+    cs.write_media(str(media / "srcVid" / "SRC001.avi"),
+                   cs.synthetic_clip(64, 64, True, cs.SEED + 64, 144, 256), 32,
+                   "yuv420p10le", None)
+    db = cs.p00_database(str(tmp_path), str(media / "P2STR18.yaml"), clip)
+    out = cs.p01_in_process(cuda, db, str(tmp_path), "")
+    assert out["frames"] == {f"{cs.P00_DB}_SRC000_Q0_VC01_0000_0-1.mp4": 30,
+                             f"{cs.P00_DB}_SRC000_Q1_VC01_0001_1-2.mp4": 60,
+                             f"{cs.P00_DB}_SRC001_Q1_VC01_0000_0-1.mp4": 32}
+    assert out["launches"]["resize_frames_fused"] == 3 * out["chunks"] > 0
+    assert out["u16_max_err"] <= 1
+
+
+#: encoder -> (container, p01's options for it, its statistics files)
+CARD_TWO_PASS = {
+    "libx264": ("mp4", "preset=ultrafast", ("",)),
+    "libx265": ("mp4", "x265-params=log-level=error\\:pass={p}\\:stats={s}", ("", ".cutree")),
+    "libvpx-vp9": ("webm", "quality=good:speed={speed}:row-mt=1", ("",)),
+    "libaom-av1": ("mkv", "cpu-used=8:usage=realtime", ("",)),
+}
+
+
+@pytest.mark.parametrize("encoder", sorted(CARD_TWO_PASS))
+def test_two_pass_writer_round_trip_on_the_card_host(cuda, tmp_path, encoder):
+    """A two-pass encode through the port's writer with the libav the card's
+    host binds, as p01 runs it (pass 1 to a temporary, pass 2 from its
+    statistics), read back through the port's reader; an encoder that libav
+    lacks, or whose round trip at load failed, is skipped by name."""
+    from processing_chain_tpu_torch.io import medialib
+    from processing_chain_tpu_torch.io.video import VideoReader, VideoWriter
+
+    if not medialib.codecs([encoder], encoder=True)[encoder]:
+        pytest.skip(f"the bound libav has no {encoder} encoder")
+    verdict = medialib.twopass().get(encoder, "ok")
+    if verdict != "ok":
+        pytest.skip(f"{encoder}'s two-pass round trip at load read {verdict}")
+    ext, opts, suffixes = CARD_TWO_PASS[encoder]
+    rng = np.random.default_rng(22)
+    frames = [(rng.integers(0, 256, (144, 256), dtype=np.uint8),
+               rng.integers(0, 256, (72, 128), dtype=np.uint8),
+               rng.integers(0, 256, (72, 128), dtype=np.uint8)) for _ in range(12)]
+    stats, out = str(tmp_path / "stats"), str(tmp_path / f"seg.{ext}")
+    for p in (1, 2):
+        path = out + (f".pass1.tmp.{ext}" if p == 1 else "")
+        with VideoWriter(path, encoder, 256, 144, "yuv420p", (24, 1), bitrate_kbps=300,
+                         threads=1, opts=opts.format(p=p, s=stats, speed=4 if p == 1 else 1),
+                         pass_num=p, stats_path=stats) as w:
+            for f in frames:
+                w.write(*f)
+        if p == 1:
+            os.unlink(path)
+    for suffix in suffixes:
+        assert os.path.getsize(stats + suffix) > 0, suffix
+    with VideoReader(out) as r:
+        stacks, _ = r.read_all()
+    assert stacks[0].shape == (12, 144, 256)

@@ -102,6 +102,7 @@ LAYOUT_PROBE = r"""
 #include <stddef.h>
 #include <stdio.h>
 #include <libavcodec/avcodec.h>
+#include <libavcodec/bsf.h>
 #include <libavformat/avformat.h>
 #include <libavutil/pixdesc.h>
 #define P(T, F, N) printf("%s %d\n", N, (int)offsetof(T, F));
@@ -146,6 +147,10 @@ P(AVPixFmtDescriptor, log2_chroma_h, "AVPixFmtDescriptor.log2_chroma_h")
 P(AVPixFmtDescriptor, comp[0].depth, "AVPixFmtDescriptor.comp0_depth")
 P(AVCodec, sample_fmts, "AVCodec.sample_fmts")
 P(AVCodecContext, coded_width, "AVCodecContext.coded_width")
+P(AVCodecContext, stats_out, "AVCodecContext.stats_out")
+P(AVCodecContext, stats_in, "AVCodecContext.stats_in")
+P(AVBSFContext, par_in, "AVBSFContext.par_in")
+P(AVBSFContext, time_base_in, "AVBSFContext.time_base_in")
 printf("versions %d %d %d\n", LIBAVUTIL_VERSION_MAJOR, LIBAVFORMAT_VERSION_MAJOR,
        LIBAVCODEC_VERSION_MAJOR);
 return 0;
@@ -173,13 +178,18 @@ def test_layout_table_equals_offsetof_from_the_headers(header_offsets):
     binding = tml.binding()
     assert re.match(rf"lavu {versions[0]}\.\d+\.\d+ lavf {versions[1]}\.\d+\.\d+ "
                     rf"lavc {versions[2]}\.", binding["versions"])
-    coded = int(header_offsets.pop("AVCodecContext.coded_width"))
+    # the AVCodecContext fields reached from an option's offset, each
+    # proved by a round trip: the coded dims, and the two-pass statistics
+    # (stats_out/stats_in) by the libvpx/libaom two-pass encodes at load
+    derived = [n for n in header_offsets if n.startswith("AVCodecContext.")]
+    for name in derived:
+        assert f"{name}@{header_offsets.pop(name)}" in binding["checks"], name
+    assert binding["twopass"] == {"libvpx-vp9": "ok", "libaom-av1": "ok"}
     for name, off in header_offsets.items():
         assert tml.layout_offset(name) == int(off), name
-    assert f"AVCodecContext.coded_width@{coded}" in binding["checks"]
-    # every table entry (and the coded dims) was exercised by a round trip
+    # every table entry (and the derived fields) was exercised by a round trip
     assert sorted(c.split("@")[0] for c in binding["checks"]) == sorted(
-        [*header_offsets, "AVCodecContext.coded_width"])
+        [*header_offsets, *derived])
 
 
 def test_media_source_includes_no_libav_header():
@@ -402,14 +412,104 @@ def test_writer_output_reads_back_through_jax(tmp_path, case, batch):
 
 
 def test_writer_refuses_what_it_does_not_carry(tmp_path):
-    with pytest.raises(tml.MediaError, match="two-pass"):
-        TWriter(str(tmp_path / "a.mp4"), "libx264", W, H, pass_num=1, stats_path="s")
+    """Two-pass is carried now: a pass-1 x264 writer opens and writes its
+    statistics file. Frame-parallel FFV1 stays single-pass and intra-only;
+    an unknown encoder or pixel format is refused by name."""
+    stats = str(tmp_path / "s")
+    with TWriter(str(tmp_path / "a.mp4"), "libx264", W, H, threads=1, opts="preset=ultrafast",
+                 pass_num=1, stats_path=stats) as w:
+        for planes in seeded_planes("yuv420p", 3):
+            w.write(*planes)
+    assert os.path.getsize(stats) > 0
+    with pytest.raises(tml.MediaError, match="single-pass"):
+        TWriter(str(tmp_path / "e.avi"), "ffv1", W, H, opts="pc_fp_workers=2", pass_num=1,
+                stats_path=stats)
     with pytest.raises(tml.MediaError, match="intra-only"):
         TWriter(str(tmp_path / "b.mp4"), "libx264", W, H, opts="pc_fp_workers=2")
     with pytest.raises(tml.MediaError, match="no encoder"):
         TWriter(str(tmp_path / "c.avi"), "no-such-encoder", W, H)
     with pytest.raises(tml.MediaError, match="bad pix_fmt"):
         TWriter(str(tmp_path / "d.avi"), "ffv1", W, H, pix_fmt="nope")
+
+
+#: encoder -> (container, the options p01 gives it, its own statistics files)
+TWO_PASS = {
+    "libx264": ("mp4", "preset=ultrafast", ("",)),
+    "libx265": ("mp4", "x265-params=log-level=error\\:pass={p}\\:stats={s}", ("", ".cutree")),
+    "libvpx-vp9": ("webm", "quality=good:speed={speed}:row-mt=1", ("",)),
+    "libaom-av1": ("mkv", "cpu-used=8:usage=realtime", ("",)),
+}
+
+
+@pytest.mark.parametrize("encoder", sorted(TWO_PASS))
+def test_two_pass_writer_equals_jax(tmp_path, encoder):
+    """A two-pass encode through each package's writer, as p01 runs it
+    (pass 1 to a temporary, pass 2 reading the statistics): the same
+    statistics files (x264's and x265's own, libvpx/libaom's collected
+    stats_out), the same elementary stream (IVF for VP9/AV1, whose WebM/
+    Matroska containers carry a random segment UID; the whole file for
+    MP4), and the port's file decodes through the JAX reader."""
+    ext, opts, suffixes = TWO_PASS[encoder]
+    planes = seeded_planes("yuv420p", 12)
+    out = {}
+    for tag, cls in (("t", TWriter), ("j", JWriter)):
+        stats = str(tmp_path / f"stats_{tag}")
+        for p in (1, 2):
+            path = str(tmp_path / f"{tag}.{ext}") + (f".pass1.tmp.{ext}" if p == 1 else "")
+            o = opts.format(p=p, s=stats, speed=4 if p == 1 else 1)
+            with cls(path, encoder, W, H, "yuv420p", (24, 1), bitrate_kbps=150, threads=1,
+                     opts=o, pass_num=p, stats_path=stats) as w:
+                for frame in planes:
+                    w.write(*frame)
+            if p == 1:
+                os.unlink(path)
+        out[tag] = (str(tmp_path / f"{tag}.{ext}"), stats)
+    for suffix in suffixes:
+        with open(out["t"][1] + suffix, "rb") as a, open(out["j"][1] + suffix, "rb") as b:
+            got, want = a.read(), b.read()
+        assert got and got == want, suffix
+    if ext == "mp4":
+        with open(out["t"][0], "rb") as a, open(out["j"][0], "rb") as b:
+            assert a.read() == b.read()
+    else:
+        tml.extract_ivf(out["t"][0], str(tmp_path / "t.ivf"))
+        jml.extract_ivf(out["j"][0], str(tmp_path / "j.ivf"))
+        assert (tmp_path / "t.ivf").read_bytes() == (tmp_path / "j.ivf").read_bytes()
+    with JReader(out["t"][0]) as r:
+        stacks, _ = r.read_all()
+    assert stacks[0].shape == (12, H, W)
+
+
+#: fixture -> the extraction p02 runs on it (a bitstream filter, or IVF)
+EXTRACTS = {"h264_aac.mp4": "h264_mp4toannexb", "hevc.mkv": "hevc_mp4toannexb",
+            "vp9.webm": "ivf"}
+
+
+@pytest.mark.parametrize("name", sorted(EXTRACTS))
+def test_extractions_equal_jax(tmp_path, name):
+    """extract_annexb / extract_ivf write the JAX boundary's bytes (the
+    filtered Annex-B stream, the IVF file) from each fixture."""
+    path = os.path.join(fx.ASSETS, name)
+    how = EXTRACTS[name]
+    t, j = str(tmp_path / "t.bin"), str(tmp_path / "j.bin")
+    if how == "ivf":
+        tml.extract_ivf(path, t)
+        jml.extract_ivf(path, j)
+    else:
+        tml.extract_annexb(path, how, t)
+        jml.extract_annexb(path, how, j)
+    with open(t, "rb") as a, open(j, "rb") as b:
+        got, want = a.read(), b.read()
+    assert got == want and len(got) > 1000
+    assert got[:4] == (b"DKIF" if how == "ivf" else b"\x00\x00\x00\x01")
+
+
+def test_extraction_refuses_a_missing_filter_by_name(tmp_path):
+    with pytest.raises(tml.MediaError, match="no bitstream filter no_such_bsf"):
+        tml.extract_annexb(os.path.join(fx.ASSETS, "h264_aac.mp4"), "no_such_bsf",
+                           str(tmp_path / "x.h264"))
+    with pytest.raises(tml.MediaError, match="open_input"):
+        tml.extract_ivf(str(tmp_path / "missing.webm"), str(tmp_path / "x.ivf"))
 
 
 def test_async_writer_encodes_tensors_and_recycles_blocks(tmp_path):

@@ -445,6 +445,59 @@ def test_service_read_path_etag_heat_and_regret(tmp_path):
         svc.stop()
 
 
+def test_heat_journal_keeps_request_order_when_a_stream_completes_late(
+        tmp_path):
+    """A 200's read record is appended when its stream completes, which
+    can be after its client has already had the 304 of its next request
+    answered and journalled. The journal orders reads by their arrival,
+    so the 200 still comes first: the record's completion is held back
+    here until the 304 is in the journal."""
+    from processing_chain_tpu_torch.serve.service import ChainServeService
+
+    root = str(tmp_path / "serve")
+    svc = ChainServeService(root=root, port=0, executor="synthetic",
+                            workers=2).start()
+    try:
+        rid = svc.submit({
+            "tenant": "t0", "priority": "normal", "database": "P2STR01",
+            "srcs": ["SRC101"], "hrcs": ["HRC100"],
+            "params": {"geometry": [64, 36], "size_bytes": 2048},
+        })["request"]
+        assert svc.wait_request(rid, timeout=30.0) == "done"
+        plan = next(
+            iter(svc.request_status(rid)["units"].values()))["plan"]
+        url = f"{svc.server.url}/v1/artifacts/{plan}?tenant=t0"
+        heat_dir = store_heat.heat_dir(svc.store.root)
+        record_read = svc.heat.record_read
+
+        def late_full(*args, **kwargs):
+            if kwargs.get("mode") == "full":
+                deadline = time.monotonic() + 10.0
+                while time.monotonic() < deadline and not any(
+                        r.get("mode") == "not_modified"
+                        for r in store_heat.read_journals(heat_dir)):
+                    time.sleep(0.01)
+            record_read(*args, **kwargs)
+
+        svc.heat.record_read = late_full
+        status, headers, body = _get(url)
+        assert status == 200 and len(body) == 2048
+        status, _, body = _get(url, etag=headers["ETag"])
+        assert status == 304 and body == b""
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            records = [r for r in store_heat.read_journals(heat_dir)
+                       if r["kind"] == "read"]
+            if len(records) == 2:
+                break
+            time.sleep(0.01)
+        # the 304 was journalled first, yet reads in request order
+        assert [r["mode"] for r in records] == ["full", "not_modified"]
+        assert records[0]["seq"] > records[1]["seq"]
+    finally:
+        svc.stop()
+
+
 def test_fleet_view_carries_heat_and_read_slo(tmp_path):
     """/fleet must roll the read path up: the tail-sampled heat summary
     (durable — works with every replica dead) and the merged read-SLO
